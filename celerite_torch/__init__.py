@@ -1,0 +1,28 @@
+"""celerite_torch: the PyTorch / CUDA port of celerite_tpu.
+
+Scalable 1-D Gaussian-process likelihoods with celerite kernels, computed
+on an NVIDIA H100 through hand-written CUDA kernels, with plain PyTorch
+versions of the same functions for the CPU.  The module names mirror the
+JAX package's (``celerite_tpu``), which stays the reference; this package
+imports neither JAX nor ``celerite_tpu``.
+
+Entry points compute on ``cuda`` unless given ``device="cpu"``.
+"""
+
+from . import modeling, ops, terms
+from .gp import GP, LinAlgError
+from .modeling import ConstantModel, Model, ModelSet
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "GP",
+    "LinAlgError",
+    "Model",
+    "ModelSet",
+    "ConstantModel",
+    "modeling",
+    "ops",
+    "terms",
+    "__version__",
+]

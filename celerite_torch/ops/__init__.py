@@ -1,0 +1,11 @@
+"""Numeric core of the port: lowering, oracles, lane plan, fused primal.
+
+- ``kernels``: closed-form kernel / PSD evaluation
+- ``poly``: polynomial algebra + Sturm PSD positivity check (numpy)
+- ``ds``: double-single phase reduction for the float32 lowering
+- ``lower``: coefficient arrays -> semiseparable (U, V, phi, A) lowering
+- ``dense``: O(N^3) dense oracle (tests only)
+- ``seq``: sequential solver (oracle; CPU route below N = 4096)
+- ``lanes4``: the per-dataset lane plan and the packed coefficient vector
+- ``fused4``: the fused primal: the CUDA kernel and its plain version
+"""

@@ -1,0 +1,37 @@
+"""Dense O(N^3) oracle solver (tests only).
+
+Port of ``celerite_tpu/ops/dense.py`` (the reference's ``DirectSolver``
+analog): used to validate the O(N) solvers, never on a hot path.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .kernels import kernel_value
+
+__all__ = ["build_matrix", "log_likelihood"]
+
+
+def build_matrix(coeffs, t, diag=None, include_jitter=True):
+    """Dense covariance matrix K(t, t) with diag and jitter."""
+    a_real, c_real, a_comp, b_comp, c_comp, d_comp, jitter = coeffs
+    tau = t[:, None] - t[None, :]
+    k = kernel_value(a_real, c_real, a_comp, b_comp, c_comp, d_comp, tau)
+    n = t.shape[0]
+    eye = torch.eye(n, dtype=k.dtype, device=k.device)
+    if include_jitter:
+        k = k + jitter * eye
+    if diag is not None:
+        k = k + torch.diag(torch.as_tensor(diag, dtype=k.dtype, device=k.device))
+    return k
+
+
+def log_likelihood(K, resid):
+    """Dense multivariate-normal log-likelihood of ``resid`` under cov K."""
+    n = K.shape[0]
+    _, logdet = torch.linalg.slogdet(K)
+    alpha = torch.linalg.solve(K, resid)
+    return -0.5 * (resid @ alpha + logdet + n * math.log(2.0 * math.pi))
