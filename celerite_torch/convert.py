@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.lanes4 import Plan4
+from .ops.lanes4 import Plan4, resolve_device
 
 __all__ = ["load_parameters", "plan_from_numpy"]
 
@@ -43,14 +43,16 @@ def load_parameters(gp, names, values, unfrozen_mask):
 
 
 def plan_from_numpy(t, t_lo, dt, diag, y, mask, n, num_blocks,
-                    device="cpu") -> Plan4:
+                    device=None) -> Plan4:
     """A port plan from a JAX ``Plan4``'s arrays.
 
     Streams come shaped ``(L, 8, W)`` (the TPU layout) or ``(L, B)``; lane
     ``l = r*W + c`` of the former is column ``l`` of the latter, so a
-    reshape carries them over.
+    reshape carries them over.  ``device`` defaults to ``cuda`` (raising
+    without CUDA), as :func:`celerite_torch.ops.lanes4.make_plan4` does.
     """
     b = int(num_blocks)
+    device = resolve_device(device)
 
     def lanes(x):
         x = np.asarray(x)

@@ -36,16 +36,6 @@ class LinAlgError(Exception):
     """The covariance matrix failed to factor (not positive definite)."""
 
 
-def _resolve_device(device):
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "celerite_torch runs on CUDA by default and no CUDA device is "
-            "available; pass device='cpu' to run on the CPU"
-        )
-    return dev
-
-
 def _not_in_slice(what, item):
     return NotImplementedError(
         "{0}: not ported yet (ROADMAP {1})".format(what, item)
@@ -168,7 +158,7 @@ class GP(ModelSet):
             )
         if precision == "ds":
             dtype = torch.float64
-        device = _resolve_device(self.device)
+        device = lanes4.resolve_device(self.device)
 
         t_np = np.atleast_1d(np.asarray(t, dtype=np.float64))
         y_np = np.asarray(y, dtype=np.float64)

@@ -22,7 +22,8 @@ import torch
 
 from .lower import Coefficients
 
-__all__ = ["Plan4", "make_plan4", "pack_cf", "cf_len", "default_num_blocks4"]
+__all__ = ["Plan4", "make_plan4", "pack_cf", "cf_len", "default_num_blocks4",
+           "resolve_device"]
 
 # Lane counts on an H100 from the sweeps of chip_smoke.py (PERF.md): the
 # kernel is fastest at 32768 lanes for N = 1e6 (P = 2) and at 16-50 steps a
@@ -43,6 +44,21 @@ class Plan4(NamedTuple):
     mask: torch.Tensor   # 1.0 on real rows, 0.0 on pad
     n: int               # unpadded point count
     num_blocks: int      # B virtual lanes (all chains together)
+
+
+def resolve_device(device):
+    """``torch.device`` for a public entry point: ``None`` means ``cuda``.
+
+    Raises when CUDA is asked for (or defaulted to) and no device is
+    present: the port never falls back to the CPU silently.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "celerite_torch runs on CUDA by default and no CUDA device is "
+            "available; pass device='cpu' to run on the CPU"
+        )
+    return dev
 
 
 def default_num_blocks4(n, device):
@@ -70,7 +86,7 @@ def _lanes(x64, b, L):
 
 
 def make_plan4(t, y, diag, num_blocks, dtype=torch.float32, n_chain=1,
-               device="cpu") -> Plan4:
+               device=None) -> Plan4:
     """Host-side plan construction from float64 inputs.
 
     Every lane's first row keeps its true spacing (lanes are seeded by the
@@ -81,6 +97,9 @@ def make_plan4(t, y, diag, num_blocks, dtype=torch.float32, n_chain=1,
     ``num_blocks``-lane layout is tiled ``n_chain`` times along the lane
     axis, so one launch evaluates ``n_chain`` models of the same data; the
     cross-lane prefixes are segmented at chain boundaries.
+
+    ``device`` defaults to ``cuda`` (raising without CUDA); the tests pass
+    ``device="cpu"``.
     """
     b = int(num_blocks)
     nc = int(n_chain)
@@ -88,6 +107,7 @@ def make_plan4(t, y, diag, num_blocks, dtype=torch.float32, n_chain=1,
         raise ValueError("num_blocks must be a power of two >= 8")
     if nc & (nc - 1) or nc < 1:
         raise ValueError("n_chain must be a power of two")
+    device = resolve_device(device)
     t = np.asarray(t, np.float64)
     y = np.asarray(y, np.float64)
     diag = np.broadcast_to(np.asarray(diag, np.float64), t.shape)

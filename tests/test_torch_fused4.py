@@ -27,7 +27,7 @@ def _plans(jr, jc, n_chain=1, seed=0):
     t, y, yerr = make_data(N, seed=seed)
     pj = jl4.make_plan4(t, y, yerr**2, B, dtype=np.float64, n_chain=n_chain)
     pt = lanes4.make_plan4(t, y, yerr**2, B, dtype=torch.float64,
-                           n_chain=n_chain)
+                           n_chain=n_chain, device="cpu")
     return (t, y, yerr), pj, pt
 
 

@@ -86,7 +86,7 @@ def test_plan_matches_jax(n_chain, dtype):
     pj = jl4.make_plan4(t, y, yerr**2, b, dtype=np.dtype(dtype),
                         n_chain=n_chain)
     pt = tl4.make_plan4(t, y, yerr**2, b, dtype=getattr(torch, dtype),
-                        n_chain=n_chain)
+                        n_chain=n_chain, device="cpu")
     L = pj.t.shape[0]
     assert pt.n == pj.n and pt.num_blocks == pj.num_blocks
     for name in ("t", "t_lo", "dt", "diag", "y", "mask"):
@@ -95,7 +95,8 @@ def test_plan_matches_jax(n_chain, dtype):
     # The converter reproduces the port's plan from the JAX arrays.
     pc = convert.plan_from_numpy(
         *[np.asarray(getattr(pj, k)) for k in
-          ("t", "t_lo", "dt", "diag", "y", "mask")], pj.n, pj.num_blocks)
+          ("t", "t_lo", "dt", "diag", "y", "mask")], pj.n, pj.num_blocks,
+        device="cpu")
     for name in ("t", "t_lo", "dt", "diag", "y", "mask"):
         assert torch.equal(getattr(pc, name), getattr(pt, name))
 
@@ -115,6 +116,20 @@ def test_pack_cf_matches_jax(jr, jc, vals, dtype):
 def test_plan_rejects_bad_lane_counts():
     t, y, yerr = make_data(32)
     with pytest.raises(ValueError):
-        tl4.make_plan4(t, y, yerr**2, 12)
+        tl4.make_plan4(t, y, yerr**2, 12, device="cpu")
     with pytest.raises(ValueError):
-        tl4.make_plan4(t, y, yerr**2, 16, n_chain=3)
+        tl4.make_plan4(t, y, yerr**2, 16, n_chain=3, device="cpu")
+
+
+def test_plan_defaults_to_cuda():
+    """Without ``device`` the plan goes to the card, as the GP's entry
+    points do; with no CUDA device that raises instead of building CPU
+    streams silently."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    t, y, yerr = make_data(64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tl4.make_plan4(t, y, yerr**2, 8)
+    arrays = [np.zeros((8, 8))] * 6
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.plan_from_numpy(*arrays, 64, 8)
