@@ -4,11 +4,12 @@ Each kernel source under ``celerite_torch/csrc/`` has a plain C interface
 and includes no PyTorch header, so one ``nvcc`` call takes seconds.  A
 source is compiled once per set of ``-D`` defines (the fused primal kernel
 is specialised on its padded width P) into ``build/kernels/`` beside the
-package, named by a hash of the source, the defines and the flags, so an
-edited source never loads a stale library.  Builds happen at first use, or
-all together through :func:`build` (one ``nvcc`` process per library,
-started at once).  ``ptxas -v`` output (registers, spills) is kept next to
-each library as ``<name>.ptxas.txt``.
+package, named by a hash of the source, the shared headers
+(``csrc/*.cuh``), the defines and the flags, so an edited source or header
+never loads a stale library.  Builds happen at first use, or all together
+through :func:`build` (one ``nvcc`` process per library, started at
+once).  ``ptxas -v`` output (registers, spills) is kept next to each
+library as ``<name>.ptxas.txt``.
 
 No ``--use_fast_math``: it would turn ``expf``/``sincosf`` into approximate
 intrinsics and flush denormals.
@@ -23,7 +24,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "build", "load", "nvcc"]
+__all__ = ["BUILD_DIR", "CSRC", "SOURCE_FLAGS", "build", "load", "nvcc"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -31,6 +32,14 @@ FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# Extra flags per source.  The gradient kernels are compiled without fma
+# contraction so that they round as their plain versions do: with
+# contraction the float32 kernels sat up to 9.4e-3 (relative, per-lane
+# outputs at N = 1e5) from the float32 plain versions, without it 4.7e-6,
+# and float64 moved from 1.5e-11 to 1.2e-14 (PERF.md).  The primal
+# keeps the default.
+SOURCE_FLAGS = {"fused4_grad.cu": ("-fmad=false",)}
 
 _loaded: dict = {}
 
@@ -50,13 +59,16 @@ def nvcc():
 def _target(source, defines):
     src = CSRC / source
     defs = tuple("-D{0}={1}".format(k, v) for k, v in sorted(defines.items()))
+    # The shared headers are part of every source's key.
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    extra = defs + SOURCE_FLAGS.get(source, ())
     key = hashlib.sha256(
-        src.read_bytes() + repr((defs, FLAGS)).encode()
+        src.read_bytes() + headers + repr((extra, FLAGS)).encode()
     ).hexdigest()[:12]
     tag = "_".join("{0}{1}".format(k.lower(), v)
                    for k, v in sorted(defines.items()))
     out = BUILD_DIR / "{0}_{1}_{2}.so".format(src.stem, tag, key)
-    return src, defs, out
+    return src, extra, out
 
 
 def build(jobs):
@@ -68,11 +80,11 @@ def build(jobs):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = [_target(s, d) for s, d in jobs]
     procs = []
-    for src, defs, out in targets:
+    for src, extra, out in targets:
         if out.exists():
             continue
         tmp = out.with_suffix(".{0}.tmp".format(os.getpid()))
-        cmd = [nvcc(), *FLAGS, *defs, "-o", str(tmp), str(src)]
+        cmd = [nvcc(), *FLAGS, *extra, "-o", str(tmp), str(src)]
         procs.append((out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))

@@ -1,8 +1,8 @@
 """GP orchestration API of the port.
 
-Port of ``celerite_tpu/gp.py:34-256, 279-610, 1160-1219``: a ModelSet of
-``kernel`` and ``mean`` submodels with ``compute`` / ``log_likelihood``, and
-the pure closures the fits and samplers call,
+Port of ``celerite_tpu/gp.py:34-277, 279-810, 1160-1219``: a ModelSet of
+``kernel`` and ``mean`` submodels with ``compute`` / ``log_likelihood`` /
+``grad_log_likelihood``, and the pure closures the fits and samplers call,
 ``build_loglik`` (``theta_active -> (ll, ok)``) and ``build_logprob``
 (``theta_active -> ll + log prior``).
 
@@ -12,6 +12,14 @@ above; on the card the CUDA fused primal kernel at every N, over a lane plan
 built once per dataset.  Entry points run on ``cuda`` unless the GP was made
 with ``device="cpu"``, and raise when CUDA is missing; they never fall back
 to the CPU.
+
+The fused closure also carries the value-and-gradient entries the samplers
+call, through the gradient pipeline (``fused4.build_ll_and_grad``):
+``value_ok_grad_batch(thetas)`` for ``(n, dim)`` parameter rows folds the
+rows onto the kernels' lane axis (one launch of each kernel for every
+chunk of rows; the torch counterpart of ``celerite_tpu/ops/vog_prim.py``'s
+batching rule, gp.py:744-809), and ``value_ok_grad(theta) -> (ll, ok,
+grad)`` is that entry on one row.
 """
 
 from __future__ import annotations
@@ -30,6 +38,10 @@ __all__ = ["GP", "LinAlgError"]
 # Below this many points the CPU takes the sequential solver (the JAX
 # package's CPU route, celerite_tpu/gp.py:507-508).
 _SEQ_BELOW = 4096
+# Share of the card's memory (on the CPU: bytes) that one folded launch's
+# per-step saves may take; it sets the chains per launch (_fold_cap).
+_FOLD_MEMORY_SHARE = 0.25
+_FOLD_CPU_BYTES = 1 << 30
 
 
 class LinAlgError(Exception):
@@ -40,6 +52,27 @@ def _not_in_slice(what, item):
     return NotImplementedError(
         "{0}: not ported yet (ROADMAP {1})".format(what, item)
     )
+
+
+def _fold_cap(n, p, dtype, device):
+    """Chains per folded launch: a power of two whose per-step saves fit.
+
+    The gradient pipeline writes ``(4 P^2 + P)`` words a point and chain
+    (fused4_grad.cu); a folded launch of ``nc`` chains holds ``nc`` times
+    that.  On the card the saves may take ``_FOLD_MEMORY_SHARE`` of its
+    memory, on the CPU ``_FOLD_CPU_BYTES``.
+    """
+    item = torch.finfo(dtype).bits // 8
+    per_chain = max(n, 1) * (4 * p * p + p + 8) * item
+    if device.type == "cuda":
+        budget = _FOLD_MEMORY_SHARE * torch.cuda.get_device_properties(
+            device).total_memory
+    else:
+        budget = _FOLD_CPU_BYTES
+    cap = 1
+    while 2 * cap * per_chain <= budget:
+        cap *= 2
+    return cap
 
 
 def _mean_value_fn(mean_model):
@@ -134,6 +167,28 @@ class GP(ModelSet):
             raise LinAlgError("failed to factorize or solve matrix")
         return float(ll)
 
+    def grad_log_likelihood(self, y, quiet=False):
+        """``(ll, grad)`` with respect to the active parameter vector.
+
+        One reverse pass through :meth:`build_loglik`'s closure (on the card
+        through the gradient kernels).  A kernel that does not factor raises
+        LinAlgError, or gives ``(-inf, zeros)`` with ``quiet=True``.
+        """
+        if self._t is None:
+            raise RuntimeError("you must call 'compute' first")
+        y = np.asarray(y, dtype=float)
+        if y.ndim > 1 or len(y) != len(self._t):
+            raise ValueError("dimension mismatch")
+        fn = self.build_loglik(self._t, y, diag=self._diag)
+        theta = torch.tensor(self.get_parameter_vector(), requires_grad=True)
+        ll, ok = fn(theta)
+        if not bool(ok):
+            if quiet:
+                return -np.inf, np.zeros(self.vector_size)
+            raise LinAlgError("failed to factorize or solve matrix")
+        (grad,) = torch.autograd.grad(ll, theta)
+        return float(ll.detach()), grad.numpy()
+
     # -- pure closures --------------------------------------------------------
     def build_loglik(self, t, y, yerr=1.123e-12, diag=None, solver="auto",
                      block_size=None, fast_grad=False, precision=None,
@@ -147,11 +202,15 @@ class GP(ModelSet):
         version on the CPU) or "auto".  ``block_size`` sets the plan's lane
         count B.  ``dtype`` is the working precision (float32 or float64);
         ``precision="ds"`` means float64, which the card computes natively.
-        On the CPU ``ll`` is differentiable with autograd.
+        ``ll`` is differentiable with autograd; on the card its backward
+        runs the gradient kernels.  The fused closure carries
+        ``value_ok_grad`` and ``value_ok_grad_batch`` (module docstring)
+        whatever ``fast_grad`` says, as JAX's does; ``fast_grad="tangent"``
+        (the forward-mode kernels) is not ported yet.
         """
-        if fast_grad:
-            raise _not_in_slice("fast_grad (the gradient kernels)",
-                                "queue 2, items 2-3")
+        if fast_grad == "tangent":
+            raise _not_in_slice("fast_grad='tangent' (the forward-mode "
+                                "kernels)", "queue 2, item 8")
         if precision not in (None, "ds"):
             raise ValueError(
                 "precision must be None or 'ds', got {0!r}".format(precision)
@@ -227,20 +286,85 @@ class GP(ModelSet):
         plan = lanes4.make_plan4(t_np, y_np, diag_np, nb, dtype=dtype,
                                  device=device)
         ll_plan = fused4.build_ll(plan, pr, pc)
+        t_dev = torch.as_tensor(t_np, dtype=torch.float64, device=device)
         if not mean_active:
             # Frozen mean: the residual stream is data, built once.
             y_fixed = plan.y - mean_fn(fixed[nk:], plan.t) * plan.mask
+            y_fold = y_np - np.asarray(mean_fn(fixed[nk:].cpu(),
+                                               t_dev.cpu()), np.float64)
+
+        def cf_of(theta):
+            coeffs, _ = split_theta(theta)
+            return lanes4.pack_cf(coeffs, dtype=dtype).to(device)
+
+        def y4_of(theta):
+            if not mean_active:
+                return y_fixed
+            _, mp = split_theta(theta)
+            return plan.y - mean_fn(mp.to(dtype), plan.t) * plan.mask
 
         def loglik(theta):
-            coeffs, mp = split_theta(theta)
-            cf = lanes4.pack_cf(coeffs, dtype=dtype).to(device)
-            if mean_active:
-                y4 = plan.y - mean_fn(mp.to(dtype), plan.t) * plan.mask
-            else:
-                y4 = y_fixed
-            return ll_plan(cf, y4)
+            return ll_plan(cf_of(theta), y4_of(theta))
 
+        folded = {}
+
+        def folded_fn(nc):
+            if nc not in folded:
+                bc = block_size or lanes4.default_grad_blocks4(n, device)
+                planb = lanes4.make_plan4(
+                    t_np, y_np if mean_active else y_fold, diag_np, bc,
+                    dtype=dtype, n_chain=nc, device=device)
+                folded[nc] = (planb, bc, fused4.build_ll_and_grad(
+                    planb, pr, pc, n_chain=nc))
+            return folded[nc]
+
+        def mean_of(theta):
+            return mean_fn(split_theta(theta)[1], t_dev)
+
+        def folded_vog(th):
+            """(ll, ok, grad) for a power-of-two batch of rows, one
+            folded launch of each kernel."""
+            planb, bc, fnb = folded_fn(th.shape[0])
+            th = th.detach().requires_grad_()
+            with torch.enable_grad():
+                cfs = torch.func.vmap(cf_of)(th)
+                y4 = planb.y
+                if mean_active:
+                    mvals = torch.func.vmap(mean_of)(th).to(dtype)
+                    y4 = y4 - planb.mask * lanes4.fold_lanes(
+                        mvals, bc, planb.t.shape[0])
+                ll, ok = fnb(cfs, y4)
+                (grad,) = torch.autograd.grad(ll.sum(), th)
+            return ll.detach(), ok, grad
+
+        def value_ok_grad_batch(thetas):
+            """``(n, dim)`` rows -> ``(ll (n,), ok (n,), grad (n, dim))``.
+
+            Pads n to a power of two with copies of the first row; above
+            ``value_ok_grad_batch.fold_cap`` chains (set from the memory
+            the per-step saves take) it folds in chunks of that many.
+            """
+            thetas = torch.as_tensor(thetas).to(device)
+            rows = thetas.shape[0]
+            cap = value_ok_grad_batch.fold_cap
+            nc = 1 << max(0, rows - 1).bit_length()
+            chunk = min(nc, cap)
+            pad = -rows % chunk
+            th = torch.cat([thetas, thetas[:1].expand(pad, -1)])
+            outs = [folded_vog(part) for part in th.split(chunk)]
+            ll, ok, grad = (torch.cat(x) for x in zip(*outs))
+            return ll[:rows], ok[:rows], grad[:rows]
+
+        def value_ok_grad(theta):
+            """``(ll, ok, grad)`` for one parameter vector: the batched
+            entry on one row (a plan with the gradient path's lane count)."""
+            ll, ok, grad = value_ok_grad_batch(torch.as_tensor(theta)[None])
+            return ll[0], ok[0], grad[0]
+
+        value_ok_grad_batch.fold_cap = _fold_cap(n, width, dtype, device)
         loglik.plan = plan
+        loglik.value_ok_grad = value_ok_grad
+        loglik.value_ok_grad_batch = value_ok_grad_batch
         return loglik
 
     def build_logprob(self, t, y, yerr=1.123e-12, log_prior=None,
@@ -249,15 +373,17 @@ class GP(ModelSet):
         """Pure ``theta -> log posterior`` (ll + prior), -inf-safe.
 
         ``log_prior`` defaults to the box prior of the parameter bounds.
-        The fused value-and-gradient entry point (``value_and_grad``) is the
-        next slice: ``fast_grad=True`` raises.
+        With ``fast_grad=None`` (or True) and the fused solver, the closure
+        carries ``value_and_grad(theta) -> (logp, grad)`` and
+        ``value_and_grad_batch(thetas) -> (logp (n,), grad (n, dim))``
+        through the log-likelihood's ``value_ok_grad`` entries; where the
+        log probability is not finite it is -inf and its gradient 0
+        (celerite_tpu/gp.py:1207-1219).  ``fast_grad=False`` attaches
+        neither (samplers then use autograd); ``"tangent"`` is not ported.
         """
-        if fast_grad:
-            raise _not_in_slice("value_and_grad / chain folding",
-                                "queue 1, item 8")
         ll_fn = self.build_loglik(
             t, y, yerr=yerr, solver=solver, block_size=block_size,
-            precision=precision, dtype=dtype,
+            fast_grad=fast_grad, precision=precision, dtype=dtype,
         )
         if log_prior is None:
             bounds = self.get_parameter_bounds()
@@ -278,4 +404,43 @@ class GP(ModelSet):
             return torch.where(torch.isfinite(total), total, -math.inf)
 
         logprob.loglik = ll_fn
+        vog = getattr(ll_fn, "value_ok_grad", None)
+        if fast_grad is False or vog is None:
+            return logprob
+
+        def prior_and_grad(th):
+            """Log prior of each row of ``th`` and its gradient."""
+            th = th.detach().requires_grad_()
+            with torch.enable_grad():
+                lp = torch.stack([log_prior(r) for r in th.unbind(0)])
+            if lp.requires_grad:
+                (dlp,) = torch.autograd.grad(lp.sum(), th)
+            else:  # e.g. the box prior: piecewise constant
+                dlp = torch.zeros_like(th)
+            return lp.detach(), dlp
+
+        def combine(lp, dlp, ll, ok, dll):
+            total = lp + torch.where(ok, ll.to(lp.dtype), -math.inf)
+            bad = ~torch.isfinite(total)
+            total = torch.where(bad, -math.inf, total)
+            grad = torch.where(bad[..., None], 0.0, dlp + dll.to(dlp.dtype))
+            return total, grad
+
+        device = ll_fn.plan.t.device
+
+        def value_and_grad(theta):
+            theta = torch.as_tensor(theta).to(device)
+            lp, dlp = prior_and_grad(theta[None])
+            ll, ok, dll = vog(theta)
+            total, grad = combine(lp[0], dlp[0], ll, ok, dll)
+            return total, grad
+
+        def value_and_grad_batch(thetas):
+            thetas = torch.as_tensor(thetas).to(device)
+            lp, dlp = prior_and_grad(thetas)
+            ll, ok, dll = ll_fn.value_ok_grad_batch(thetas)
+            return combine(lp, dlp, ll, ok, dll)
+
+        logprob.value_and_grad = value_and_grad
+        logprob.value_and_grad_batch = value_and_grad_batch
         return logprob

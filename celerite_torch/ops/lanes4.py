@@ -22,8 +22,8 @@ import torch
 
 from .lower import Coefficients
 
-__all__ = ["Plan4", "make_plan4", "pack_cf", "cf_len", "default_num_blocks4",
-           "resolve_device"]
+__all__ = ["Plan4", "make_plan4", "fold_lanes", "pack_cf", "cf_len",
+           "default_num_blocks4", "default_grad_blocks4", "resolve_device"]
 
 # Lane counts on an H100 from the sweeps of chip_smoke.py (PERF.md): the
 # kernel is fastest at 32768 lanes for N = 1e6 (P = 2) and at 16-50 steps a
@@ -31,6 +31,13 @@ __all__ = ["Plan4", "make_plan4", "pack_cf", "cf_len", "default_num_blocks4",
 # lane count down to 16 steps a lane.
 _CUDA_LANES = 32768
 _MIN_STEPS = 16
+# Lanes per chain of the gradient path: the float64 torch glue between
+# the gradient kernels runs log2(lanes per chain) rounds of ~10 launches
+# each, so the gradient wants fewer, longer lanes than the value path.
+# In chip_smoke.py's gradient sweeps 512 was fastest for one chain and for
+# 16 folded chains at N = 1e5 (P = 8); at N = 1e6 (P = 2) the fastest
+# count moved between 512 and 8192 from run to run (PERF.md).
+_GRAD_LANES = 512
 
 
 class Plan4(NamedTuple):
@@ -77,6 +84,18 @@ def default_num_blocks4(n, device):
     b = 8
     while b * b < n and b < 1024:
         b *= 2
+    return b
+
+
+def default_grad_blocks4(n, device):
+    """Lanes per chain of the gradient path's (chain-folded) plan.
+
+    On the card the value path's count capped at ``_GRAD_LANES``; on the
+    CPU the value path's count.
+    """
+    b = default_num_blocks4(n, device)
+    if torch.device(device).type == "cuda":
+        b = min(b, _GRAD_LANES)
     return b
 
 
@@ -142,6 +161,22 @@ def make_plan4(t, y, diag, num_blocks, dtype=torch.float32, n_chain=1,
         n=n,
         num_blocks=bt,
     )
+
+
+def fold_lanes(x, num_blocks, L):
+    """``(n_chain, n)`` per-chain values -> the folded ``(L, n_chain * B)``.
+
+    The torch counterpart of ``make_plan4(..., n_chain=nc)``'s host tiling
+    (``celerite_tpu/ops/lanes4.py:147 fold_lanes``, in this package's
+    layout): chain ``c`` occupies lanes ``[c B, (c + 1) B)``, lane ``l``
+    owns points ``[l L, (l + 1) L)`` of its chain, and the pad tail is 0.
+    Carries per-chain residuals (active mean parameters) into a folded
+    launch; differentiable with autograd.
+    """
+    nc, n = x.shape
+    b = int(num_blocks)
+    x = torch.nn.functional.pad(x, (0, b * L - n))
+    return x.reshape(nc * b, L).T
 
 
 def cf_len(jr, jc):

@@ -1,15 +1,18 @@
-"""Shared numpy data makers for tests and ``chip_smoke.py``.
+"""Shared data makers and checks for tests and ``chip_smoke.py``.
 
-Everything here is numpy (or takes a ``terms`` module as an argument), so the
-same inputs can be fed to this package and to the JAX reference package.
+The data makers are numpy (or take a ``terms`` module as an argument), so
+the same inputs can be fed to this package and to the JAX reference
+package.  :func:`compare_grad_kernels` holds the gradient kernels against
+their plain versions on the card.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = ["make_data", "CASES", "pack_values", "bench_kernel",
-           "config2_kernel"]
+           "config2_kernel", "compare_grad_kernels"]
 
 # (jr, jc, coefficient values) of the fused primal tests: packed as
 # [a_real, c_real, a_comp, b_comp, c_comp, d_comp]; complex terms keep
@@ -54,3 +57,78 @@ def config2_kernel(terms):
         + terms.SHOTerm(log_S0=-0.7, log_Q=2.0, log_omega0=1.6)
         + terms.JitterTerm(log_sigma=-1.0)
     )
+
+
+def _errors(got, want, summed=False, seg=None):
+    """(max abs error, error relative to the largest reference value).
+
+    ``summed``: coefficient rows ``(C, B)``, compared as their per-segment
+    sums (the gradient the pipeline returns) against the sums' norm.
+    """
+    got, want = got.double(), want.double()
+    if summed:
+        c, b = want.shape
+        got = got.reshape(c, b // seg, seg).sum(2)
+        want = want.reshape(c, b // seg, seg).sum(2)
+        scale = float(torch.linalg.vector_norm(want))
+    else:
+        scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    return err, err / scale if scale > 0 else err
+
+
+def compare_grad_kernels(cf, plan, jr, jc, seg=None):
+    """Each gradient kernel against its plain version on the same inputs.
+
+    ``plan`` lies on the card.  The plain versions run there too; the
+    factor kernels take the seeds ``prefix_sh0`` makes from the plain
+    elements, the backward kernels the plain forward saves and float64
+    cotangents drawn from a seeded generator.  Returns ``{kernel:
+    {"max_abs_err", "max_rel_err", "outputs": {name: rel}}}``.
+    """
+    from .ops import fused4
+
+    b = plan.t.shape[1]
+    p = jr + 2 * jc
+    nc = 1 if cf.ndim == 1 else cf.shape[0]
+    seg = b // nc if seg is None else seg
+    dev = plan.t.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64,
+                           device=dev)
+
+    A, J, C, sv0 = fused4.elem_fwd_reference(cf, plan, jr, jc, seg=seg)
+    sh0 = fused4.prefix_sh0(A, J, C, seg)
+    fwd1 = fused4.factor_fwd_reference(cf, plan, jr, jc, plan.y, sh0, seg=seg)
+    cots1 = [randn(p, p, b), randn(p, b), randn(p, p, b), randn(p, b),
+             randn(b), randn(b)]
+    cots0 = [randn(p, p, b) for _ in range(3)]
+    runs = {
+        "elem_fwd": (("A", "J", "C", "saves"),
+                     fused4.elem_fwd_cuda(cf, plan, jr, jc, seg=seg),
+                     (A, J, C, sv0)),
+        "factor_fwd": (("M", "m", "Qm", "qv", "q0", "ld", "mind", "saves"),
+                       fused4.factor_fwd_cuda(cf, plan, jr, jc, plan.y, sh0,
+                                              seg=seg),
+                       fwd1),
+        "factor_bwd": (("hcf", "hy", "hsh0"),
+                       fused4.factor_bwd_cuda(cf, plan, jr, jc, plan.y,
+                                              fwd1[7], *cots1, seg=seg),
+                       fused4.factor_bwd_reference(cf, plan, jr, jc, plan.y,
+                                                   fwd1[7], *cots1, seg=seg)),
+        "elem_bwd": (("hcf",),
+                     (fused4.elem_bwd_cuda(cf, plan, jr, jc, sv0, *cots0,
+                                           seg=seg),),
+                     (fused4.elem_bwd_reference(cf, plan, jr, jc, sv0,
+                                                *cots0, seg=seg),)),
+    }
+    out = {}
+    for name, (names, got, want) in runs.items():
+        errs = {n: _errors(g, w, summed=n == "hcf", seg=seg)
+                for n, g, w in zip(names, got, want)}
+        out[name] = {"max_abs_err": max(e[0] for e in errs.values()),
+                     "max_rel_err": max(e[1] for e in errs.values()),
+                     "outputs": {n: e[1] for n, e in errs.items()}}
+    return out

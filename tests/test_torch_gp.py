@@ -169,9 +169,9 @@ def test_out_of_slice_options_raise():
     gp = GP(bench_kernel(tterms), device="cpu")
     t, y, yerr = make_data(50)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gp.build_loglik(t, y, yerr=yerr, fast_grad=True)
+        gp.build_loglik(t, y, yerr=yerr, fast_grad="tangent")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gp.build_logprob(t, y, yerr=yerr, fast_grad=True)
+        gp.build_logprob(t, y, yerr=yerr, fast_grad="tangent")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gp.build_loglik(t, y, yerr=yerr, solver="blocked")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -14,7 +14,12 @@ import pytest
 import torch
 
 from celerite_torch.ops import fused4, lanes4
-from celerite_torch.testing import CASES, make_data, pack_values
+from celerite_torch.testing import (CASES, compare_grad_kernels, make_data,
+                                    pack_values)
+
+# The float32 gradient kernels against their float32 plain versions on the
+# same plan: ten times the largest error chip_smoke.py measured (PERF.md).
+GRAD_F32_RTOL = 4e-5
 
 
 @pytest.fixture
@@ -130,12 +135,83 @@ def test_primal_kernel_non_pd(cuda_device):
 
 
 @pytest.mark.cuda
-def test_primal_kernel_backward_raises(cuda_device):
-    t, y, yerr = make_data(512, seed=1)
-    plan = lanes4.make_plan4(t, y, yerr**2, 32, dtype=torch.float64,
+def test_primal_kernel_backward_matches_grad_pipeline(cuda_device):
+    """Autograd through the primal kernel goes through the gradient kernels
+    and equals ``build_ll_and_grad``'s gradient in cf and y."""
+    jr, jc, vals = CASES[2]
+    t, y, yerr = make_data(2053, seed=1, t_max=200.0)
+    plan = lanes4.make_plan4(t, y, yerr**2, 64, dtype=torch.float64,
                              device=cuda_device)
-    cf = torch.tensor(pack_values(1, 0, [0.8, 0.7]), device=cuda_device,
-                      requires_grad=True)
-    ll, _ = fused4.run_primal(cf, plan, 1, 0)
-    with pytest.raises(NotImplementedError):
+    grads = []
+    for fn in (fused4.build_ll(plan, jr, jc),
+               fused4.build_ll_and_grad(plan, jr, jc)):
+        cf = torch.tensor(pack_values(jr, jc, vals), device=cuda_device,
+                          requires_grad=True)
+        y4 = plan.y.clone().requires_grad_()
+        before = fused4.factor_bwd_cuda.launches
+        ll, ok = fn(cf, y4)
         ll.backward()
+        assert bool(ok) and fused4.factor_bwd_cuda.launches == before + 1
+        grads.append((cf.grad, y4.grad))
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-12, atol=1e-12 * float(b.abs().max()))
+
+
+def _check_grad_kernels(cf, plan, jr, jc, rtol, seg=None):
+    errs = compare_grad_kernels(cf, plan, jr, jc, seg=seg)
+    bad = {k: e["outputs"] for k, e in errs.items() if e["max_rel_err"] > rtol}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jr,jc,vals", CASES)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_grad_kernels_match_plain(jr, jc, vals, dtype, cuda_device):
+    """Each of the four gradient kernels equals its plain version on the
+    same inputs: 1e-10 in float64, GRAD_F32_RTOL in float32."""
+    t, y, yerr = make_data(4099, seed=7, t_max=400.0)
+    plan = lanes4.make_plan4(t, y, yerr**2, 256, dtype=dtype,
+                             device=cuda_device)
+    cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device)
+    _check_grad_kernels(cf, plan, jr, jc,
+                        1e-10 if dtype == torch.float64 else GRAD_F32_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jr,jc,vals", WIDE_CASES)
+def test_grad_kernels_every_width(jr, jc, vals, cuda_device):
+    t, y, yerr = make_data(2053, seed=5, t_max=200.0)
+    plan = lanes4.make_plan4(t, y, yerr**2, 64, dtype=torch.float64,
+                             device=cuda_device)
+    cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device)
+    _check_grad_kernels(cf, plan, jr, jc, 1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_grad_kernels_chain_folded_and_segments(dtype, cuda_device):
+    """A (4, C) batch on a folded plan, and one cf row over 16-lane
+    segments: no state crosses a segment."""
+    jr, jc, vals = CASES[3]
+    rtol = 1e-10 if dtype == torch.float64 else GRAD_F32_RTOL
+    t, y, yerr = make_data(4099, seed=8, t_max=400.0)
+    cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device)
+    folded = lanes4.make_plan4(t, y, yerr**2, 64, dtype=dtype, n_chain=4,
+                               device=cuda_device)
+    _check_grad_kernels(torch.stack([cf * s for s in (1.0, 0.9, 1.1, 1.2)]),
+                        folded, jr, jc, rtol)
+    plan = lanes4.make_plan4(t, y, yerr**2, 64, dtype=dtype,
+                             device=cuda_device)
+    _check_grad_kernels(cf, plan, jr, jc, rtol, seg=16)
+
+
+@pytest.mark.cuda
+def test_grad_wrappers_reject_cpu_tensors(cuda_device):
+    jr, jc, vals = CASES[0]
+    t, y, yerr = make_data(256, seed=2)
+    plan = lanes4.make_plan4(t, y, yerr**2, 16, dtype=torch.float64,
+                             device="cpu")
+    cf = torch.as_tensor(pack_values(jr, jc, vals))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused4.elem_fwd_cuda(cf, plan, jr, jc)
