@@ -576,7 +576,7 @@ def sampler_c(lp, theta, dev, warmup=100, samples=100, leapfrog=8):
     dim = theta.shape[0]
     q = theta[None] + 0.02 * torch.randn(SAMPLER_CHAINS, dim, generator=gen,
                                          dtype=torch.float64, device=dev)
-    before = grad_counts()
+    reset_counts()
     calls = [0]
     vag = lp.value_and_grad_batch
 
@@ -640,7 +640,7 @@ def sampler_c(lp, theta, dev, warmup=100, samples=100, leapfrog=8):
     t_samp = time.perf_counter() - t1
     chains = np.stack(draws, axis=1)  # (chains, draws, dim)
     summ = diagnostics.summary(chains)
-    grew = {k: v - before[k] for k, v in grad_counts().items()}
+    grew = grad_counts()
     last_acc = float(np.mean(accept_w[-(warmup // 2):]))
     out = {
         "n_chains": SAMPLER_CHAINS, "dim": dim, "warmup": warmup,
