@@ -215,3 +215,28 @@ def test_grad_wrappers_reject_cpu_tensors(cuda_device):
     cf = torch.as_tensor(pack_values(jr, jc, vals))
     with pytest.raises(ValueError, match="CUDA"):
         fused4.elem_fwd_cuda(cf, plan, jr, jc)
+
+
+@pytest.mark.cuda
+def test_gp_gradient_entries_on_the_card(cuda_device):
+    """The GP's gradient entries on the card (the gradient kernels) equal
+    the same entries on the CPU (the plain versions), with an active mean:
+    ``grad_log_likelihood`` and ``value_and_grad_batch`` over 3 rows."""
+    from celerite_torch import GP, terms
+    from celerite_torch.testing import config2_kernel
+
+    t, y, yerr = make_data(3000, seed=9, t_max=300.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gp = GP(config2_kernel(terms), mean=0.1, fit_mean=True, device=dev)
+        gp.compute(t, yerr)
+        ll, grad = gp.grad_log_likelihood(y)
+        lp = gp.build_logprob(t, y, yerr=yerr, solver="fused", block_size=64)
+        theta = torch.as_tensor(gp.get_parameter_vector(), device=dev)
+        rows = theta[None] + 0.01 * torch.arange(3, device=dev,
+                                                 dtype=theta.dtype)[:, None]
+        vals, grads = lp.value_and_grad_batch(rows)
+        out[dev] = (ll, grad, vals.cpu().numpy(), grads.cpu().numpy())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-8,
+                                   atol=1e-8 * float(np.abs(b).max()))
