@@ -34,11 +34,8 @@ FLAGS = (
 )
 
 # Extra flags per source.  The gradient kernels are compiled without fma
-# contraction so that they round as their plain versions do: with
-# contraction the float32 kernels sat up to 9.4e-3 (relative, per-lane
-# outputs at N = 1e5) from the float32 plain versions, without it 4.7e-6,
-# and float64 moved from 1.5e-11 to 1.2e-14 (PERF.md).  The primal
-# keeps the default.
+# contraction so that they round as their plain versions do, which keep
+# every multiply and add separate; the primal keeps the default.
 SOURCE_FLAGS = {"fused4_grad.cu": ("-fmad=false",)}
 
 _loaded: dict = {}

@@ -170,9 +170,11 @@ class GP(ModelSet):
     def grad_log_likelihood(self, y, quiet=False):
         """``(ll, grad)`` with respect to the active parameter vector.
 
-        One reverse pass through :meth:`build_loglik`'s closure (on the card
-        through the gradient kernels).  A kernel that does not factor raises
-        LinAlgError, or gives ``(-inf, zeros)`` with ``quiet=True``.
+        The fused solver takes its closure's ``value_ok_grad`` (on the card
+        the gradient kernels over the gradient path's lane plan); the
+        sequential solver one reverse pass of autograd.  A kernel that does
+        not factor raises LinAlgError, or gives ``(-inf, zeros)`` with
+        ``quiet=True``.
         """
         if self._t is None:
             raise RuntimeError("you must call 'compute' first")
@@ -180,14 +182,20 @@ class GP(ModelSet):
         if y.ndim > 1 or len(y) != len(self._t):
             raise ValueError("dimension mismatch")
         fn = self.build_loglik(self._t, y, diag=self._diag)
-        theta = torch.tensor(self.get_parameter_vector(), requires_grad=True)
-        ll, ok = fn(theta)
+        theta = torch.tensor(self.get_parameter_vector())
+        if hasattr(fn, "value_ok_grad"):
+            ll, ok, grad = fn.value_ok_grad(theta)
+        else:
+            theta.requires_grad_()
+            ll, ok = fn(theta)
+            grad = None
         if not bool(ok):
             if quiet:
                 return -np.inf, np.zeros(self.vector_size)
             raise LinAlgError("failed to factorize or solve matrix")
-        (grad,) = torch.autograd.grad(ll, theta)
-        return float(ll.detach()), grad.numpy()
+        if grad is None:
+            (grad,) = torch.autograd.grad(ll, theta)
+        return float(ll.detach()), grad.detach().cpu().numpy()
 
     # -- pure closures --------------------------------------------------------
     def build_loglik(self, t, y, yerr=1.123e-12, diag=None, solver="auto",
@@ -203,8 +211,10 @@ class GP(ModelSet):
         count B.  ``dtype`` is the working precision (float32 or float64);
         ``precision="ds"`` means float64, which the card computes natively.
         ``ll`` is differentiable with autograd; on the card its backward
-        runs the gradient kernels.  The fused closure carries
-        ``value_ok_grad`` and ``value_ok_grad_batch`` (module docstring)
+        reruns the gradient kernels over the value plan's lanes, whose
+        cross-lane glue costs more launches than the gradient path's plan
+        (PERF.md).  The fused closure carries ``value_ok_grad`` and
+        ``value_ok_grad_batch`` (module docstring), the tuned route,
         whatever ``fast_grad`` says, as JAX's does; ``fast_grad="tangent"``
         (the forward-mode kernels) is not ported yet.
         """
@@ -343,6 +353,8 @@ class GP(ModelSet):
             Pads n to a power of two with copies of the first row; above
             ``value_ok_grad_batch.fold_cap`` chains (set from the memory
             the per-step saves take) it folds in chunks of that many.
+            ``value_ok_grad_batch.folded_plan(nc)`` is the cached plan a
+            chunk of ``nc`` rows runs on.
             """
             thetas = torch.as_tensor(thetas).to(device)
             rows = thetas.shape[0]
@@ -362,6 +374,7 @@ class GP(ModelSet):
             return ll[0], ok[0], grad[0]
 
         value_ok_grad_batch.fold_cap = _fold_cap(n, width, dtype, device)
+        value_ok_grad_batch.folded_plan = lambda nc: folded_fn(nc)[0]
         loglik.plan = plan
         loglik.value_ok_grad = value_ok_grad
         loglik.value_ok_grad_batch = value_ok_grad_batch

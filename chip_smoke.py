@@ -34,6 +34,7 @@ power limit as nvidia-smi gives them, and last
 without a CUDA device it exits non-zero before printing anything.
 """
 
+import functools
 import json
 import math
 import re
@@ -67,6 +68,12 @@ SWEEP_LANES = (1024, 2048, 4096, 8192, 16384, 32768, 65536)
 # reading, PERF.md).
 GRAD_F64_RTOL = 1e-10
 GRAD_F32_RTOL = 4e-5
+# The same on the gradient path's plans, whose 196-step lanes carry
+# factor_fwd's affine map (M, m) and quadratic (Qm, qv, q0) through eight
+# times the steps of the cases above: 9.3 times the largest reading
+# (PERF.md), with the float32 plain version's own distance from float64
+# on the same plan reported beside it.
+GRAD_F32_PATH_RTOL = 2e-3
 GRAD_AUTOGRAD_RTOL = 1e-8       # main path C's f64 gradient, in norm
 # The CUDA kernels of csrc/fused4_primal.cu and csrc/fused4_grad.cu, by
 # their names in a profile.
@@ -321,23 +328,24 @@ GRAD_REPLACES = {
 }
 
 
-def grad_bound_ms(name, plan, jr, jc):
+def grad_bound_ms(name, plan, jr, jc, rows=1):
     """Least time for one launch of gradient kernel ``name``.
 
     max(bytes / rate, operations / peak).  Bytes: the (L, B) streams the
-    kernel reads (five, six with y), its saves written (forward) or read
-    (backward) once, the float64 seeds or cotangents it takes and the
-    per-lane outputs it writes.  Operations per point, each once: the
-    lowering, the Riccati step (forward) or its intermediates (backward),
-    the element update or the factor statistics, and in the backward
-    kernels their transposes and the coefficient chain; counted from the
-    kernels' code.
+    kernel reads (five, six with y), its ``rows`` coefficient rows, its
+    saves written (forward) or read (backward) once, the float64 seeds or
+    cotangents it takes and the per-lane outputs it writes.  Operations
+    per point, each once: the lowering, the Riccati step (forward) or its
+    intermediates (backward), the element update or the factor
+    statistics, and in the backward kernels their transposes and the
+    coefficient chain; counted from the kernels' code.
     """
     L, b = plan.t.shape
     p = jr + 2 * jc
     it = plan.t.element_size()
     c = 2 * jr + 4 * jc + 1
     pts = L * b
+    cin = c * rows
     lower = jr * 4 + jc * 40 + 3
     step = 7 * p * p + 4 * p + 1         # riccati_step
     front = 4 * p * p + 4 * p + 1        # riccati_front
@@ -346,18 +354,18 @@ def grad_bound_ms(name, plan, jr, jc):
     elem = 8 * p * p + 2 * p             # A, J update
     factor = 8 * p * p + 7 * p + 12      # M, m, Qm, qv, q0, ld, mind
     nbytes, per_point = {
-        "elem_fwd": ((5 * pts + c + 3 * p * p * b + 2 * p * p * pts) * it,
+        "elem_fwd": ((5 * pts + cin + 3 * p * p * b + 2 * p * p * pts) * it,
                      lower + step + elem),
-        "factor_fwd": ((6 * pts + c + (2 * p * p + 2 * p + 1) * b
+        "factor_fwd": ((6 * pts + cin + (2 * p * p + 2 * p + 1) * b
                         + (2 * p * p + p) * pts) * it
                        + (p * p + 2) * b * 8,
                        lower + step + factor),
-        "factor_bwd": ((6 * pts + c + (2 * p * p + p) * pts + pts
+        "factor_bwd": ((6 * pts + cin + (2 * p * p + p) * pts + pts
                         + (c + p * p) * b) * it
                        + (2 * p * p + 2 * p + 2) * b * 8,
                        lower + front + adjoint + chain
                        + 17 * p * p + 24 * p + 20),
-        "elem_bwd": ((5 * pts + c + 2 * p * p * pts + c * b) * it
+        "elem_bwd": ((5 * pts + cin + 2 * p * p * pts + c * b) * it
                      + 3 * p * p * b * 8,
                      lower + front + adjoint + chain + 15 * p * p + 10 * p),
     }[name]
@@ -367,11 +375,14 @@ def grad_bound_ms(name, plan, jr, jc):
 
 
 def grad_kernel_calls(cf, plan, jr, jc):
-    """{name: (kernel call, plain call)} on the same inputs, for timing."""
+    """{name: (kernel call, plain call)} on the same inputs, for timing.
+
+    ``cf`` is one row or one row per chain of a folded plan."""
     p, b = jr + 2 * jc, plan.t.shape[1]
     dev = plan.t.device
     A, J, C, sv0 = fused4.elem_fwd_cuda(cf, plan, jr, jc)
-    sh0 = fused4.prefix_sh0(A, J, C, b)
+    nc = 1 if cf.ndim == 1 else cf.shape[0]
+    sh0 = fused4.prefix_sh0(A, J, C, b // nc)
     fwd1 = fused4.factor_fwd_cuda(cf, plan, jr, jc, plan.y, sh0)
     gen = torch.Generator(device=dev).manual_seed(1)
     cots = [torch.randn(s, generator=gen, dtype=torch.float64, device=dev)
@@ -391,28 +402,33 @@ def grad_kernel_calls(cf, plan, jr, jc):
         for name, a in args.items()}
 
 
+def grad_case(grad_errs, tag, cf, plan, jr, jc, seg=None,
+              f32_limit=GRAD_F32_RTOL, **info):
+    """One grad_kernel_vs_plain case: every output of the four kernels
+    against the plain versions' at the dtype's limit.  ``grad_errs[name]``
+    collects each kernel's float64 max abs error."""
+    errs = compare_grad_kernels(cf, plan, jr, jc, seg=seg)
+    f64 = plan.t.dtype == torch.float64
+    limit = GRAD_F64_RTOL if f64 else f32_limit
+    emit("grad_kernel_vs_plain", case=tag, jr=jr, jc=jc,
+         dtype=str(plan.t.dtype).split(".")[1], limit=limit,
+         max_rel_err={k: e["max_rel_err"] for k, e in errs.items()},
+         outputs={k: e["outputs"] for k, e in errs.items()}, **info)
+    for name, e in errs.items():
+        if f64:
+            grad_errs[name].append(e["max_abs_err"])
+        if not e["max_rel_err"] <= limit:
+            fail("{0} kernel disagrees with plain: {1} {2}".format(
+                name, tag, (jr, jc, str(plan.t.dtype))))
+
+
 def check_grad_kernels(dev, grad_errs):
     """grad_kernel_vs_plain: each gradient kernel against its plain version.
 
     The CASES shapes at N = 4099 and N = 1e5 in both dtypes, a
     chain-folded (4, C) batch and one cf row over 16-lane segments.
-    ``grad_errs[name]`` collects each kernel's float64 max abs error.
     """
-    def run(tag, cf, plan, jr, jc, seg=None, **info):
-        errs = compare_grad_kernels(cf, plan, jr, jc, seg=seg)
-        f64 = plan.t.dtype == torch.float64
-        limit = GRAD_F64_RTOL if f64 else GRAD_F32_RTOL
-        emit("grad_kernel_vs_plain", case=tag, jr=jr, jc=jc,
-             dtype=str(plan.t.dtype).split(".")[1], limit=limit,
-             max_rel_err={k: e["max_rel_err"] for k, e in errs.items()},
-             outputs={k: e["outputs"] for k, e in errs.items()}, **info)
-        for name, e in errs.items():
-            if f64:
-                grad_errs[name].append(e["max_abs_err"])
-            if not e["max_rel_err"] <= limit:
-                fail("{0} kernel disagrees with plain: {1} {2}".format(
-                    name, tag, (jr, jc, str(plan.t.dtype))))
-
+    run = functools.partial(grad_case, grad_errs)
     for n, seed in ((4099, 7), (100_000, 11)):
         t, y, yerr = make_data(n, seed=seed, t_max=n / 10.0)
         nb = lanes4.default_num_blocks4(n, dev) if n > 10_000 else 256
@@ -431,6 +447,62 @@ def check_grad_kernels(dev, grad_errs):
             folded, jr, jc, n=4099, lanes=256, n_chain=4)
         plan = lanes4.make_plan4(t, y, yerr**2, 64, dtype=dt, device=dev)
         run("segments", cf, plan, jr, jc, seg=16, n=4099, lanes=64)
+
+
+def plain_f32_floor(cf64, plans, jr, jc):
+    """factor_fwd's outputs by the plain version in float32 against float64,
+    each on its own plan of the same data, relative to the largest float64
+    value: the rounding floor under a float32 kernel-vs-plain reading."""
+    outs = {}
+    for dt, plan in plans.items():
+        cf = cf64.to(dt)
+        seg = plan.t.shape[1] // (1 if cf.ndim == 1 else cf.shape[0])
+        A, J, C, _ = fused4.elem_fwd_reference(cf, plan, jr, jc, seg=seg)
+        sh0 = fused4.prefix_sh0(A, J, C, seg)
+        outs[dt] = fused4.factor_fwd_reference(cf, plan, jr, jc, plan.y, sh0,
+                                               seg=seg)[:7]
+    names = ("M", "m", "Qm", "qv", "q0", "ld", "mind")
+    return {k: float((a.double() - b).abs().max() / b.abs().max())
+            for k, a, b in zip(names, outs[torch.float32],
+                               outs[torch.float64])}
+
+
+def grad_kernels_on_path(gp, lps, theta, thetas, grad_errs):
+    """The gradient kernels on the plans main path C launches them on.
+
+    ``value_ok_grad_batch.folded_plan(nc)`` for one row (``value_and_grad``)
+    and for the 16 rows of ``value_and_grad_batch``, float64 and float32:
+    each kernel against its plain version (grad_kernel_vs_plain, case
+    ``main_path``), then each kernel's and its plain version's ms and the
+    bound on those inputs.  Returns ``{nc: {name: row}}``.
+    """
+    pr, pc = gp.kernel.padded_size
+    cfs = torch.stack([packed_cf(gp, th) for th in thetas])
+    rows = {}
+    for nc in (1, SAMPLER_CHAINS):
+        cf64 = packed_cf(gp, theta) if nc == 1 else cfs[:nc]
+        plans = {dt: lps[dt].loglik.value_ok_grad_batch.folded_plan(nc)
+                 for dt in (torch.float64, torch.float32)}
+        floor = plain_f32_floor(cf64, plans, pr, pc)
+        for dt, plan in plans.items():
+            cf = cf64.to(dt)
+            lanes, steps = plan.t.shape[1], plan.t.shape[0]
+            grad_case(grad_errs, "main_path", cf, plan, pr, pc,
+                      f32_limit=GRAD_F32_PATH_RTOL, n=plan.n, n_chain=nc,
+                      lanes=lanes, steps_per_lane=steps,
+                      **({} if dt == torch.float64 else
+                         {"factor_fwd_plain_f32_vs_f64": floor}))
+            key = str(dt).split(".")[1]
+            for name, (kern, plain) in grad_kernel_calls(cf, plan, pr,
+                                                         pc).items():
+                row = rows.setdefault(nc, {}).setdefault(name, {})
+                row["ms_" + key] = sync_time_ms(kern, reps=20)
+                row["plain_ms_" + key] = sync_time_ms(plain, reps=1, warm=1)
+                row["bound_ms_" + key], row["bound_by_" + key] = \
+                    grad_bound_ms(name, plan, pr, pc, rows=nc)
+        emit("grad_kernel_time_C", n=plan.n, n_chain=nc, lanes=lanes,
+             steps_per_lane=steps, kernels=rows[nc])
+    return rows
 
 
 def grad_counts():
@@ -464,14 +536,22 @@ def grad_rel(got, want):
                  / torch.linalg.vector_norm(want.double()))
 
 
-def main_path_c(gp, lps, prior, theta, dev):
-    """config[2] at N = 1e5 through ``value_and_grad`` (one theta) and
-    ``value_and_grad_batch`` (16 thetas, folded), float32 and float64."""
-    plan64 = lps[torch.float64].loglik.plan
+def path_c_thetas(theta, dev):
+    """The 16 rows main path C's batched call takes: theta + 0.02 N(0, 1)."""
     gen = torch.Generator(device=dev).manual_seed(5)
-    thetas = theta[None] + 0.02 * torch.randn(
+    return theta[None] + 0.02 * torch.randn(
         SAMPLER_CHAINS, theta.shape[0], generator=gen, dtype=theta.dtype,
         device=dev)
+
+
+def main_path_c(gp, lps, prior, theta, thetas):
+    """config[2] at N = 1e5 through ``value_and_grad`` (one theta) and
+    ``value_and_grad_batch`` (16 thetas, folded), float32 and float64.
+
+    Gates: the float64 values and gradients against autograd through the
+    plain primal on the value plan, the batch against one-theta calls,
+    and the float32 values against float64 at the value path's limit."""
+    plan64 = lps[torch.float64].loglik.plan
     reset_counts()
     single = {dt: lp.value_and_grad(theta) for dt, lp in lps.items()}
     batch = {dt: lp.value_and_grad_batch(thetas) for dt, lp in lps.items()}
@@ -486,16 +566,19 @@ def main_path_c(gp, lps, prior, theta, dev):
     v64, g64 = single[torch.float64]
     v32, g32 = single[torch.float32]
     e_single = grad_rel(g64, g_ref)
-    rows = (0, SAMPLER_CHAINS - 1)
-    e_batch_ref = max(grad_rel(batch[torch.float64][1][r],
-                               reference_value_and_grad(gp, plan64, thetas[r],
-                                                        prior)[1])
-                      for r in rows)
+    e_value = rel(v64, lp_ref)
+    refs = {r: reference_value_and_grad(gp, plan64, thetas[r], prior)
+            for r in (0, SAMPLER_CHAINS - 1)}
+    b64, b32 = batch[torch.float64], batch[torch.float32]
+    e_batch_ref = max(grad_rel(b64[1][r], g) for r, (_, g) in refs.items())
+    e_batch_value_ref = max(rel(b64[0][r], v) for r, (v, _) in refs.items())
     per_theta = [lps[torch.float64].value_and_grad(th) for th in thetas]
-    e_batch_single = max(grad_rel(batch[torch.float64][1][r], per_theta[r][1])
+    e_batch_single = max(grad_rel(b64[1][r], per_theta[r][1])
                          for r in range(SAMPLER_CHAINS))
-    e_batch_value = max(rel(batch[torch.float64][0][r], per_theta[r][0])
+    e_batch_value = max(rel(b64[0][r], per_theta[r][0])
                         for r in range(SAMPLER_CHAINS))
+    e_value32 = max([rel(v32, v64)] + [rel(b32[0][r], b64[0][r])
+                                       for r in range(SAMPLER_CHAINS)])
     spread = {}
     for dt, lp in lps.items():
         key = str(dt).split(".")[1]
@@ -506,20 +589,30 @@ def main_path_c(gp, lps, prior, theta, dev):
                                                   per_batch=5)
     emit("main_path_C", model="config[2] 2xSHO + jitter (P=8)",
          n=plan64.n, lanes_value=plan64.num_blocks,
-         lanes_per_chain_grad=lanes4.default_grad_blocks4(plan64.n, dev),
+         lanes_per_chain_grad=lps[torch.float64].loglik.value_ok_grad_batch
+         .folded_plan(1).num_blocks,
          fold_cap=lps[torch.float64].loglik.value_ok_grad_batch.fold_cap,
          logprob_f64=float(v64), logprob_plain_f64=lp_ref,
-         rel_err_value_f64=rel(v64, lp_ref),
+         logprob_f32=float(v32), rel_err_value_f64=e_value,
+         rel_err_batch_value_vs_autograd=e_batch_value_ref,
+         rel_err_batch_value_vs_single=e_batch_value,
+         rel_err_value_f32_vs_f64=e_value32,
          rel_err_grad_f64_vs_autograd=e_single,
          rel_err_grad_f32_vs_f64=grad_rel(g32, g64),
          rel_err_batch_grad_vs_autograd=e_batch_ref,
          rel_err_batch_grad_vs_single=e_batch_single,
-         rel_err_batch_value_vs_single=e_batch_value,
          grad_f64=g64.tolist(), ms_per_call=spread)
     if not (math.isfinite(float(v64)) and math.isfinite(float(v32))
-            and bool(torch.isfinite(batch[torch.float64][1]).all())
-            and bool(torch.isfinite(batch[torch.float32][1]).all())):
+            and bool(torch.isfinite(b64[0]).all())
+            and bool(torch.isfinite(b32[0]).all())
+            and bool(torch.isfinite(b64[1]).all())
+            and bool(torch.isfinite(b32[1]).all())):
         fail("main path C gave a non-finite log probability or gradient")
+    if max(e_value, e_batch_value_ref, e_batch_value) > F64_RTOL:
+        fail("main path C: log probability disagrees with the plain primal")
+    if e_value32 > F32_RTOL:
+        fail("main path C: float32 log probability off float64 by "
+             "{0}".format(e_value32))
     if max(e_single, e_batch_ref, e_batch_single) > GRAD_AUTOGRAD_RTOL:
         fail("main path C: gradient disagrees with autograd")
     emit("profile_C", dtype="float64", call="value_and_grad",
@@ -527,7 +620,7 @@ def main_path_c(gp, lps, prior, theta, dev):
     emit("profile_C", dtype="float64", call="value_and_grad_batch(16)",
          **profile_evals(lps[torch.float64].value_and_grad_batch, thetas,
                         evals=5))
-    return counts, thetas
+    return counts
 
 
 def grad_call_ms(plan, jr, jc, cf, reps=10):
@@ -796,9 +889,14 @@ def main():
     lpa_ref, ga_ref = reference_value_and_grad(
         gp, lpa[torch.float64].loglik.plan, theta, prior_a)
     ea = grad_rel(vag_a[torch.float64][1], ga_ref)
+    eva = rel(vag_a[torch.float64][0], lpa_ref)
+    eva32 = rel(vag_a[torch.float32][0], vag_a[torch.float64][0])
     emit("main_path_C_bench", model="bench.py ComplexTerm (P=2)", n=n,
-         lanes=lpa[torch.float64].loglik.plan.num_blocks, launches=counts_ca,
+         lanes=lpa[torch.float64].loglik.value_ok_grad_batch.folded_plan(
+             1).num_blocks, launches=counts_ca,
          logprob_f64=float(vag_a[torch.float64][0]), logprob_plain_f64=lpa_ref,
+         logprob_f32=float(vag_a[torch.float32][0]), rel_err_value_f64=eva,
+         rel_err_value_f32_vs_f64=eva32,
          rel_err_grad_f64_vs_autograd=ea,
          rel_err_grad_f32_vs_f64=grad_rel(vag_a[torch.float32][1],
                                           vag_a[torch.float64][1]),
@@ -808,6 +906,9 @@ def main():
     if ea > GRAD_AUTOGRAD_RTOL or not all(
             bool(torch.isfinite(g).all()) for _, g in vag_a.values()):
         fail("main path C (bench): gradient disagrees with autograd")
+    if eva > F64_RTOL or eva32 > F32_RTOL:
+        fail("main path C (bench): log probability off the plain primal "
+             "(f64 {0}, f32 vs f64 {1})".format(eva, eva32))
     emit("profile_C_bench", dtype="float32", call="value_and_grad",
          **profile_evals(lpa[torch.float32].value_and_grad, theta))
     lane_sweeps_c(t, y, yerr, cf, pr, pc, "A",
@@ -885,22 +986,11 @@ def main():
         fail("main path B: kernel disagrees with plain")
 
     # ---- main path C: config[2]'s value and gradient, single and folded ----
-    counts_c, _ = main_path_c(gp, lps, prior, theta, dev)
-    grad_rows = {}
-    for dt, cfx in ((torch.float64, cfb), (torch.float32, cfb32)):
-        planx = lps[dt].loglik.plan
-        for name, (kern, plain) in grad_kernel_calls(cfx, planx, pr,
-                                                     pc).items():
-            row = grad_rows.setdefault(name, {})
-            key = str(dt).split(".")[1]
-            row["ms_" + key] = sync_time_ms(kern, reps=20)
-            row["plain_ms_" + key] = sync_time_ms(plain, reps=2, warm=1)
-            row["bound_ms_" + key], row["bound_by_" + key] = grad_bound_ms(
-                name, planx, pr, pc)
-    emit("grad_kernel_time_C", n=n, lanes=plan64.num_blocks,
-         steps_per_lane=plan64.t.shape[0], kernels=grad_rows,
-         primal_ms_f64=sync_time_ms(
-             lambda: fused4.primal_cuda(cfb, plan64, pr, pc), reps=20))
+    # First the gradient kernels against their plain versions, and timed,
+    # on the very plans (lanes a chain, chains a launch) the path uses.
+    thetas = path_c_thetas(theta, dev)
+    grad_rows = grad_kernels_on_path(gp, lps, theta, thetas, grad_errs)
+    counts_c = main_path_c(gp, lps, prior, theta, thetas)
     lane_sweeps_c(t, y, yerr, cfb, pr, pc, "C",
                   (256, 512, 1024, 2048, 4096, 8192), dev)
     fold_sweep_c(t, y, yerr, cfb, pr, pc, dev)
@@ -921,8 +1011,10 @@ def main():
         "bound_by": bby,
         "library_ms": None,
     }]
+    # The gradient kernels' ms at the shape of nearly all their launches:
+    # sampler_C's 16 chains folded, float64.
     for name in fused4.GRAD_KERNELS:
-        row = grad_rows[name]
+        row = grad_rows[SAMPLER_CHAINS][name]
         kernels.append({
             "name": "fused4_" + name,
             "route": "cuda",

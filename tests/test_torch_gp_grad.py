@@ -188,6 +188,31 @@ def test_grad_log_likelihood_matches_jax():
     _close(gt, gj)
 
 
+def test_grad_log_likelihood_fused_route_matches_jax(monkeypatch):
+    """With the fused solver chosen, ``grad_log_likelihood`` takes the
+    closure's ``value_ok_grad`` (the gradient pipeline) and matches JAX."""
+    monkeypatch.setattr(tgp_mod, "_SEQ_BELOW", 0)
+    jgp, tgp = _pair("config2", fit_mean=True)
+    t, y, yerr = _data()
+    jgp.compute(t, yerr)
+    tgp.compute(t, yerr)
+    calls = []
+    build = tgp.build_loglik
+
+    def spy(*args, **kwargs):
+        fn = build(*args, **kwargs)
+        vog = fn.value_ok_grad
+        fn.value_ok_grad = lambda th: calls.append(1) or vog(th)
+        return fn
+
+    monkeypatch.setattr(tgp, "build_loglik", spy)
+    llj, gj = jgp.grad_log_likelihood(y)
+    llt, gt = tgp.grad_log_likelihood(y)
+    assert calls == [1]
+    np.testing.assert_allclose(llt, llj, rtol=1e-10)
+    _close(gt, gj)
+
+
 def test_fast_grad_options():
     _, tgp = _pair("bench")
     t, y, yerr = _data()
