@@ -1,11 +1,12 @@
-"""Carry parameters and lane plans across from the JAX package.
+"""Carry parameters, lane plans and packed coefficients across from the JAX
+package.
 
-Both functions take plain numpy arrays, so this module needs neither JAX
+Every function takes plain numpy arrays, so this module needs neither JAX
 nor ``celerite_tpu``: a caller reads the arrays off the JAX objects
 (``get_parameter_names(include_frozen=True)``,
 ``get_parameter_vector(include_frozen=True)``, ``unfrozen_mask``; the
-fields of a ``Plan4``) and hands them over, so that the two packages
-compute on identical inputs.
+fields of a ``Plan4`` or a ``PlanDS``; a ``pack_cf_ds`` vector) and hands
+them over, so that the two packages compute on identical inputs.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import torch
 
 from .ops.lanes4 import Plan4, resolve_device
 
-__all__ = ["load_parameters", "plan_from_numpy"]
+__all__ = ["load_parameters", "plan_from_numpy", "plan_ds_from_numpy",
+           "cf_ds_from_numpy"]
 
 
 def load_parameters(gp, names, values, unfrozen_mask):
@@ -63,3 +65,27 @@ def plan_from_numpy(t, t_lo, dt, diag, y, mask, n, num_blocks,
     return Plan4(t=lanes(t), t_lo=lanes(t_lo), dt=lanes(dt),
                  diag=lanes(diag), y=lanes(y), mask=lanes(mask), n=int(n),
                  num_blocks=b)
+
+
+def plan_ds_from_numpy(t, t_lo, dt, dt_lo, diag, y, mask, n, num_blocks,
+                       device=None) -> Plan4:
+    """The port's exact-mode plan from a JAX ``PlanDS``'s arrays.
+
+    The JAX plan holds the time grid and the spacings as double-single
+    pairs of float32 words; each pair is summed in float64, which holds it
+    exactly, so the port's float64 plan carries the same numbers (its
+    ``t_lo`` is 0).  The float32 ``diag`` and ``y`` widen exactly.
+    """
+    def f64(x):
+        return np.asarray(x, np.float64)
+
+    zero = np.zeros_like(f64(t))
+    return plan_from_numpy(f64(t) + f64(t_lo), zero, f64(dt) + f64(dt_lo),
+                           f64(diag), f64(y), f64(mask), n, num_blocks,
+                           device=device)
+
+
+def cf_ds_from_numpy(cf, device=None):
+    """A ``pack_cf_ds`` vector (or rows) as a float64 tensor."""
+    return torch.as_tensor(np.asarray(cf, np.float64),
+                           device=resolve_device(device))

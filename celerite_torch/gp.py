@@ -20,6 +20,14 @@ rows onto the kernels' lane axis (one launch of each kernel for every
 chunk of rows; the torch counterpart of ``celerite_tpu/ops/vog_prim.py``'s
 batching rule, gp.py:744-809), and ``value_ok_grad(theta) -> (ll, ok,
 grad)`` is that entry on one row.
+
+Exact mode, ``precision="ds"``, is routed as the JAX package routes it
+(celerite_tpu/gp.py:410-433): a kernel of padded width 1-8 with a frozen
+mean, N >= 2048 points and no ``block_size`` takes the forward-mode
+pipeline of ``ops/dsfused`` in float64 (the CUDA kernels on the card, their
+plain versions on the CPU), with the same entries; any other exact-mode
+call takes the float64 route above, the port's stand-in for the JAX
+package's lax double-single solver (``dsblocked``, not ported).
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import numpy as np
 import torch
 
 from .modeling import ConstantModel, ModelSet
-from .ops import fused4, lanes4, seq
+from .ops import dsfused, fused4, lanes4, seq
 from .ops.lower import Coefficients, lower
 
 __all__ = ["GP", "LinAlgError"]
@@ -42,6 +50,12 @@ _SEQ_BELOW = 4096
 # per-step saves may take; it sets the chains per launch (_fold_cap).
 _FOLD_MEMORY_SHARE = 0.25
 _FOLD_CPU_BYTES = 1 << 30
+# Lanes a chain of the exact-mode route: on the card at most 128, the
+# fastest count for one chain and for 16 folded at N = 1e5, P = 8 in
+# chip_smoke.py's lane_sweep_D (PERF.md); on the CPU (its plain versions)
+# lanes of about _DS_CPU_STEPS steps.
+_DS_CUDA_LANES = 128
+_DS_CPU_STEPS = 8
 
 
 class LinAlgError(Exception):
@@ -55,15 +69,32 @@ def _not_in_slice(what, item):
 
 
 def _fold_cap(n, p, dtype, device):
-    """Chains per folded launch: a power of two whose per-step saves fit.
+    """Chains per folded launch of the adjoint route: a power of two whose
+    per-step saves fit.
 
     The gradient pipeline writes ``(4 P^2 + P)`` words a point and chain
     (fused4_grad.cu); a folded launch of ``nc`` chains holds ``nc`` times
-    that.  On the card the saves may take ``_FOLD_MEMORY_SHARE`` of its
-    memory, on the CPU ``_FOLD_CPU_BYTES``.
+    that.
     """
     item = torch.finfo(dtype).bits // 8
-    per_chain = max(n, 1) * (4 * p * p + p + 8) * item
+    return _chains_within(max(n, 1) * (4 * p * p + p + 8) * item, device)
+
+
+def _fold_cap_ds(lanes, p, c, device):
+    """Chains per folded call of the exact-mode route.
+
+    No saves: a chain holds its ``(1 + C)``-word dual outputs of both
+    kernels, ``6 P^2 + 2 P + 3`` float64 words a lane and word, and the
+    glue's temporaries, taken as eight times that.
+    """
+    return _chains_within(8 * lanes * (1 + c) * (6 * p * p + 2 * p + 3) * 8,
+                          device)
+
+
+def _chains_within(per_chain, device):
+    """The largest power of two of chains whose ``per_chain`` bytes fit:
+    on the card ``_FOLD_MEMORY_SHARE`` of its memory, on the CPU
+    ``_FOLD_CPU_BYTES``."""
     if device.type == "cuda":
         budget = _FOLD_MEMORY_SHARE * torch.cuda.get_device_properties(
             device).total_memory
@@ -73,6 +104,74 @@ def _fold_cap(n, p, dtype, device):
     while 2 * cap * per_chain <= budget:
         cap *= 2
     return cap
+
+
+def _fold_entries(make, vog_rows, fold_cap, device):
+    """The batched and one-row value-and-gradient entries of a route.
+
+    ``make(nc)`` builds what a folded call of ``nc`` rows runs on, its
+    first item the plan; it is cached per chain count.  ``vog_rows(entry,
+    th)`` gives ``(ll, ok, grad)`` for a power-of-two batch ``th`` on
+    ``entry = make(len(th))``.  Returns ``(value_ok_grad_batch,
+    value_ok_grad, entry)``, ``entry(nc)`` the cached builder.
+    """
+    cache = {}
+
+    def entry(nc):
+        if nc not in cache:
+            cache[nc] = make(nc)
+        return cache[nc]
+
+    def value_ok_grad_batch(thetas):
+        """``(n, dim)`` rows -> ``(ll (n,), ok (n,), grad (n, dim))``.
+
+        Pads n to a power of two with copies of the first row; above
+        ``value_ok_grad_batch.fold_cap`` chains (set from the memory a
+        folded call takes) it folds in chunks of that many.
+        ``value_ok_grad_batch.folded_plan(nc)`` is the cached plan a chunk
+        of ``nc`` rows runs on.
+        """
+        thetas = torch.as_tensor(thetas).to(device)
+        rows = thetas.shape[0]
+        cap = value_ok_grad_batch.fold_cap
+        nc = 1 << max(0, rows - 1).bit_length()
+        chunk = min(nc, cap)
+        pad = -rows % chunk
+        th = torch.cat([thetas, thetas[:1].expand(pad, -1)])
+        outs = [vog_rows(entry(chunk), part) for part in th.split(chunk)]
+        ll, ok, grad = (torch.cat(x) for x in zip(*outs))
+        return ll[:rows], ok[:rows], grad[:rows]
+
+    def value_ok_grad(theta):
+        """``(ll, ok, grad)`` for one parameter vector: the batched entry
+        on one row (a plan with the gradient path's lane count)."""
+        ll, ok, grad = value_ok_grad_batch(torch.as_tensor(theta)[None])
+        return ll[0], ok[0], grad[0]
+
+    value_ok_grad_batch.fold_cap = fold_cap
+    value_ok_grad_batch.folded_plan = lambda nc: entry(nc)[0]
+    return value_ok_grad_batch, value_ok_grad, entry
+
+
+class _ForwardModeLL(torch.autograd.Function):
+    """``(cf, fn) -> (ll, ok)`` for the exact-mode route under autograd.
+
+    The forward runs ``fn``, the forward-mode pipeline, once for the value
+    and ``d ll / d cf``; the backward multiplies the cotangent by that
+    gradient (celerite_tpu/gp.py:1144-1156).
+    """
+
+    @staticmethod
+    def forward(ctx, cf, fn):
+        ll, ok, grad = fn(cf.detach())
+        ctx.save_for_backward(grad)
+        ctx.mark_non_differentiable(ok)
+        return ll, ok
+
+    @staticmethod
+    def backward(ctx, gll, _gok):
+        (grad,) = ctx.saved_tensors
+        return gll * grad, None
 
 
 def _mean_value_fn(mean_model):
@@ -208,15 +307,21 @@ class GP(ModelSet):
         any device.  ``solver``: "seq" (sequential), "fused" (the fused
         primal over a lane plan: the CUDA kernel on the card, its plain
         version on the CPU) or "auto".  ``block_size`` sets the plan's lane
-        count B.  ``dtype`` is the working precision (float32 or float64);
-        ``precision="ds"`` means float64, which the card computes natively.
-        ``ll`` is differentiable with autograd; on the card its backward
-        reruns the gradient kernels over the value plan's lanes, whose
-        cross-lane glue costs more launches than the gradient path's plan
-        (PERF.md).  The fused closure carries ``value_ok_grad`` and
+        count B.  ``dtype`` is the working precision (float32 or float64).
+        ``precision="ds"`` is exact mode, always float64: under the JAX
+        package's gates (module docstring) the forward-mode kernels of
+        ``ops/dsfused`` (``route == "dsfused"``), whose value and gradient
+        come from one sweep; otherwise the float64 route, standing in for
+        the unported ``dsblocked``.  ``ll`` is differentiable with autograd;
+        on the card the fused route's backward reruns the gradient kernels
+        over the value plan's lanes, whose cross-lane glue costs more
+        launches than the gradient path's plan (PERF.md), and the
+        exact-mode route's backward multiplies by its forward-mode gradient.
+        The fused and exact-mode closures carry ``value_ok_grad`` and
         ``value_ok_grad_batch`` (module docstring), the tuned route,
         whatever ``fast_grad`` says, as JAX's does; ``fast_grad="tangent"``
-        (the forward-mode kernels) is not ported yet.
+        (the forward-mode kernels) is not ported yet.  ``loglik.route``
+        names the route taken: "seq", "fused" or "dsfused".
         """
         if fast_grad == "tangent":
             raise _not_in_slice("fast_grad='tangent' (the forward-mode "
@@ -239,17 +344,6 @@ class GP(ModelSet):
         kernel = self.kernel
         pr, pc = kernel.padded_size
         width = pr + 2 * pc
-        if solver == "auto":
-            use_seq = width == 0 or (device.type == "cpu" and n < _SEQ_BELOW)
-            solver = "seq" if use_seq else "fused"
-        if solver in ("blocked", "pallas"):
-            raise _not_in_slice("solver={0!r}".format(solver),
-                                "queue 1, item 6")
-        if solver not in ("seq", "fused"):
-            raise ValueError("unknown solver '{0}'".format(solver))
-        if solver == "fused" and width > fused4.MAX_WIDTH:
-            raise _not_in_slice("padded width P > 12", "queue 2, items 5-7")
-
         mask = np.asarray(self.unfrozen_mask)
         idx = torch.as_tensor(np.flatnonzero(mask), device=device)
         fixed = torch.as_tensor(self.parameter_vector, device=device)
@@ -267,6 +361,27 @@ class GP(ModelSet):
                 jitter=kernel.get_jitter(kp),
             )
             return coeffs, mp
+
+        # Exact mode under the JAX package's gates (celerite_tpu/gp.py:
+        # 419-428; general blocks never reach here, compute() refuses them):
+        # the forward-mode kernels on the card, their plain versions on the
+        # CPU.  Other exact-mode calls take the float64 route below.
+        if (precision == "ds" and not mean_active and 0 < width <= 8
+                and n >= 2048 and block_size is None):
+            return self._build_loglik_dsfused(t_np, y_np, diag_np,
+                                              split_theta, fixed, nk,
+                                              mean_fn, pr, pc, device)
+
+        if solver == "auto":
+            use_seq = width == 0 or (device.type == "cpu" and n < _SEQ_BELOW)
+            solver = "seq" if use_seq else "fused"
+        if solver in ("blocked", "pallas"):
+            raise _not_in_slice("solver={0!r}".format(solver),
+                                "queue 1, item 6")
+        if solver not in ("seq", "fused"):
+            raise ValueError("unknown solver '{0}'".format(solver))
+        if solver == "fused" and width > fused4.MAX_WIDTH:
+            raise _not_in_slice("padded width P > 12", "queue 2, items 5-7")
 
         if solver == "seq":
             t_dev = torch.as_tensor(t_np, dtype=dtype, device=device)
@@ -290,6 +405,7 @@ class GP(ModelSet):
                 ssm = lower(coeffs, t_dev, diag_dev, **lower_kw)
                 return seq.gp_log_likelihood(ssm, resid)
 
+            loglik.route = "seq"
             return loglik
 
         nb = block_size or lanes4.default_num_blocks4(n, device)
@@ -316,25 +432,21 @@ class GP(ModelSet):
         def loglik(theta):
             return ll_plan(cf_of(theta), y4_of(theta))
 
-        folded = {}
-
         def folded_fn(nc):
-            if nc not in folded:
-                bc = block_size or lanes4.default_grad_blocks4(n, device)
-                planb = lanes4.make_plan4(
-                    t_np, y_np if mean_active else y_fold, diag_np, bc,
-                    dtype=dtype, n_chain=nc, device=device)
-                folded[nc] = (planb, bc, fused4.build_ll_and_grad(
-                    planb, pr, pc, n_chain=nc))
-            return folded[nc]
+            bc = block_size or lanes4.default_grad_blocks4(n, device)
+            planb = lanes4.make_plan4(
+                t_np, y_np if mean_active else y_fold, diag_np, bc,
+                dtype=dtype, n_chain=nc, device=device)
+            return planb, bc, fused4.build_ll_and_grad(planb, pr, pc,
+                                                       n_chain=nc)
 
         def mean_of(theta):
             return mean_fn(split_theta(theta)[1], t_dev)
 
-        def folded_vog(th):
+        def folded_vog(entry, th):
             """(ll, ok, grad) for a power-of-two batch of rows, one
             folded launch of each kernel."""
-            planb, bc, fnb = folded_fn(th.shape[0])
+            planb, bc, fnb = entry
             th = th.detach().requires_grad_()
             with torch.enable_grad():
                 cfs = torch.func.vmap(cf_of)(th)
@@ -347,37 +459,73 @@ class GP(ModelSet):
                 (grad,) = torch.autograd.grad(ll.sum(), th)
             return ll.detach(), ok, grad
 
-        def value_ok_grad_batch(thetas):
-            """``(n, dim)`` rows -> ``(ll (n,), ok (n,), grad (n, dim))``.
-
-            Pads n to a power of two with copies of the first row; above
-            ``value_ok_grad_batch.fold_cap`` chains (set from the memory
-            the per-step saves take) it folds in chunks of that many.
-            ``value_ok_grad_batch.folded_plan(nc)`` is the cached plan a
-            chunk of ``nc`` rows runs on.
-            """
-            thetas = torch.as_tensor(thetas).to(device)
-            rows = thetas.shape[0]
-            cap = value_ok_grad_batch.fold_cap
-            nc = 1 << max(0, rows - 1).bit_length()
-            chunk = min(nc, cap)
-            pad = -rows % chunk
-            th = torch.cat([thetas, thetas[:1].expand(pad, -1)])
-            outs = [folded_vog(part) for part in th.split(chunk)]
-            ll, ok, grad = (torch.cat(x) for x in zip(*outs))
-            return ll[:rows], ok[:rows], grad[:rows]
-
-        def value_ok_grad(theta):
-            """``(ll, ok, grad)`` for one parameter vector: the batched
-            entry on one row (a plan with the gradient path's lane count)."""
-            ll, ok, grad = value_ok_grad_batch(torch.as_tensor(theta)[None])
-            return ll[0], ok[0], grad[0]
-
-        value_ok_grad_batch.fold_cap = _fold_cap(n, width, dtype, device)
-        value_ok_grad_batch.folded_plan = lambda nc: folded_fn(nc)[0]
+        loglik.value_ok_grad_batch, loglik.value_ok_grad, _ = _fold_entries(
+            folded_fn, folded_vog, _fold_cap(n, width, dtype, device), device)
         loglik.plan = plan
-        loglik.value_ok_grad = value_ok_grad
-        loglik.value_ok_grad_batch = value_ok_grad_batch
+        loglik.route = "fused"
+        return loglik
+
+    def _build_loglik_dsfused(self, t_np, y_np, diag_np, split_theta,
+                              fixed, nk, mean_fn, pr, pc, device):
+        """Exact mode: the two forward-mode kernels of ``ops/dsfused``.
+
+        The counterpart of celerite_tpu/gp.py:1019-1158.  The closure
+        ``theta -> (ll, ok)`` runs the value kernels alone; under autograd
+        it runs the forward-mode pipeline once and its backward multiplies
+        by that gradient (``_ForwardModeLL``).  ``value_ok_grad_batch``
+        folds rows onto lanes as the adjoint route does; the theta
+        gradient is the VJP of ``pack_cf_ds`` applied to the packed
+        coefficients' gradient.  The mean is frozen on this route, so the
+        residual stream is data.
+        """
+        n = t_np.shape[0]
+        width = pr + 2 * pc
+        c = dsfused.cf_len(pr, pc)
+        y_res = y_np - np.asarray(
+            mean_fn(fixed[nk:].cpu(), torch.as_tensor(t_np)), np.float64)
+        lanes = min(lanes4.default_grad_blocks4(n, device), _DS_CUDA_LANES)
+        if device.type == "cpu":
+            # The plain versions' forward mode costs per torch op of a
+            # Python loop over the steps: take ~_DS_CPU_STEPS-step lanes.
+            lanes = max(8, min(1024, 1 << (-(-n // _DS_CPU_STEPS) - 1)
+                               .bit_length()))
+
+        def cf_of(theta):
+            coeffs, _ = split_theta(theta)
+            return dsfused.pack_cf_ds(coeffs).to(device)
+
+        def folded_fn(nc):
+            planb = dsfused.make_plan_ds(t_np, y_res, diag_np, lanes,
+                                         n_chain=nc, device=device)
+            return planb, dsfused.build_ll_and_grad_ds(planb, pr, pc,
+                                                       n_chain=nc)
+
+        def folded_vog(entry, th):
+            """(ll, ok, grad) for a power-of-two batch of rows: one launch
+            of each kernel a direction chunk."""
+            _, fnb = entry
+            th = th.detach().requires_grad_()
+            with torch.enable_grad():
+                cfs = torch.func.vmap(cf_of)(th)
+            ll, ok, gcf = fnb(cfs.detach())
+            (grad,) = torch.autograd.grad(cfs, th, gcf)
+            return ll, ok, grad
+
+        batch, single, entry = _fold_entries(
+            folded_fn, folded_vog, _fold_cap_ds(lanes, width, c, device),
+            device)
+        plan, fn_grad = entry(1)
+        fn_value = dsfused.build_ll_ds(plan, pr, pc)
+
+        def loglik(theta):
+            cf = cf_of(theta)
+            if torch.is_grad_enabled() and cf.requires_grad:
+                return _ForwardModeLL.apply(cf, fn_grad)
+            return fn_value(cf)
+
+        loglik.value_ok_grad_batch, loglik.value_ok_grad = batch, single
+        loglik.plan = plan
+        loglik.route = "dsfused"
         return loglik
 
     def build_logprob(self, t, y, yerr=1.123e-12, log_prior=None,
@@ -393,6 +541,9 @@ class GP(ModelSet):
         log probability is not finite it is -inf and its gradient 0
         (celerite_tpu/gp.py:1207-1219).  ``fast_grad=False`` attaches
         neither (samplers then use autograd); ``"tangent"`` is not ported.
+        ``precision="ds"`` takes exact mode (:meth:`build_loglik`); on
+        config[2]-sized data that is the forward-mode kernels, whose
+        entries these two wrap unchanged.
         """
         ll_fn = self.build_loglik(
             t, y, yerr=yerr, solver=solver, block_size=block_size,

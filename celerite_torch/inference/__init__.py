@@ -1,10 +1,11 @@
-"""Inference of the port: HMC, window adaptation and diagnostics.
+"""Inference of the port: NUTS, HMC, window adaptation and diagnostics.
 
-Ported so far (ROADMAP queue 1, item 9): the chain-batched Hamiltonian
-pieces (``nuts``: metric, momentum, leapfrog, step-size search), plain HMC
-(``hmc``), dual averaging and Welford mass adaptation (``adaptation``) and
-the numpy diagnostics (``diagnostics``).  The NUTS tree builder and
-``sample_nuts`` are the next slice.
+Ported (ROADMAP queue 1, item 9): the chain-batched NUTS sampler
+(``nuts``: metric, momentum, leapfrog, step-size search, ``nuts_kernel``,
+``sample_nuts``), plain HMC (``hmc``), dual averaging and Welford mass
+adaptation (``adaptation``) and the numpy diagnostics (``diagnostics``).
+``sample_nuts_batch``, the fleet primitive, waits for the fleet slice
+(queue 1, item 13).
 """
 
 from . import adaptation, diagnostics, hmc, nuts  # noqa: F401
@@ -15,4 +16,9 @@ from .diagnostics import (  # noqa: F401
     summary,
 )
 from .hmc import HMCInfo, hmc_kernel  # noqa: F401
-from .nuts import find_reasonable_step_size  # noqa: F401
+from .nuts import (  # noqa: F401
+    NUTSInfo,
+    find_reasonable_step_size,
+    nuts_kernel,
+    sample_nuts,
+)

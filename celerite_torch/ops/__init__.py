@@ -7,5 +7,8 @@
 - ``dense``: O(N^3) dense oracle (tests only)
 - ``seq``: sequential solver (oracle; CPU route below N = 4096)
 - ``lanes4``: the per-dataset lane plan and the packed coefficient vector
-- ``fused4``: the fused primal: the CUDA kernel and its plain version
+- ``fused4``: the fused primal and the gradient pipeline: the CUDA kernels
+  and their plain versions
+- ``dsfused``: exact mode (``precision="ds"``): the forward-mode kernels
+  and their plain versions
 """

@@ -315,12 +315,13 @@ def chain_step(cfp, jr, jc, hu, hv, hph, ha, v, ph, t, tl, dt, m, hcf):
     hcf[2 * jr + 4 * jc] += ha * m
 
 
-def elem_fwd_reference(cf, plan: Plan4, jr, jc, seg=None):
+def elem_fwd_reference(cf, plan: Plan4, jr, jc, seg=None, keep_saves=True):
     """Phase 0 with saves (fused4.py:499 ``_elem_fwd_kernel``).
 
     Returns each lane's element ``(A, J, C)``, each ``(P, P, B)``, and the
-    saves ``(L, 2P^2, B)``: the step's input ``[Sh, A]``.  ``seg`` is
-    accepted for the wrappers' common signature; phase 0 is per lane.
+    saves ``(L, 2P^2, B)``: the step's input ``[Sh, A]`` (None with
+    ``keep_saves=False``).  ``seg`` is accepted for the wrappers' common
+    signature; phase 0 is per lane.
     """
     L, b = plan.t.shape
     _, step = _step_fn(cf, plan, jr, jc)
@@ -330,22 +331,25 @@ def elem_fwd_reference(cf, plan: Plan4, jr, jc, seg=None):
     saves = []
     for i in range(L):
         u, v, ph, a = step(i)
-        saves.append(torch.cat([Sh.reshape(p * p, b), A.reshape(p * p, b)]))
+        if keep_saves:
+            saves.append(torch.cat([Sh.reshape(p * p, b),
+                                    A.reshape(p * p, b)]))
         Sh, d, w = _riccati(Sh, u, v, ph, a)
         uA = torch.sum(A * (ph * u)[:, None], dim=0)
         A = ph[:, None] * A - w[:, None] * uA[None, :]
         J = J - uA[:, None] * (uA / d)[None, :]
-    return A, J, Sh, torch.stack(saves)
+    return A, J, Sh, torch.stack(saves) if keep_saves else None
 
 
-def factor_fwd_reference(cf, plan: Plan4, jr, jc, y, sh0, seg=None):
+def factor_fwd_reference(cf, plan: Plan4, jr, jc, y, sh0, seg=None,
+                         keep_saves=True):
     """Phase 1 with saves (fused4.py:619 ``_factor_fwd_kernel``).
 
     ``sh0`` is each lane's float64 seed ``(P, P, B)``.  Returns ``(M, m,
     Qm, qv, q0, ld, mind, saves)``: the affine map and statistics per lane
     in the plan's dtype, except ``q0`` and ``ld``, whose Kahan pairs are
     added in float64; the saves ``(L, 2P^2 + P, B)`` are the step's input
-    ``[Sh, M, m]``.
+    ``[Sh, M, m]`` (None with ``keep_saves=False``).
     """
     L, b = plan.t.shape
     _, step = _step_fn(cf, plan, jr, jc)
@@ -359,8 +363,9 @@ def factor_fwd_reference(cf, plan: Plan4, jr, jc, y, sh0, seg=None):
     saves = []
     for i in range(L):
         u, v, ph, a = step(i)
-        saves.append(torch.cat([Sh.reshape(p * p, b), M.reshape(p * p, b),
-                                mv]))
+        if keep_saves:
+            saves.append(torch.cat([Sh.reshape(p * p, b),
+                                    M.reshape(p * p, b), mv]))
         Sh, d, w = _riccati(Sh, u, v, ph, a)
         PhM = ph[:, None] * M
         g = torch.sum(PhM * u[:, None], dim=0)
@@ -380,7 +385,8 @@ def factor_fwd_reference(cf, plan: Plan4, jr, jc, y, sh0, seg=None):
         Qm = Qm + g[:, None] * (g / d)[None, :]
         mind = torch.minimum(mind, d)
     return (M, mv, Qm, qv, q0.double() + cq0.double(),
-            ld.double() + cld.double(), mind, torch.stack(saves))
+            ld.double() + cld.double(), mind,
+            torch.stack(saves) if keep_saves else None)
 
 
 def factor_bwd_reference(cf, plan: Plan4, jr, jc, y, saves, hM, hm, hQm, hqv,

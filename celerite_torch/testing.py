@@ -2,17 +2,21 @@
 
 The data makers are numpy (or take a ``terms`` module as an argument), so
 the same inputs can be fed to this package and to the JAX reference
-package.  :func:`compare_grad_kernels` holds the gradient kernels against
-their plain versions on the card.
+package.  :func:`compare_grad_kernels` and :func:`compare_ds_kernels` hold
+the gradient and the exact-mode kernels against their plain versions on
+the card.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-__all__ = ["make_data", "CASES", "pack_values", "bench_kernel",
-           "config2_kernel", "compare_grad_kernels"]
+__all__ = ["make_data", "CASES", "pack_values", "pack_values_ds",
+           "bench_kernel", "config2_kernel", "compare_grad_kernels",
+           "compare_ds_kernels"]
 
 # (jr, jc, coefficient values) of the fused primal tests: packed as
 # [a_real, c_real, a_comp, b_comp, c_comp, d_comp]; complex terms keep
@@ -40,6 +44,11 @@ def pack_values(jr, jc, vals, jitter=0.05):
     vals = np.asarray(vals, np.float64)
     total = vals[:jr].sum() + vals[2 * jr: 2 * jr + jc].sum() + jitter
     return np.concatenate([vals, [total]])
+
+
+def pack_values_ds(vals, jitter=0.05):
+    """``pack_cf_ds`` vector: the values, then the raw jitter."""
+    return np.concatenate([np.asarray(vals, np.float64), [jitter]])
 
 
 def bench_kernel(terms):
@@ -75,6 +84,71 @@ def _errors(got, want, summed=False, seg=None):
         scale = float(want.abs().max())
     err = float((got - want).abs().max())
     return err, err / scale if scale > 0 else err
+
+
+def _word_errors(got, want):
+    """For an output with a leading word axis (value, then the tangents):
+    (max abs error, max abs error relative to the output's largest
+    reference value, the largest error of a word relative to that word's
+    largest reference value)."""
+    got, want = got.double(), want.double()
+    err = (got - want).abs().reshape(want.shape[0], -1).amax(1)
+    scale = want.abs().reshape(want.shape[0], -1).amax(1)
+    per_word = torch.where(scale > 0, err / scale, err)
+    top = float(scale.max())
+    rel = float(err.max()) / top if top > 0 else float(err.max())
+    return float(err.max()), rel, float(per_word.max())
+
+
+def compare_ds_kernels(cf, plan, jr, jc, toff=0, T=None):
+    """Both exact-mode kernels against their plain versions on the same
+    inputs (the plan lies on the card; the plain versions run there too).
+
+    The factor kernels take the dual seeds ``prefix_sh0_ds`` makes from the
+    plain elements.  Every output is compared against its largest
+    reference value, as :func:`compare_grad_kernels` does (``mind`` has no
+    word axis); ``max_rel_err_word`` also gives the largest error of one
+    word (the value or one tangent) against that word's own scale.
+    Returns ``{kernel: {"max_abs_err", "max_rel_err", "max_rel_err_word",
+    "outputs": {name: rel}, "plain_ms"}}``, ``plain_ms`` the plain
+    version's one run on a synchronized host clock.
+    """
+    from .ops import dsfused
+
+    b = plan.t.shape[1]
+    seg = b // (1 if cf.ndim == 1 else cf.shape[0])
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    elems, elem_ms = timed(dsfused.elem_ds_reference, cf, plan, jr, jc, toff,
+                           T)
+    sh0 = dsfused.prefix_sh0_ds(*elems, seg)
+    factor, factor_ms = timed(dsfused.factor_ds_reference, cf, plan, jr, jc,
+                              plan.y, sh0, toff, T)
+    runs = {
+        "elem_ds": (("A", "J", "C"),
+                    dsfused.elem_ds_cuda(cf, plan, jr, jc, toff, T), elems,
+                    elem_ms),
+        "factor_ds": (("M", "m", "Qm", "qv", "q0", "ld", "mind"),
+                      dsfused.factor_ds_cuda(cf, plan, jr, jc, plan.y, sh0,
+                                             toff, T), factor, factor_ms),
+    }
+    out = {}
+    for name, (names, got, want, ms) in runs.items():
+        errs = {n: _word_errors(g if n != "mind" else g[None],
+                                w if n != "mind" else w[None])
+                for n, g, w in zip(names, got, want)}
+        out[name] = {"max_abs_err": max(e[0] for e in errs.values()),
+                     "max_rel_err": max(e[1] for e in errs.values()),
+                     "max_rel_err_word": max(e[2] for e in errs.values()),
+                     "outputs": {n: e[1] for n, e in errs.items()},
+                     "plain_ms": ms}
+    return out
 
 
 def compare_grad_kernels(cf, plan, jr, jc, seg=None):

@@ -5,9 +5,10 @@ Usage (from the root of a checkout, on a machine with an NVIDIA H100):
 
     python3 chip_smoke.py
 
-Builds the fused primal kernel (celerite_torch/csrc/fused4_primal.cu) and
-the four gradient kernels (celerite_torch/csrc/fused4_grad.cu) with nvcc for
-every padded width it uses, one nvcc process per library, all at once; holds
+Builds the fused primal kernel (celerite_torch/csrc/fused4_primal.cu), the
+four gradient kernels (celerite_torch/csrc/fused4_grad.cu) and the two
+exact-mode kernels (celerite_torch/csrc/dsfused.cu) with nvcc for every
+padded width it uses, one nvcc process per library, all at once; holds
 each kernel against its plain PyTorch version on the card; then drives the
 port's main paths through the entry points a user calls:
 
@@ -21,8 +22,17 @@ port's main paths through the entry points a user calls:
   N = 1e6, held against autograd through the plain primal in float64, with
   the lane sweeps of the value-and-gradient path;
 - sampler_C: dense-mass HMC on config[2] at N = 1e5 in float64, 16 chains
-  folded: step-size search, 100 warmup transitions (dual averaging, dense
-  inverse mass from the second half), 100 sampling transitions.
+  folded: step-size search, 60 warmup transitions (dual averaging, dense
+  inverse mass from the second half), 60 sampling transitions;
+- ds_kernels: the exact-mode kernels against their plain versions at every
+  width and on main path D's own plans, timed there, and the sweep of the
+  directions a launch (tan_chunk);
+- D: exact mode, ``build_logprob(..., precision="ds")`` for config[2] at
+  N = 1e5: ``value_and_grad`` (one theta) and ``value_and_grad_batch``
+  (16 thetas folded), held against the float64 fused4 route;
+- sampler_D: dense-mass NUTS (``inference.sample_nuts``) in exact mode over
+  16 folded chains, SAMPLER_D_WARMUP warmup and SAMPLER_D_SAMPLES sampling
+  transitions, tree depth 6 in warmup and 8 in sampling.
 
 Each main path resets every kernel's launch counter just before it runs and
 reads the counters just after; a kernel of the path that did not launch
@@ -48,10 +58,11 @@ import torch
 import celerite_torch
 from celerite_torch import _build, inference, terms
 from celerite_torch.inference import adaptation, diagnostics
-from celerite_torch.ops import fused4, lanes4
+from celerite_torch.ops import dsfused, fused4, lanes4
 from celerite_torch.ops.lower import Coefficients
-from celerite_torch.testing import (CASES, bench_kernel, compare_grad_kernels,
-                                    config2_kernel, make_data, pack_values)
+from celerite_torch.testing import (CASES, bench_kernel, compare_ds_kernels,
+                                    compare_grad_kernels, config2_kernel,
+                                    make_data, pack_values, pack_values_ds)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): memory rate and the
 # non-tensor-core float rates.
@@ -75,11 +86,25 @@ GRAD_F32_RTOL = 4e-5
 # on the same plan reported beside it.
 GRAD_F32_PATH_RTOL = 2e-3
 GRAD_AUTOGRAD_RTOL = 1e-8       # main path C's f64 gradient, in norm
-# The CUDA kernels of csrc/fused4_primal.cu and csrc/fused4_grad.cu, by
-# their names in a profile.
+# The exact-mode kernels against their plain versions, every output against
+# its largest reference value, as the gradient kernels are held; each word's
+# error against its own scale is reported beside it.
+DS_F64_RTOL = 1e-10
+# The CUDA kernels of csrc/fused4_primal.cu, csrc/fused4_grad.cu and
+# csrc/dsfused.cu, by their names in a profile.
 PORT_KERNELS = ("elem_kernel", "elem_round", "factor_kernel", "affine_round",
-                "assemble") + tuple(k + "_kernel" for k in fused4.GRAD_KERNELS)
+                "assemble") + tuple(k + "_kernel" for k in fused4.GRAD_KERNELS
+                                    + dsfused.DS_KERNELS)
 SAMPLER_CHAINS = 16
+# Directions a launch swept on main path D's 16-chain plan (C = 17 at
+# config[2]).
+TAN_SWEEP = (1, 2, 4, 8, 17)
+# sampler_D's transitions, cut to keep the phase near five minutes: its
+# sampling trees reach the depth cap of 8 (255 leapfrogs a transition).
+# Fewer than 20 warmup transitions leave one dual-averaging update after
+# the metric is set, and 4 draws are the fewest split R-hat takes.
+SAMPLER_D_WARMUP = 20
+SAMPLER_D_SAMPLES = 4
 
 
 def emit(phase, **fields):
@@ -110,13 +135,15 @@ def nvcc_version():
 
 
 def ptxas_summary(path):
-    """{kernel<dtype>: {"registers", "spill_stores", "spill_loads"}}."""
+    """{kernel<dtype or tan/value>: {"registers", "spill_stores",
+    "spill_loads"}}."""
     out, cur, props = {}, None, None
+    tags = {"f": "f32", "d": "f64", "Lb1": "tan", "Lb0": "value"}
     for line in path.read_text().splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I([df])E", line)
+        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I([df]|Lb[01])E",
+                      line)
         if m:
-            cur = "{0}<{1}>".format(m.group(1),
-                                    "f32" if m.group(2) == "f" else "f64")
+            cur = "{0}<{1}>".format(m.group(1), tags[m.group(2)])
             out[cur] = {}
             continue
         m = re.search(r"Function properties for (\S+)", line)
@@ -510,10 +537,17 @@ def grad_counts():
             for name in fused4.GRAD_KERNELS}
 
 
+def ds_counts():
+    return {name: getattr(dsfused, name + "_cuda").launches
+            for name in dsfused.DS_KERNELS}
+
+
 def reset_counts():
     fused4.primal_cuda.launches = 0
     for name in fused4.GRAD_KERNELS:
         getattr(fused4, name + "_cuda").launches = 0
+    for name in dsfused.DS_KERNELS:
+        getattr(dsfused, name + "_cuda").launches = 0
 
 
 def reference_value_and_grad(gp, plan, theta, prior):
@@ -663,7 +697,7 @@ def fold_sweep_c(t, y, yerr, cf, pr, pc, dev, chains=SAMPLER_CHAINS):
             del plan
 
 
-def sampler_c(lp, theta, dev, warmup=100, samples=100, leapfrog=8):
+def sampler_c(lp, theta, dev, warmup=60, samples=60, leapfrog=8):
     """Dense-mass HMC on config[2], 16 folded chains, float64."""
     gen = torch.Generator(device=dev).manual_seed(2026)
     dim = theta.shape[0]
@@ -686,7 +720,7 @@ def sampler_c(lp, theta, dev, warmup=100, samples=100, leapfrog=8):
 
     # Windowed warmup as the JAX package's NUTS warmup runs it: one step
     # size for all chains by dual averaging on the pooled acceptance; the
-    # second half's first 35 transitions feed the dense covariance, and at
+    # second half but its last 15 transitions feeds the dense covariance, and at
     # the window's end the metric is set and dual averaging restarts for a
     # 15-transition terminal buffer.
     in_window, window_end = adaptation.window_boundaries(
@@ -767,6 +801,307 @@ def sampler_c(lp, theta, dev, warmup=100, samples=100, leapfrog=8):
     return grew
 
 
+# ---------------------------------------------------------------------------
+# Exact mode: the dsfused kernels (celerite_torch/csrc/dsfused.cu), main
+# path D and sampler_D
+# ---------------------------------------------------------------------------
+
+DS_REPLACES = {
+    "elem_ds": "celerite_tpu/ops/dsfused.py:379",
+    "factor_ds": "celerite_tpu/ops/dsfused.py:432",
+}
+
+
+def packed_cf_ds(gp, theta):
+    """The exact-mode packed coefficients (raw jitter last) for ``theta``."""
+    kp = theta[:gp.kernel.full_size]
+    return dsfused.pack_cf_ds(Coefficients(
+        *gp.kernel.get_padded_coefficients(kp),
+        jitter=gp.kernel.get_jitter(kp)))
+
+
+def ds_bound_ms(name, plan, jr, jc, T, rows=1):
+    """Least time for one launch of exact-mode kernel ``name`` over ``T``
+    directions: max(bytes / rate, operations / float64 peak).
+
+    Bytes: the (L, B) streams the kernel reads (five, six with y), its
+    coefficient rows, the factor's 1 + T seed words, and the (1 + T)
+    output words a lane written once.  Operations per point: the value
+    step once (lowering, Riccati step, element update or factor
+    statistics) and the tangent step once a direction (the lowering's
+    tangent, the Riccati step's and the update's), counted from the code.
+    """
+    L, b = plan.t.shape
+    p = jr + 2 * jc
+    c = dsfused.cf_len(jr, jc)
+    pts = L * b
+    w = 1 + T
+    lower = jr * 4 + jc * 40 + 3
+    step = 7 * p * p + 4 * p + 1
+    tan_step = 10 + 21 * p * p + 8 * p + 1
+    if name == "elem_ds":
+        words = 5 * pts + c * rows + 3 * w * p * p * b
+        per_point = lower + step + 8 * p * p + 2 * p \
+            + T * (tan_step + 20 * p * p + 3 * p)
+    else:
+        words = 6 * pts + c * rows + w * p * p * b \
+            + (w * (2 * p * p + 2 * p + 2) + 1) * b
+        per_point = lower + step + 8 * p * p + 7 * p + 12 \
+            + T * (tan_step + 19 * p * p + 15 * p + 12)
+    t_bytes = words * 8 / PEAK_BYTES_S * 1e3
+    t_ops = per_point * pts / PEAK_FLOPS[torch.float64] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ds_case(ds_errs, tag, cf, plan, jr, jc, toff=0, T=None, **info):
+    """Both exact-mode kernels against their plain versions, float64.
+    Returns each plain version's ms."""
+    errs = compare_ds_kernels(cf, plan, jr, jc, toff, T)
+    emit("ds_kernel_vs_plain", case=tag, jr=jr, jc=jc, toff=toff,
+         directions=dsfused.cf_len(jr, jc) - toff if T is None else T,
+         limit=DS_F64_RTOL,
+         max_rel_err={k: e["max_rel_err"] for k, e in errs.items()},
+         max_rel_err_word={k: e["max_rel_err_word"] for k, e in errs.items()},
+         outputs={k: e["outputs"] for k, e in errs.items()}, **info)
+    for name, e in errs.items():
+        ds_errs[name].append(e["max_abs_err"])
+        if not e["max_rel_err"] <= DS_F64_RTOL:
+            fail("{0} kernel disagrees with plain: {1} {2}".format(
+                name, tag, (jr, jc, toff, T)))
+    return {name: e["plain_ms"] for name, e in errs.items()}
+
+
+def ds_kernel_calls(cf, plan, jr, jc):
+    """{name: kernel call} over every direction, for timing."""
+    seg = plan.t.shape[1] // (1 if cf.ndim == 1 else cf.shape[0])
+    sh0 = dsfused.prefix_sh0_ds(*dsfused.elem_ds_cuda(cf, plan, jr, jc), seg)
+    return {
+        "elem_ds": lambda: dsfused.elem_ds_cuda(cf, plan, jr, jc),
+        "factor_ds": lambda: dsfused.factor_ds_cuda(cf, plan, jr, jc, plan.y,
+                                                    sh0),
+    }
+
+
+def check_ds_kernels(dev, gp, lpd, theta, thetas, ds_errs):
+    """ds_kernels: both exact-mode kernels against their plain versions.
+
+    At every width (CASES, N = 4099, 256 lanes) over all directions, one
+    direction and none (the value launch); a chain-folded (4, C) batch;
+    then on the plans main path D runs them on (``folded_plan(1)`` and
+    ``(16)``), where each kernel and its plain version are timed and the
+    bound computed; then the tan_chunk sweep at 16 chains.  Returns
+    ``{nc: {name: row}}``.
+    """
+    run = functools.partial(ds_case, ds_errs)
+    t, y, yerr = make_data(4099, seed=7, t_max=400.0)
+    plan = dsfused.make_plan_ds(t, y, yerr**2, 256, device=dev)
+    for jr, jc, vals in CASES:
+        cf = torch.as_tensor(pack_values_ds(vals), device=dev)
+        c = dsfused.cf_len(jr, jc)
+        for toff, T in ((0, None), (c // 2, 1), (0, 0)):
+            run("cases", cf, plan, jr, jc, toff, T, n=4099, lanes=256)
+    jr, jc, vals = CASES[3]
+    t, y, yerr = make_data(4099, seed=8, t_max=400.0)
+    folded = dsfused.make_plan_ds(t, y, yerr**2, 64, n_chain=4, device=dev)
+    cf = torch.as_tensor(pack_values_ds(vals), device=dev)
+    run("folded", torch.stack([cf * s for s in (1.0, 0.9, 1.1, 1.2)]),
+        folded, jr, jc, n=4099, lanes=256, n_chain=4)
+
+    pr, pc = gp.kernel.padded_size
+    c = dsfused.cf_len(pr, pc)
+    cfs = torch.stack([packed_cf_ds(gp, th) for th in thetas])
+    rows = {}
+    for nc in (1, SAMPLER_CHAINS):
+        plan = lpd.loglik.value_ok_grad_batch.folded_plan(nc)
+        cf = packed_cf_ds(gp, theta) if nc == 1 else cfs[:nc]
+        lanes, steps = plan.t.shape[1], plan.t.shape[0]
+        plain_ms = run("main_path", cf, plan, pr, pc, n=plan.n, n_chain=nc,
+                       lanes=lanes, steps_per_lane=steps)
+        for name, kern in ds_kernel_calls(cf, plan, pr, pc).items():
+            row = rows.setdefault(nc, {}).setdefault(name, {})
+            row["ms"] = sync_time_ms(kern, reps=10)
+            row["plain_ms"] = plain_ms[name]
+            row["bound_ms"], row["bound_by"] = ds_bound_ms(name, plan, pr, pc,
+                                                           c, rows=nc)
+        emit("ds_kernel_time_D", n=plan.n, n_chain=nc, lanes=lanes,
+             steps_per_lane=steps, directions=c, kernels=rows[nc])
+
+    # Directions a launch: the whole value-and-gradient and its kernels.
+    plan = lpd.loglik.value_ok_grad_batch.folded_plan(SAMPLER_CHAINS)
+    seg = plan.t.shape[1] // SAMPLER_CHAINS
+    sh0 = dsfused.prefix_sh0_ds(*dsfused.elem_ds_cuda(cfs, plan, pr, pc), seg)
+    for chunk in TAN_SWEEP:
+        fn = dsfused.build_ll_and_grad_ds(plan, pr, pc,
+                                          n_chain=SAMPLER_CHAINS,
+                                          tan_chunk=chunk)
+        parts = [(o, min(chunk, c - o)) for o in range(0, c, chunk)]
+        elem_ms = sum(sync_time_ms(
+            lambda o=o, T=T: dsfused.elem_ds_cuda(cfs, plan, pr, pc, o, T),
+            reps=3) for o, T in parts)
+        factor_ms = sum(sync_time_ms(
+            lambda o=o, T=T: dsfused.factor_ds_cuda(
+                cfs, plan, pr, pc, plan.y,
+                torch.cat([sh0[:1], sh0[1 + o:1 + o + T]]), o, T),
+            reps=3) for o, T in parts)
+        emit("tan_chunk_sweep_D", n_chain=SAMPLER_CHAINS, tan_chunk=chunk,
+             launches_per_call=2 * len(parts),
+             ms_call=sync_time_ms(lambda: fn(cfs), reps=3, warm=1),
+             ms_elem_ds=elem_ms, ms_factor_ds=factor_ms)
+    return rows
+
+
+def lane_sweep_d(t, y, yerr, cf, cfs, pr, pc, dev):
+    """Exact mode's value-and-gradient ms over lanes a chain, for one chain
+    and for 16 folded: the kernels want many lanes, the glue few."""
+    for nc, rows in ((1, cf), (SAMPLER_CHAINS, cfs)):
+        for lanes in (64, 128, 256, 512, 1024):
+            plan = dsfused.make_plan_ds(t, y, yerr**2, lanes, n_chain=nc,
+                                        device=dev)
+            fn = dsfused.build_ll_and_grad_ds(plan, pr, pc, n_chain=nc)
+            emit("lane_sweep_D", n_chain=nc, lanes_per_chain=lanes,
+                 steps_per_lane=plan.t.shape[0],
+                 ms_call=sync_time_ms(lambda: fn(rows), reps=3, warm=1))
+            del plan, fn
+
+
+def main_path_d(gp, lpd, lp64, theta, thetas):
+    """config[2] at N = 1e5 in exact mode: ``value_and_grad`` (one theta),
+    ``value_and_grad_batch`` (16 folded) and the value closure, gated
+    against the float64 fused4 route at the same thetas."""
+    reset_counts()
+    v1, g1 = lpd.value_and_grad(theta)
+    vb, gb = lpd.value_and_grad_batch(thetas)
+    v0 = lpd(theta)
+    counts = ds_counts()
+    others = dict(grad_counts(), primal=fused4.primal_cuda.launches)
+    emit("main_path_D_launches", **counts, fused4=others)
+    if min(counts.values()) < 3:
+        fail("main path D did not launch every exact-mode kernel: "
+             "{0}".format(counts))
+    r1, rg1 = lp64.value_and_grad(theta)
+    rb, rgb = lp64.value_and_grad_batch(thetas)
+    e_value = max(rel(v1, r1), rel(v0, r1))
+    e_grad = grad_rel(g1, rg1)
+    e_bvalue = max(rel(vb[r], rb[r]) for r in range(SAMPLER_CHAINS))
+    e_bgrad = max(grad_rel(gb[r], rgb[r]) for r in range(SAMPLER_CHAINS))
+    spread = {
+        "single": eval_spread_ms(lpd.value_and_grad, theta, batches=7,
+                                 per_batch=5),
+        "batch16": eval_spread_ms(lpd.value_and_grad_batch, thetas,
+                                  batches=5, per_batch=3),
+        "value_only": eval_spread_ms(lpd, theta, batches=5, per_batch=5),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lpd.value_and_grad_batch(thetas)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    emit("main_path_D", model="config[2] 2xSHO + jitter (P=8)",
+         precision="ds", route=lpd.loglik.route, n=lpd.loglik.plan.n,
+         lanes_per_chain=lpd.loglik.plan.num_blocks,
+         directions=dsfused.cf_len(*gp.kernel.padded_size),
+         fold_cap=lpd.loglik.value_ok_grad_batch.fold_cap,
+         logprob_ds=float(v1), logprob_f64_fused4=float(r1),
+         rel_err_value_vs_f64_route=e_value,
+         rel_err_grad_vs_f64_route=e_grad,
+         rel_err_batch_value_vs_f64_route=e_bvalue,
+         rel_err_batch_grad_vs_f64_route=e_bgrad,
+         grad_ds=g1.tolist(), ms_per_call=spread,
+         peak_mib_batch16=peak / 2**20)
+    if not (math.isfinite(float(v1)) and bool(torch.isfinite(vb).all())
+            and bool(torch.isfinite(g1).all())
+            and bool(torch.isfinite(gb).all())):
+        fail("main path D gave a non-finite log probability or gradient")
+    if max(e_value, e_bvalue) > F64_RTOL:
+        fail("main path D: log probability off the f64 route by "
+             "{0}".format(max(e_value, e_bvalue)))
+    if max(e_grad, e_bgrad) > GRAD_AUTOGRAD_RTOL:
+        fail("main path D: gradient off the f64 route by "
+             "{0}".format(max(e_grad, e_bgrad)))
+    emit("profile_D", call="value_and_grad",
+         **profile_evals(lpd.value_and_grad, theta, evals=5))
+    emit("profile_D", call="value_and_grad_batch(16)",
+         **profile_evals(lpd.value_and_grad_batch, thetas, evals=3))
+    return counts
+
+
+def sampler_d(lpd, theta, dev, warmup=SAMPLER_D_WARMUP,
+              samples=SAMPLER_D_SAMPLES):
+    """Dense-mass NUTS on config[2] in exact mode, 16 folded chains:
+    ``sample_nuts`` with the step-size search, windowed warmup, target
+    0.8, tree depth 6 in warmup and 8 in sampling."""
+    gen = torch.Generator(device=dev).manual_seed(2027)
+    dim = theta.shape[0]
+    q0 = theta[None] + 0.02 * torch.randn(SAMPLER_CHAINS, dim, generator=gen,
+                                          dtype=torch.float64, device=dev)
+    reset_counts()
+    calls = [0]
+    vag = lpd.value_and_grad_batch
+
+    def counted(qs):
+        calls[0] += 1
+        return vag(qs)
+
+    target = lambda th: lpd(th)  # noqa: E731
+    target.value_and_grad_batch = counted
+    marks = []
+
+    def progress(rec):
+        torch.cuda.synchronize()
+        marks.append((rec["phase"], time.perf_counter(), calls[0]))
+
+    t0 = time.perf_counter()
+    chain, info = inference.sample_nuts(
+        target, q0, gen, num_warmup=warmup, num_samples=samples,
+        max_tree_depth=8, warmup_max_tree_depth=6, target_accept=0.8,
+        initial_step_size="auto", dense_mass=True, chunk_size=10,
+        progress=progress)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    _, t_warm_end, calls_warm = [m for m in marks if m[0] == "warmup"][-1]
+    t_samp = t_end - t_warm_end
+    draws = chain.cpu().numpy()
+    summ = diagnostics.summary(draws)
+    grew = ds_counts()
+    min_ess = float(np.min(summ["ess"]))
+    moved = [bool((chain[c] != q0[c]).any()) for c in range(SAMPLER_CHAINS)]
+    out = {
+        "n_chains": SAMPLER_CHAINS, "dim": dim, "warmup": warmup,
+        "samples": samples, "max_tree_depth": 8,
+        "warmup_max_tree_depth": 6, "target_accept": 0.8,
+        "step_size": float(info["step_size"]),
+        "warmup_s": t_warm_end - t0, "sampling_s": t_samp,
+        "transitions_per_s": samples / t_samp,
+        "leapfrog_slots_per_s": float(info["num_steps"]) / t_samp,
+        "batched_calls_per_s": (calls[0] - calls_warm) / t_samp,
+        "ms_per_value_and_grad_batch":
+            t_samp * 1e3 / max(calls[0] - calls_warm, 1),
+        "value_and_grad_batch_calls": calls[0],
+        "calls_sampling": calls[0] - calls_warm,
+        "leapfrog_slots_sampling": int(info["num_steps"]),
+        "mean_accept_warmup_last_half": float(
+            info["warmup_accept_prob"][-(warmup // 2):].mean()),
+        "mean_accept_sampling": float(info["accept_prob"]),
+        "divergences_warmup": int(info["warmup_divergences"]),
+        "divergences_sampling": int(info["divergences"]),
+        "max_rhat": float(np.max(summ["rhat"])), "min_ess": min_ess,
+        "min_ess_per_s": min_ess / t_samp,
+        "ebfmi": [float(x) for x in diagnostics.ebfmi(
+            info["energy"].cpu().numpy())],
+        "chains_moved": sum(moved), "kernel_launches": grew,
+        "inv_mass_diag": torch.diagonal(info["inv_mass"]).tolist(),
+    }
+    emit("sampler_D", **out)
+    if not np.all(np.isfinite(draws)):
+        fail("sampler_D: a draw is not finite")
+    if not all(moved):
+        fail("sampler_D: a chain never moved")
+    if min(grew.values()) < calls[0]:
+        fail("sampler_D: exact-mode kernels launched fewer times than "
+             "batched calls: {0}".format(grew))
+    return grew
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -787,7 +1122,7 @@ def main():
          nvidia_smi=smi)
 
     t0 = time.perf_counter()
-    sources = ("fused4_primal.cu", "fused4_grad.cu")
+    sources = ("fused4_primal.cu", "fused4_grad.cu", "dsfused.cu")
     paths = _build.build([(src, {"CELERITE_P": p})
                           for src in sources for p in WIDTHS])
     emit("build", seconds=time.perf_counter() - t0, widths=list(WIDTHS),
@@ -998,6 +1333,19 @@ def main():
     # ---- sampler_C: dense-mass HMC over 16 folded chains, float64 ----
     grew = sampler_c(lps[torch.float64], theta, dev)
 
+    # ---- exact mode: ds_kernels, main path D, sampler_D ----
+    lpd = gp.build_logprob(t, y, yerr=yerr, log_prior=prior, precision="ds")
+    if lpd.loglik.route != "dsfused":
+        fail("precision='ds' on config[2] took the {0} route".format(
+            lpd.loglik.route))
+    ds_errs = {name: [] for name in dsfused.DS_KERNELS}
+    ds_rows = check_ds_kernels(dev, gp, lpd, theta, thetas, ds_errs)
+    counts_d = main_path_d(gp, lpd, lps[torch.float64], theta, thetas)
+    lane_sweep_d(t, y, yerr, packed_cf_ds(gp, theta),
+                 torch.stack([packed_cf_ds(gp, th) for th in thetas]), pr, pc,
+                 dev)
+    grew_d = sampler_d(lpd, theta, dev)
+
     kernels = [{
         "name": "fused4_primal",
         "route": "cuda",
@@ -1026,6 +1374,23 @@ def main():
             "plain_ms": row["plain_ms_float64"],
             "bound_ms": row["bound_ms_float64"],
             "bound_by": row["bound_by_float64"],
+            "library_ms": None,
+        })
+    # The exact-mode kernels at the shape of nearly all their launches:
+    # sampler_D's 16 chains folded, all 17 directions a launch.
+    for name in dsfused.DS_KERNELS:
+        row = ds_rows[SAMPLER_CHAINS][name]
+        kernels.append({
+            "name": "dsfused_" + name,
+            "route": "cuda",
+            "source": "celerite_torch/csrc/dsfused.cu",
+            "replaces": DS_REPLACES[name],
+            "launches": counts_d[name] + grew_d[name],
+            "max_abs_err": max(ds_errs[name]),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
             "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

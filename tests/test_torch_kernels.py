@@ -207,6 +207,25 @@ def test_grad_kernels_chain_folded_and_segments(dtype, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("jr,jc,vals", CASES)
+@pytest.mark.parametrize("T", [1, 4])
+def test_ds_kernels_match_plain(jr, jc, vals, T, cuda_device):
+    """Both exact-mode kernels equal their plain versions on the same
+    inputs, every output word (value and each tangent) to 1e-10, over T
+    directions from coefficient 1 (clipped to the C coefficients)."""
+    from celerite_torch.ops import dsfused
+    from celerite_torch.testing import compare_ds_kernels, pack_values_ds
+
+    t, y, yerr = make_data(4099, seed=7, t_max=400.0)
+    plan = dsfused.make_plan_ds(t, y, yerr**2, 256, device=cuda_device)
+    cf = torch.as_tensor(pack_values_ds(vals), device=cuda_device)
+    T = min(T, dsfused.cf_len(jr, jc) - 1)
+    errs = compare_ds_kernels(cf, plan, jr, jc, toff=1, T=T)
+    bad = {k: e["outputs"] for k, e in errs.items() if e["max_rel_err"] > 1e-10}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
 def test_grad_wrappers_reject_cpu_tensors(cuda_device):
     jr, jc, vals = CASES[0]
     t, y, yerr = make_data(256, seed=2)
