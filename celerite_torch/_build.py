@@ -33,10 +33,11 @@ FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Extra flags per source.  The gradient kernels are compiled without fma
-# contraction so that they round as their plain versions do, which keep
-# every multiply and add separate; the primal keeps the default.
-SOURCE_FLAGS = {"fused4_grad.cu": ("-fmad=false",)}
+# Extra flags per source.  The gradient and adjoint kernels are compiled
+# without fma contraction so that they round as their plain versions do,
+# which keep every multiply and add separate; the primal keeps the default.
+SOURCE_FLAGS = {"fused4_grad.cu": ("-fmad=false",),
+                "adjoint.cu": ("-fmad=false",)}
 
 _loaded: dict = {}
 

@@ -5,8 +5,9 @@ Every function takes plain numpy arrays, so this module needs neither JAX
 nor ``celerite_tpu``: a caller reads the arrays off the JAX objects
 (``get_parameter_names(include_frozen=True)``,
 ``get_parameter_vector(include_frozen=True)``, ``unfrozen_mask``; the
-fields of a ``Plan4`` or a ``PlanDS``; a ``pack_cf_ds`` vector) and hands
-them over, so that the two packages compute on identical inputs.
+fields of a ``Plan4``, a ``PlanDS`` or a ``LanePlan``; a ``pack_cf_ds``
+vector) and hands them over, so that the two packages compute on
+identical inputs.
 """
 
 from __future__ import annotations
@@ -14,10 +15,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.lanes import LanePlan
 from .ops.lanes4 import Plan4, resolve_device
 
 __all__ = ["load_parameters", "plan_from_numpy", "plan_ds_from_numpy",
-           "cf_ds_from_numpy"]
+           "cf_ds_from_numpy", "lane_plan_from_numpy"]
 
 
 def load_parameters(gp, names, values, unfrozen_mask):
@@ -89,3 +91,17 @@ def cf_ds_from_numpy(cf, device=None):
     """A ``pack_cf_ds`` vector (or rows) as a float64 tensor."""
     return torch.as_tensor(np.asarray(cf, np.float64),
                            device=resolve_device(device))
+
+
+def lane_plan_from_numpy(t, t_lo, dt, diag, y, mask, n, device=None):
+    """A port ``LanePlan`` from a JAX ``LanePlan``'s arrays.
+
+    Both packages lay the plan out ``(L, 1, B)`` with the same lanes, so
+    the arrays carry over as they are.  ``device`` defaults to ``cuda``
+    (raising without CUDA), as :func:`celerite_torch.ops.lanes.make_plan`
+    does.
+    """
+    device = resolve_device(device)
+    arrays = (torch.as_tensor(np.array(x), device=device)
+              for x in (t, t_lo, dt, diag, y, mask))
+    return LanePlan(*arrays, n=int(n))

@@ -46,6 +46,8 @@
 
 #include "fused4_common.cuh"
 
+static_assert(P <= 12, "padded width must be in [1, 12]");
+
 typedef double R;
 
 // Threads a block: BLOCK / G items.

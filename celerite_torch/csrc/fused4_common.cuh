@@ -1,5 +1,6 @@
-// Shared device code of the fused4 kernels (fused4_primal.cu, fused4_grad.cu)
-// and the exact-mode kernels (dsfused.cu).
+// Shared device code of the fused4 kernels (fused4_primal.cu, fused4_grad.cu),
+// the exact-mode kernels (dsfused.cu) and the adjoint kernels (adjoint.cu,
+// which take only the scalar helpers and the row-parallel reductions).
 //
 // The scalar helpers (fma, exp, log, sincos overloaded on float / double,
 // the exact two_sum / two_prod and the double-single angle reduction), the
@@ -28,7 +29,8 @@
 #endif
 
 constexpr int P = CELERITE_P;
-static_assert(P >= 1 && P <= 12, "padded width must be in [1, 12]");
+// The fused4 and exact-mode sources take P <= 12; adjoint.cu P <= 16.
+static_assert(P >= 1 && P <= 16, "padded width must be in [1, 16]");
 constexpr int PP = P * P;
 // Threads a block, one lane a thread.  Few heavy lanes at P = 8 run faster
 // spread over many SMs; at P = 2 the block size does not matter (PERF.md).

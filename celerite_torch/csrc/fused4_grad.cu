@@ -42,6 +42,8 @@
 
 #include "fused4_common.cuh"
 
+static_assert(P <= 12, "padded width must be in [1, 12]");
+
 constexpr int NSV0 = 2 * PP;      // elem saves a step: Sh, A
 constexpr int NSV1 = 2 * PP + P;  // factor saves a step: Sh, M, m
 

@@ -35,6 +35,8 @@
 
 #include "fused4_common.cuh"
 
+static_assert(P <= 12, "padded width must be in [1, 12]");
+
 struct Streams {
     const void* t;
     const void* tl;

@@ -21,6 +21,14 @@ chunk of rows; the torch counterpart of ``celerite_tpu/ops/vog_prim.py``'s
 batching rule, gp.py:744-809), and ``value_ok_grad(theta) -> (ll, ok,
 grad)`` is that entry on one row.
 
+A model of padded width 13-16 at ``solver="auto"`` or ``"fused"`` takes the
+adjoint route (celerite_tpu/gp.py:812-923): ``lanes.lower_lanes`` and the
+four kernels of ``ops/adjoint`` (on the card at every N, their plain
+versions on the CPU from N = 4096, or at any N with ``solver="fused"``).
+It carries the same two value-and-gradient entries; its value closure
+raises until the value kernels of that width are ported (ROADMAP queue 2,
+item 6).  Wider models raise (queue 1, item 6).
+
 Exact mode, ``precision="ds"``, is routed as the JAX package routes it
 (celerite_tpu/gp.py:410-433): a kernel of padded width 1-8 with a frozen
 mean, N >= 2048 points and no ``block_size`` takes the forward-mode
@@ -38,7 +46,7 @@ import numpy as np
 import torch
 
 from .modeling import ConstantModel, ModelSet
-from .ops import dsfused, fused4, lanes4, seq
+from .ops import adjoint, dsfused, fused4, lanes, lanes4, seq
 from .ops.lower import Coefficients, lower
 
 __all__ = ["GP", "LinAlgError"]
@@ -72,9 +80,9 @@ def _fold_cap(n, p, dtype, device):
     """Chains per folded launch of the adjoint route: a power of two whose
     per-step saves fit.
 
-    The gradient pipeline writes ``(4 P^2 + P)`` words a point and chain
-    (fused4_grad.cu); a folded launch of ``nc`` chains holds ``nc`` times
-    that.
+    The gradient pipelines save ``(4 P^2 + P)`` words a point and chain
+    (fused4_grad.cu and adjoint.cu alike); a folded launch of ``nc`` chains
+    holds ``nc`` times that.
     """
     item = torch.finfo(dtype).bits // 8
     return _chains_within(max(n, 1) * (4 * p * p + p + 8) * item, device)
@@ -320,8 +328,11 @@ class GP(ModelSet):
         The fused and exact-mode closures carry ``value_ok_grad`` and
         ``value_ok_grad_batch`` (module docstring), the tuned route,
         whatever ``fast_grad`` says, as JAX's does; ``fast_grad="tangent"``
-        (the forward-mode kernels) is not ported yet.  ``loglik.route``
-        names the route taken: "seq", "fused" or "dsfused".
+        (the forward-mode kernels) is not ported yet.  A model of padded
+        width 13-16 takes the adjoint route (module docstring), whose
+        closure carries the two entries but raises when called.
+        ``loglik.route`` names the route taken: "seq", "fused", "adjoint"
+        or "dsfused".
         """
         if fast_grad == "tangent":
             raise _not_in_slice("fast_grad='tangent' (the forward-mode "
@@ -380,8 +391,12 @@ class GP(ModelSet):
                                 "queue 1, item 6")
         if solver not in ("seq", "fused"):
             raise ValueError("unknown solver '{0}'".format(solver))
+        if solver == "fused" and width > adjoint.MAX_WIDTH:
+            raise _not_in_slice("padded width P > 16", "queue 1, item 6")
         if solver == "fused" and width > fused4.MAX_WIDTH:
-            raise _not_in_slice("padded width P > 12", "queue 2, items 5-7")
+            return self._build_loglik_adjoint(
+                t_np, y_np, diag_np, split_theta, fixed, nk, mean_fn,
+                mean_active, width, block_size, dtype, device)
 
         if solver == "seq":
             t_dev = torch.as_tensor(t_np, dtype=dtype, device=device)
@@ -463,6 +478,72 @@ class GP(ModelSet):
             folded_fn, folded_vog, _fold_cap(n, width, dtype, device), device)
         loglik.plan = plan
         loglik.route = "fused"
+        return loglik
+
+    def _build_loglik_adjoint(self, t_np, y_np, diag_np, split_theta, fixed,
+                              nk, mean_fn, mean_active, width, block_size,
+                              dtype, device):
+        """Padded width 13-16: the adjoint kernels of ``ops/adjoint`` over a
+        lane plan of pre-lowered streams (celerite_tpu/gp.py:812-923).
+
+        ``value_ok_grad_batch`` folds the rows onto the lanes: the
+        coefficients of a chunk of rows are vmapped, ``lanes.lower_lanes``
+        lays them out per chain, and one launch of each kernel serves the
+        chunk, the glue segmented per chain.  The value closure raises:
+        the JAX package computes it with the ``pallas_solver`` kernels,
+        which are not ported yet.
+        """
+        n = t_np.shape[0]
+        nb = block_size or adjoint.default_adjoint_blocks(n, device)
+        t_dev = torch.as_tensor(t_np, dtype=torch.float64, device=device)
+        if not mean_active:
+            # Frozen mean: the residual is data, folded into the plan.
+            y_np = y_np - np.asarray(mean_fn(fixed[nk:].cpu(), t_dev.cpu()),
+                                     np.float64)
+
+        def coeffs_of(theta):
+            return tuple(split_theta(theta)[0])
+
+        def mean_of(theta):
+            return mean_fn(split_theta(theta)[1], t_dev)
+
+        def folded_fn(nc):
+            return (lanes.make_plan(t_np, y_np, diag_np, nb, dtype=dtype,
+                                    n_chain=nc, device=device),)
+
+        def folded_vog(entry, th):
+            """(ll, ok, grad) for a power-of-two batch of rows, one
+            folded launch of each kernel."""
+            (plan,) = entry
+            nc = th.shape[0]
+
+            def make_inputs(th):
+                coeffs = torch.func.vmap(coeffs_of)(th)
+                u, v, ph, a = lanes.lower_lanes(coeffs, plan)
+                y = plan.y
+                if mean_active:
+                    mvals = torch.func.vmap(mean_of)(th).to(dtype)
+                    y = y - plan.mask * lanes4.fold_lanes(
+                        mvals, nb, plan.t.shape[0])[:, None]
+                return u, v, ph, a, y
+
+            ll, ok, grad = adjoint.value_and_grad_fn(make_inputs, n,
+                                                     n_chain=nc)(th)
+            return ll.reshape(nc), ok.reshape(nc), grad
+
+        batch, single, entry = _fold_entries(
+            folded_fn, folded_vog, _fold_cap(n, width, dtype, device),
+            device)
+
+        def loglik(theta):
+            raise _not_in_slice(
+                "the log-likelihood value at padded width 13-16 (the "
+                "pallas_solver kernels; the value-and-gradient entries "
+                "value_ok_grad[_batch] are ported)", "queue 2, item 6")
+
+        loglik.value_ok_grad_batch, loglik.value_ok_grad = batch, single
+        loglik.plan = entry(1)[0]
+        loglik.route = "adjoint"
         return loglik
 
     def _build_loglik_dsfused(self, t_np, y_np, diag_np, split_theta,

@@ -11,4 +11,8 @@
   and their plain versions
 - ``dsfused``: exact mode (``precision="ds"``): the forward-mode kernels
   and their plain versions
+- ``lanes`` and ``fused``: the lane plan and lowering of pre-lowered
+  ``(L, P, B)`` streams
+- ``adjoint``: the adjoint pipeline on those streams (padded widths up to
+  16): the CUDA kernels and their plain versions
 """

@@ -2,9 +2,9 @@
 
 The data makers are numpy (or take a ``terms`` module as an argument), so
 the same inputs can be fed to this package and to the JAX reference
-package.  :func:`compare_grad_kernels` and :func:`compare_ds_kernels` hold
-the gradient and the exact-mode kernels against their plain versions on
-the card.
+package.  :func:`compare_grad_kernels`, :func:`compare_ds_kernels` and
+:func:`compare_adjoint_kernels` hold the gradient, the exact-mode and the
+adjoint kernels against their plain versions on the card.
 """
 
 from __future__ import annotations
@@ -15,8 +15,9 @@ import numpy as np
 import torch
 
 __all__ = ["make_data", "CASES", "pack_values", "pack_values_ds",
-           "bench_kernel", "config2_kernel", "compare_grad_kernels",
-           "compare_ds_kernels"]
+           "bench_kernel", "config2_kernel", "wide_kernel",
+           "compare_grad_kernels", "compare_ds_kernels",
+           "compare_adjoint_kernels"]
 
 # (jr, jc, coefficient values) of the fused primal tests: packed as
 # [a_real, c_real, a_comp, b_comp, c_comp, d_comp]; complex terms keep
@@ -59,13 +60,35 @@ def bench_kernel(terms):
                              log_c=np.log(c), log_d=np.log(d))
 
 
-def config2_kernel(terms):
-    """config[2]'s fitted model: two SHO terms plus jitter (P = 8)."""
-    return (
+def config2_kernel(terms, modes=1):
+    """config[2]'s fitted model (examples/config2_asteroseismic.py:65-73):
+    the granulation SHO term, ``modes`` oscillation SHO terms and jitter.
+    Each SHO term pads to (2, 1): P = 8 at one mode, 12 at two, 16 at
+    three (13 parameters)."""
+    kernel = (
         terms.SHOTerm(log_S0=0.2, log_Q=-0.3, log_omega0=0.2)
         + terms.SHOTerm(log_S0=-0.7, log_Q=2.0, log_omega0=1.6)
         + terms.JitterTerm(log_sigma=-1.0)
     )
+    for k in range(1, modes):
+        kernel = kernel + terms.SHOTerm(log_S0=-0.8 - 0.3 * k, log_Q=2.0,
+                                        log_omega0=1.7 + 0.25 * k)
+    return kernel
+
+
+def wide_kernel(terms, width):
+    """A model of padded width 13 (a RealTerm plus three SHO terms) or 16
+    (:func:`config2_kernel` with three modes)."""
+    if width == 16:
+        return config2_kernel(terms, modes=3)
+    if width == 13:
+        kernel = terms.RealTerm(log_a=-0.5, log_c=-1.0)
+        for k in range(3):
+            kernel = kernel + terms.SHOTerm(log_S0=0.2 - 0.5 * k,
+                                            log_Q=-0.3 + 1.2 * k,
+                                            log_omega0=0.2 + 0.7 * k)
+        return kernel
+    raise ValueError("width must be 13 or 16")
 
 
 def _errors(got, want, summed=False, seg=None):
@@ -202,6 +225,58 @@ def compare_grad_kernels(cf, plan, jr, jc, seg=None):
     for name, (names, got, want) in runs.items():
         errs = {n: _errors(g, w, summed=n == "hcf", seg=seg)
                 for n, g, w in zip(names, got, want)}
+        out[name] = {"max_abs_err": max(e[0] for e in errs.values()),
+                     "max_rel_err": max(e[1] for e in errs.values()),
+                     "outputs": {n: e[1] for n, e in errs.items()}}
+    return out
+
+
+def compare_adjoint_kernels(u, v, ph, a, y, seg=None):
+    """Each adjoint kernel against its plain version on the same streams.
+
+    The streams lie on the card; the plain versions run there too.  The
+    factor kernels take the seeds ``fused4.prefix_sh0`` makes from the
+    plain elements, the backward kernels the plain forward saves and
+    float64 cotangents drawn from a seeded generator.  Every output is
+    compared against its largest reference value.  Returns ``{kernel:
+    {"max_abs_err", "max_rel_err", "outputs": {name: rel}}}``.
+    """
+    from .ops import adjoint, fused4
+
+    L, p, b = u.shape
+    seg = b if seg is None else seg
+    gen = torch.Generator(device=u.device).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64,
+                           device=u.device)
+
+    elems = adjoint.elements_fwd_reference(u, v, ph, a)
+    sh0 = fused4.prefix_sh0(*elems[:3], seg)
+    factor = adjoint.factor_fwd_reference(sh0, u, v, ph, a, y)
+    cots1 = [randn(p, p, b), randn(p, b), randn(p, p, b), randn(p, b),
+             randn(b), randn(b)]
+    cots0 = [randn(p, p, b) for _ in range(3)]
+    fwd_names = ("M", "m", "Qm", "qv", "q0", "ld", "mind", "saves")
+    runs = {
+        "elements_fwd": (("A", "J", "C", "saves"),
+                         adjoint.elements_fwd_cuda(u, v, ph, a), elems),
+        "elements_bwd": (("hu", "hv", "hph", "ha"),
+                         adjoint.elements_bwd_cuda(u, v, ph, a, elems[3],
+                                                   *cots0),
+                         adjoint.elements_bwd_reference(u, v, ph, a,
+                                                        elems[3], *cots0)),
+        "factor_fwd": (fwd_names,
+                       adjoint.factor_fwd_cuda(sh0, u, v, ph, a, y), factor),
+        "factor_bwd": (("hu", "hv", "hph", "ha", "hy", "hsh0"),
+                       adjoint.factor_bwd_cuda(u, v, ph, a, y, factor[7],
+                                               *cots1),
+                       adjoint.factor_bwd_reference(u, v, ph, a, y,
+                                                    factor[7], *cots1)),
+    }
+    out = {}
+    for name, (names, got, want) in runs.items():
+        errs = {n: _errors(g, w) for n, g, w in zip(names, got, want)}
         out[name] = {"max_abs_err": max(e[0] for e in errs.values()),
                      "max_rel_err": max(e[1] for e in errs.values()),
                      "outputs": {n: e[1] for n, e in errs.items()}}

@@ -6,11 +6,12 @@ Usage (from the root of a checkout, on a machine with an NVIDIA H100):
     python3 chip_smoke.py
 
 Builds the fused primal kernel (celerite_torch/csrc/fused4_primal.cu), the
-four gradient kernels (celerite_torch/csrc/fused4_grad.cu) and the two
-exact-mode kernels (celerite_torch/csrc/dsfused.cu) with nvcc for every
-padded width it uses, one nvcc process per library, all at once; holds
-each kernel against its plain PyTorch version on the card; then drives the
-port's main paths through the entry points a user calls:
+four gradient kernels (celerite_torch/csrc/fused4_grad.cu), the two
+exact-mode kernels (celerite_torch/csrc/dsfused.cu) and the four adjoint
+kernels (celerite_torch/csrc/adjoint.cu) with nvcc for every padded width it
+uses, one nvcc process per library, all at once; holds each kernel against
+its plain PyTorch version on the card; then drives the port's main paths
+through the entry points a user calls:
 
 - A: ``GP.build_loglik`` for bench.py's model (one ComplexTerm, P = 2) at
   N = 1e6 in float32 and float64, with the lane-count (B) sweep;
@@ -32,6 +33,18 @@ port's main paths through the entry points a user calls:
   (16 thetas folded), held against the float64 fused4 route;
 - sampler_D: dense-mass NUTS (``inference.sample_nuts``) in exact mode over
   16 folded chains, SAMPLER_D_WARMUP warmup and SAMPLER_D_SAMPLES sampling
+  transitions, tree depth 6 in warmup and SAMPLER_D_DEPTH in sampling;
+- adjoint_kernels: the four adjoint kernels against their plain versions at
+  padded widths 13 and 16 on a small plan and on main path E's own plans
+  (1, 4 and 16 chains), timed there;
+- E: config[2] with three oscillation modes (four SHO terms + jitter, P =
+  16, 13 parameters) at N = 1e5, the adjoint route:
+  ``build_logprob(...).value_and_grad`` (one theta) and
+  ``value_and_grad_batch`` (16 thetas folded), float32 and float64, held
+  against autograd through the plain adjoint pipeline and, on a 4096-point
+  prefix, the sequential solver; with the lanes-a-chain sweep;
+- sampler_E: dense-mass NUTS on E's log probability in float64 over 4
+  folded chains, SAMPLER_E_WARMUP warmup and SAMPLER_E_SAMPLES sampling
   transitions, tree depth 6 in warmup and 8 in sampling.
 
 Each main path resets every kernel's launch counter just before it runs and
@@ -58,11 +71,13 @@ import torch
 import celerite_torch
 from celerite_torch import _build, inference, terms
 from celerite_torch.inference import adaptation, diagnostics
-from celerite_torch.ops import dsfused, fused4, lanes4
+from celerite_torch.ops import adjoint, dsfused, fused4, lanes, lanes4
 from celerite_torch.ops.lower import Coefficients
-from celerite_torch.testing import (CASES, bench_kernel, compare_ds_kernels,
-                                    compare_grad_kernels, config2_kernel,
-                                    make_data, pack_values, pack_values_ds)
+from celerite_torch.testing import (CASES, bench_kernel,
+                                    compare_adjoint_kernels,
+                                    compare_ds_kernels, compare_grad_kernels,
+                                    config2_kernel, make_data, pack_values,
+                                    pack_values_ds, wide_kernel)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): memory rate and the
 # non-tensor-core float rates.
@@ -90,25 +105,51 @@ GRAD_AUTOGRAD_RTOL = 1e-8       # main path C's f64 gradient, in norm
 # its largest reference value, as the gradient kernels are held; each word's
 # error against its own scale is reported beside it.
 DS_F64_RTOL = 1e-10
-# The CUDA kernels of csrc/fused4_primal.cu, csrc/fused4_grad.cu and
-# csrc/dsfused.cu, by their names in a profile.
+# The adjoint kernels against their plain versions, every output against
+# its largest reference value: float64, and float32 kernel against
+# float32 plain on the same plan, ten times the largest reading on the
+# small plans (6.9e-5) and on main path E's 782-step plans (2.65e-4;
+# float32 plain is itself up to 1.8e-4 from float64 there), PERF.md.
+ADJ_F64_RTOL = 1e-10
+ADJ_F32_RTOL = 7e-4
+ADJ_F32_PATH_RTOL = 3e-3
+# The CUDA kernels of csrc/fused4_primal.cu, csrc/fused4_grad.cu,
+# csrc/dsfused.cu and csrc/adjoint.cu, by their names in a profile.
 PORT_KERNELS = ("elem_kernel", "elem_round", "factor_kernel", "affine_round",
                 "assemble") + tuple(k + "_kernel" for k in fused4.GRAD_KERNELS
-                                    + dsfused.DS_KERNELS)
+                                    + dsfused.DS_KERNELS) + tuple(
+    "adjoint_" + k + "_kernel" for k in adjoint.ADJOINT_KERNELS)
 SAMPLER_CHAINS = 16
 # Directions a launch swept on main path D's 16-chain plan (C = 17 at
 # config[2]).
 TAN_SWEEP = (1, 2, 4, 8, 17)
-# sampler_D's transitions, cut to keep the phase near five minutes: its
-# sampling trees reach the depth cap of 8 (255 leapfrogs a transition).
-# Fewer than 20 warmup transitions leave one dual-averaging update after
-# the metric is set, and 4 draws are the fewest split R-hat takes.
+# sampler_D's transitions and sampling tree depth, cut to keep the whole
+# script well inside its 1200 s limit: its sampling trees reach the depth
+# cap (at 8, 255 leapfrogs a transition, half the phase's ~300 s; at 6,
+# 63).  Fewer than 20 warmup transitions leave one dual-averaging update
+# after the metric is set, and 4 draws are the fewest split R-hat takes.
 SAMPLER_D_WARMUP = 20
 SAMPLER_D_SAMPLES = 4
+SAMPLER_D_DEPTH = 6
+# Padded widths of the adjoint kernels this script builds and holds, lanes
+# a chain swept on main path E, and sampler_E's chains (the example's
+# --chains default, examples/config2_asteroseismic.py) and transitions,
+# cut to keep the phase near two minutes (PERF.md).
+WIDE_WIDTHS = (13, 16)
+E_LANES = (64, 128, 256, 512, 1024)
+SAMPLER_E_CHAINS = 4
+SAMPLER_E_WARMUP = 30
+SAMPLER_E_SAMPLES = 4
+
+
+T_START = time.perf_counter()
 
 
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.perf_counter() - T_START, 1)}),
+          flush=True)
 
 
 def fail(msg):
@@ -548,6 +589,8 @@ def reset_counts():
         getattr(fused4, name + "_cuda").launches = 0
     for name in dsfused.DS_KERNELS:
         getattr(dsfused, name + "_cuda").launches = 0
+    for name in adjoint.ADJOINT_KERNELS:
+        getattr(adjoint, name + "_cuda").launches = 0
 
 
 def reference_value_and_grad(gp, plan, theta, prior):
@@ -1025,24 +1068,363 @@ def main_path_d(gp, lpd, lp64, theta, thetas):
     return counts
 
 
-def sampler_d(lpd, theta, dev, warmup=SAMPLER_D_WARMUP,
-              samples=SAMPLER_D_SAMPLES):
-    """Dense-mass NUTS on config[2] in exact mode, 16 folded chains:
+# ---------------------------------------------------------------------------
+# Wide models: the adjoint kernels (celerite_torch/csrc/adjoint.cu), main
+# path E and sampler_E
+# ---------------------------------------------------------------------------
+
+ADJ_REPLACES = {
+    "elements_fwd": "celerite_tpu/ops/adjoint.py:63",
+    "elements_bwd": "celerite_tpu/ops/adjoint.py:98",
+    "factor_fwd": "celerite_tpu/ops/adjoint.py:188",
+    "factor_bwd": "celerite_tpu/ops/adjoint.py:253",
+}
+
+
+def adjoint_counts():
+    return {name: getattr(adjoint, name + "_cuda").launches
+            for name in adjoint.ADJOINT_KERNELS}
+
+
+def lane_streams(gp, plan, theta):
+    """``(u, v, ph, a, y)`` of a lane plan for one theta, or one row a
+    chain of a folded plan (the kernel's parameters; the mean is 0)."""
+    kern, nk = gp.kernel, gp.kernel.full_size
+
+    def coeffs(th):
+        kp = th[:nk]
+        return tuple(Coefficients(*kern.get_padded_coefficients(kp),
+                                  jitter=kern.get_jitter(kp)))
+
+    c = coeffs(theta) if theta.ndim == 1 else torch.func.vmap(coeffs)(theta)
+    return (*lanes.lower_lanes(c, plan), plan.y)
+
+
+def adjoint_bound_ms(name, u):
+    """Least time for one launch of adjoint kernel ``name`` on streams
+    shaped like ``u`` ``(L, P, B)``: max(bytes / rate, operations / peak).
+
+    Bytes: the streams the kernel reads (u, v, ph and a, with y for the
+    factor kernels), its saves written (forward) or read (backward), the
+    per-lane seeds or cotangents it reads and the outputs it writes, each
+    once.  Operations per point, counted from the kernels' code: the
+    step's intermediates (S, su, d, w), the step's update or its
+    transpose, once each.
+    """
+    L, p, b = u.shape
+    it = u.element_size()
+    pts, pp = L * b, p * p
+    front = 4 * pp + 4 * p + 1
+    adjoint_step = 16 * pp + 10 * p + 4   # riccati_adjoint_row
+    words, per_point = {
+        "elements_fwd": ((3 * p + 1 + 2 * pp) * pts + 3 * pp * b,
+                         front + 11 * pp + p),
+        "elements_bwd": ((2 * (3 * p + 1) + 2 * pp) * pts + 3 * pp * b,
+                         front + 13 * pp + 6 * p + adjoint_step),
+        "factor_fwd": ((3 * p + 2 + 2 * pp + p) * pts
+                       + (3 * pp + 2 * p + 1) * b,
+                       front + 11 * pp + 12 * p + 14),
+        "factor_bwd": ((3 * p + 2 + 2 * pp + p + 3 * p + 2) * pts
+                       + (3 * pp + 2 * p + 2) * b,
+                       front + 17 * pp + 12 * p + 30 + adjoint_step),
+    }[name]
+    t_bytes = (words * it + (2 * b * 8 if name == "factor_fwd" else 0)) \
+        / PEAK_BYTES_S * 1e3
+    t_ops = per_point * pts / PEAK_FLOPS[u.dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def adjoint_kernel_calls(streams, seg):
+    """{name: (kernel call, plain call)} on the same inputs, for timing."""
+    u, v, ph, a, y = streams
+    p, b = u.shape[1:]
+    A, J, C, sv0 = adjoint.elements_fwd_cuda(u, v, ph, a)
+    sh0 = fused4.prefix_sh0(A, J, C, seg)
+    sv1 = adjoint.factor_fwd_cuda(sh0, u, v, ph, a, y)[7]
+    del A, J, C
+    gen = torch.Generator(device=u.device).manual_seed(1)
+    cots = [torch.randn(s, generator=gen, dtype=torch.float64,
+                        device=u.device)
+            for s in ((p, p, b), (p, b), (p, p, b), (p, b), (b,), (b,))]
+    c3 = [torch.randn(p, p, b, generator=gen, dtype=torch.float64,
+                      device=u.device) for _ in range(3)]
+    args = {
+        "elements_fwd": (u, v, ph, a),
+        "elements_bwd": (u, v, ph, a, sv0, *c3),
+        "factor_fwd": (sh0, u, v, ph, a, y),
+        "factor_bwd": (u, v, ph, a, y, sv1, *cots),
+    }
+    return {name: (
+        lambda f=getattr(adjoint, name + "_cuda"), x=x: f(*x),
+        lambda f=getattr(adjoint, name + "_reference"), x=x: f(*x))
+        for name, x in args.items()}
+
+
+def adjoint_case(adj_errs, tag, streams, seg, limit, **info):
+    """One adjoint_kernel_vs_plain case: every output of the four kernels
+    against the plain versions' at ``limit``.  ``adj_errs[name]`` collects
+    each kernel's float64 max abs error."""
+    errs = compare_adjoint_kernels(*streams, seg=seg)
+    f64 = streams[0].dtype == torch.float64
+    emit("adjoint_kernel_vs_plain", case=tag, width=streams[0].shape[1],
+         dtype=str(streams[0].dtype).split(".")[1], limit=limit,
+         max_rel_err={k: e["max_rel_err"] for k, e in errs.items()},
+         outputs={k: e["outputs"] for k, e in errs.items()}, **info)
+    for name, e in errs.items():
+        if f64:
+            adj_errs[name].append(e["max_abs_err"])
+        if not e["max_rel_err"] <= limit:
+            fail("adjoint {0} kernel disagrees with plain: {1} {2}".format(
+                name, tag, info))
+
+
+def plain_adjoint_f32_floor(gp, plans, rows):
+    """factor_fwd's outputs by the plain version in float32 against
+    float64, each on its own plan of the same data, relative to the
+    largest float64 value: the rounding floor under a float32
+    kernel-vs-plain reading."""
+    outs = {}
+    for dt, plan in plans.items():
+        u, v, ph, a, y = lane_streams(gp, plan, rows)
+        seg = plan.t.shape[-1] // plan.n_chain
+        A, J, C, _ = adjoint.elements_fwd_reference(u, v, ph, a)
+        sh0 = fused4.prefix_sh0(A, J, C, seg)
+        outs[dt] = adjoint.factor_fwd_reference(sh0, u, v, ph, a, y)[:7]
+        del A, J, C, sh0
+    names = ("M", "m", "Qm", "qv", "q0", "ld", "mind")
+    return {k: float((x.double() - w).abs().max() / w.abs().max())
+            for k, x, w in zip(names, outs[torch.float32],
+                               outs[torch.float64])}
+
+
+def check_adjoint_kernels(dev, gp, lpe, theta, thetas, adj_errs):
+    """adjoint_kernels: the four kernels against their plain versions.
+
+    Widths 13 and 16 on a small plan (N = 4099, 64 lanes) in float64 and
+    float32, then on main path E's own plans (``folded_plan(1)``, ``(4)``
+    for sampler_E and ``(16)``), where each kernel and its plain version
+    are timed and the bound computed.  Returns ``{nc: {name: row}}``.
+    """
+    t, y, yerr = make_data(4099, seed=7, t_max=400.0)
+    for width in (13, 16):
+        g = celerite_torch.GP(wide_kernel(terms, width))
+        th = torch.as_tensor(g.get_parameter_vector(), device=dev)
+        for dt in (torch.float64, torch.float32):
+            plan = lanes.make_plan(t, y, yerr**2, 64, dtype=dt, device=dev)
+            adjoint_case(adj_errs, "small", lane_streams(g, plan, th), 64,
+                         ADJ_F64_RTOL if dt == torch.float64
+                         else ADJ_F32_RTOL, n=4099, lanes=64)
+    rows = {}
+    for nc in (1, SAMPLER_E_CHAINS, SAMPLER_CHAINS):
+        rth = theta if nc == 1 else thetas[:nc]
+        plans = {dt: lp.loglik.value_ok_grad_batch.folded_plan(nc)
+                 for dt, lp in lpe.items()}
+        floor = plain_adjoint_f32_floor(gp, plans, rth) if nc == 1 else None
+        for dt, plan in plans.items():
+            streams = lane_streams(gp, plan, rth)
+            lanes_, steps = plan.t.shape[-1], plan.t.shape[0]
+            seg = lanes_ // nc
+            f64 = dt == torch.float64
+            adjoint_case(adj_errs, "main_path", streams, seg,
+                         ADJ_F64_RTOL if f64 else ADJ_F32_PATH_RTOL,
+                         n=plan.n, n_chain=nc, lanes=lanes_,
+                         steps_per_lane=steps,
+                         **({"factor_fwd_plain_f32_vs_f64": floor}
+                            if floor and not f64 else {}))
+            key = str(dt).split(".")[1]
+            for name, (kern, plain) in adjoint_kernel_calls(streams,
+                                                            seg).items():
+                row = rows.setdefault(nc, {}).setdefault(name, {})
+                row["ms_" + key] = sync_time_ms(kern, reps=10)
+                if f64:  # one run of the plain version: no yardstick
+                    row["plain_ms_" + key] = sync_time_ms(plain, reps=1,
+                                                          warm=0)
+                row["bound_ms_" + key], row["bound_by_" + key] = \
+                    adjoint_bound_ms(name, streams[0])
+            del streams
+            torch.cuda.empty_cache()
+        emit("adjoint_kernel_time_E", n=plan.n, n_chain=nc, lanes=lanes_,
+             steps_per_lane=steps, kernels=rows[nc])
+    return rows
+
+
+def plain_adjoint_value_and_grad(gp, plan, theta, prior):
+    """log prob and its gradient by autograd through the plain adjoint
+    pipeline on a one-chain ``plan`` (float64): the plain versions of the
+    kernels, fused4's glue, autograd for every transpose."""
+    th = theta.detach().double().requires_grad_()
+    u, v, ph, a, y = lane_streams(gp, plan, th)
+    seg = plan.t.shape[-1]
+    A, J, C, _ = adjoint.elements_fwd_reference(u, v, ph, a)
+    sh0 = fused4.prefix_sh0(A, J, C, seg)
+    M, m, Qm, qv, q0, ld, _, _ = adjoint.factor_fwd_reference(sh0, u, v, ph,
+                                                              a, y)
+    ll = fused4.assemble_ll(fused4.lane_quad(M, m, Qm, qv, q0, seg), ld,
+                            plan.n, seg)[0]
+    lp = ll + prior(th)
+    (grad,) = torch.autograd.grad(lp, th)
+    return float(lp.detach()), grad
+
+
+def seq_prefix_value_and_grad(t, y, yerr, prior, theta, n=4096):
+    """The first ``n`` points' log prob and gradient: the sequential
+    solver with autograd on the CPU, independent arithmetic, beside the
+    adjoint route on the card at the same points."""
+    gp_cpu = celerite_torch.GP(config2_kernel(terms, modes=3), device="cpu")
+    lp_seq = gp_cpu.build_logprob(t[:n], y[:n], yerr=yerr[:n],
+                                  log_prior=prior, solver="seq",
+                                  fast_grad=False)
+    th = theta.detach().cpu().requires_grad_()
+    want = lp_seq(th)
+    (gwant,) = torch.autograd.grad(want, th)
+    gp = celerite_torch.GP(config2_kernel(terms, modes=3))
+    lp = gp.build_logprob(t[:n], y[:n], yerr=yerr[:n], log_prior=prior)
+    if lp.loglik.route != "adjoint":
+        fail("config[2] with three modes took the {0} route".format(
+            lp.loglik.route))
+    got, ggot = lp.value_and_grad(theta)
+    return rel(got, want.detach()), grad_rel(ggot.cpu(), gwant)
+
+
+def main_path_e(gp, lpe, prior, theta, thetas, t, y, yerr):
+    """config[2] with three modes (P = 16) at N = 1e5 through
+    ``value_and_grad`` (one theta) and ``value_and_grad_batch`` (16
+    thetas, folded), float32 and float64.
+
+    Gates: float64 against autograd through the plain adjoint pipeline on
+    the card (log prob 1e-10, gradient 1e-8 in norm; the batch's first and
+    last rows too), the batch against one-theta calls, a 4096-point prefix
+    against the sequential solver, and float32's log prob within 1e-4 of
+    float64's."""
+    plan1 = lpe[torch.float64].loglik.value_ok_grad_batch.folded_plan(1)
+    reset_counts()
+    single = {dt: lp.value_and_grad(theta) for dt, lp in lpe.items()}
+    batch = {dt: lp.value_and_grad_batch(thetas) for dt, lp in lpe.items()}
+    counts = adjoint_counts()
+    emit("main_path_E_launches", **counts,
+         fused4=dict(grad_counts(), primal=fused4.primal_cuda.launches),
+         dsfused=ds_counts())
+    if min(counts.values()) < 4:
+        fail("main path E did not launch every adjoint kernel: "
+             "{0}".format(counts))
+    lp_ref, g_ref = plain_adjoint_value_and_grad(gp, plan1, theta, prior)
+    v64, g64 = single[torch.float64]
+    v32, g32 = single[torch.float32]
+    e_value, e_grad = rel(v64, lp_ref), grad_rel(g64, g_ref)
+    b64, b32 = batch[torch.float64], batch[torch.float32]
+    refs = {r: plain_adjoint_value_and_grad(gp, plan1, thetas[r], prior)
+            for r in (0, SAMPLER_CHAINS - 1)}
+    e_bvalue_ref = max(rel(b64[0][r], v) for r, (v, _) in refs.items())
+    e_bgrad_ref = max(grad_rel(b64[1][r], g) for r, (_, g) in refs.items())
+    per_theta = [lpe[torch.float64].value_and_grad(th) for th in thetas]
+    e_bvalue = max(rel(b64[0][r], per_theta[r][0])
+                   for r in range(SAMPLER_CHAINS))
+    e_bgrad = max(grad_rel(b64[1][r], per_theta[r][1])
+                  for r in range(SAMPLER_CHAINS))
+    e_seq_value, e_seq_grad = seq_prefix_value_and_grad(t, y, yerr, prior,
+                                                        theta)
+    e_value32 = max([rel(v32, v64)] + [rel(b32[0][r], b64[0][r])
+                                       for r in range(SAMPLER_CHAINS)])
+    e_grad32 = max([grad_rel(g32, g64)] + [grad_rel(b32[1][r], b64[1][r])
+                                           for r in range(SAMPLER_CHAINS)])
+    spread = {}
+    for dt, lp in lpe.items():
+        key = str(dt).split(".")[1]
+        spread["single_" + key] = eval_spread_ms(lp.value_and_grad, theta,
+                                                 batches=5, per_batch=5)
+        spread["batch16_" + key] = eval_spread_ms(lp.value_and_grad_batch,
+                                                  thetas, batches=5,
+                                                  per_batch=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lpe[torch.float64].value_and_grad_batch(thetas)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    emit("main_path_E", model="config[2] 4xSHO + jitter (P=16, modes=3)",
+         route=lpe[torch.float64].loglik.route, n=plan1.n,
+         dim=theta.shape[0], lanes_per_chain=plan1.t.shape[-1],
+         steps_per_lane=plan1.t.shape[0],
+         fold_cap=lpe[torch.float64].loglik.value_ok_grad_batch.fold_cap,
+         logprob_f64=float(v64), logprob_plain_f64=lp_ref,
+         logprob_f32=float(v32), rel_err_value_f64_vs_plain=e_value,
+         rel_err_grad_f64_vs_plain_autograd=e_grad,
+         rel_err_batch_value_vs_plain=e_bvalue_ref,
+         rel_err_batch_grad_vs_plain_autograd=e_bgrad_ref,
+         rel_err_batch_value_vs_single=e_bvalue,
+         rel_err_batch_grad_vs_single=e_bgrad,
+         rel_err_value_vs_seq_prefix4096=e_seq_value,
+         rel_err_grad_vs_seq_prefix4096=e_seq_grad,
+         rel_err_value_f32_vs_f64=e_value32,
+         rel_err_grad_f32_vs_f64=e_grad32,
+         grad_f64=g64.tolist(), ms_per_call=spread,
+         peak_mib_batch16_f64=peak / 2**20)
+    if not (math.isfinite(float(v64)) and math.isfinite(float(v32))
+            and all(bool(torch.isfinite(x).all())
+                    for x in (*b64, *b32, g64, g32))):
+        fail("main path E gave a non-finite log probability or gradient")
+    if max(e_value, e_bvalue_ref, e_bvalue, e_seq_value) > F64_RTOL:
+        fail("main path E: log probability off the plain pipeline or the "
+             "sequential solver")
+    if max(e_grad, e_bgrad_ref, e_bgrad, e_seq_grad) > GRAD_AUTOGRAD_RTOL:
+        fail("main path E: gradient off autograd through the plain "
+             "pipeline or the sequential solver")
+    if e_value32 > F32_RTOL:
+        fail("main path E: float32 log probability off float64 by "
+             "{0}".format(e_value32))
+    emit("profile_E", dtype="float64", call="value_and_grad",
+         **profile_evals(lpe[torch.float64].value_and_grad, theta, evals=5))
+    emit("profile_E", dtype="float64", call="value_and_grad_batch(16)",
+         **profile_evals(lpe[torch.float64].value_and_grad_batch, thetas,
+                        evals=3))
+    return counts
+
+
+def lane_sweep_e(gp, t, y, yerr, prior, theta, thetas, rounds=3):
+    """E's value-and-gradient ms over lanes a chain, float64, for one
+    theta, for sampler_E's 4 folded and for 16 folded: the kernels want
+    many lanes, the glue few.  The lane counts take turns, ``rounds``
+    rounds of 3 calls each, and each count's median round is reported
+    (the calls are host-bound and the host drifts)."""
+    lps = {nb: gp.build_logprob(t, y, yerr=yerr, log_prior=prior,
+                                block_size=nb) for nb in E_LANES}
+    calls = {"one": lambda lp: lp.value_and_grad(theta),
+             "batch4": lambda lp: lp.value_and_grad_batch(
+                 thetas[:SAMPLER_E_CHAINS]),
+             "batch16": lambda lp: lp.value_and_grad_batch(thetas)}
+    ms = {(nb, k): [] for nb in E_LANES for k in calls}
+    for _ in range(rounds):
+        for nb, lp in lps.items():
+            for k, call in calls.items():
+                ms[nb, k].append(sync_time_ms(lambda: call(lp), reps=3,
+                                              warm=1))
+            torch.cuda.empty_cache()
+    for nb in E_LANES:
+        emit("lane_sweep_E", lanes_per_chain=nb,
+             steps_per_lane=-(-len(t) // nb),
+             **{"ms_" + k: float(np.median(ms[nb, k])) for k in calls},
+             rounds={k: ms[nb, k] for k in calls})
+
+
+def sampler_nuts(phase, lp, theta, dev, counts, chains, warmup, samples,
+                 seed, max_tree_depth=8):
+    """Dense-mass NUTS on ``lp`` over ``chains`` folded chains:
     ``sample_nuts`` with the step-size search, windowed warmup, target
-    0.8, tree depth 6 in warmup and 8 in sampling."""
-    gen = torch.Generator(device=dev).manual_seed(2027)
+    0.8, tree depth 6 in warmup and ``max_tree_depth`` in sampling.
+    ``counts()`` reads the launch counters of the route's kernels; every
+    one must have launched at least once a batched call."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     dim = theta.shape[0]
-    q0 = theta[None] + 0.02 * torch.randn(SAMPLER_CHAINS, dim, generator=gen,
+    q0 = theta[None] + 0.02 * torch.randn(chains, dim, generator=gen,
                                           dtype=torch.float64, device=dev)
     reset_counts()
     calls = [0]
-    vag = lpd.value_and_grad_batch
+    vag = lp.value_and_grad_batch
 
     def counted(qs):
         calls[0] += 1
         return vag(qs)
 
-    target = lambda th: lpd(th)  # noqa: E731
+    target = lambda th: lp(th)  # noqa: E731
     target.value_and_grad_batch = counted
     marks = []
 
@@ -1053,7 +1435,8 @@ def sampler_d(lpd, theta, dev, warmup=SAMPLER_D_WARMUP,
     t0 = time.perf_counter()
     chain, info = inference.sample_nuts(
         target, q0, gen, num_warmup=warmup, num_samples=samples,
-        max_tree_depth=8, warmup_max_tree_depth=6, target_accept=0.8,
+        max_tree_depth=max_tree_depth, warmup_max_tree_depth=6,
+        target_accept=0.8,
         initial_step_size="auto", dense_mass=True, chunk_size=10,
         progress=progress)
     torch.cuda.synchronize()
@@ -1062,12 +1445,12 @@ def sampler_d(lpd, theta, dev, warmup=SAMPLER_D_WARMUP,
     t_samp = t_end - t_warm_end
     draws = chain.cpu().numpy()
     summ = diagnostics.summary(draws)
-    grew = ds_counts()
+    grew = counts()
     min_ess = float(np.min(summ["ess"]))
-    moved = [bool((chain[c] != q0[c]).any()) for c in range(SAMPLER_CHAINS)]
+    moved = [bool((chain[c] != q0[c]).any()) for c in range(chains)]
     out = {
-        "n_chains": SAMPLER_CHAINS, "dim": dim, "warmup": warmup,
-        "samples": samples, "max_tree_depth": 8,
+        "n_chains": chains, "dim": dim, "warmup": warmup,
+        "samples": samples, "max_tree_depth": max_tree_depth,
         "warmup_max_tree_depth": 6, "target_accept": 0.8,
         "step_size": float(info["step_size"]),
         "warmup_s": t_warm_end - t0, "sampling_s": t_samp,
@@ -1091,14 +1474,14 @@ def sampler_d(lpd, theta, dev, warmup=SAMPLER_D_WARMUP,
         "chains_moved": sum(moved), "kernel_launches": grew,
         "inv_mass_diag": torch.diagonal(info["inv_mass"]).tolist(),
     }
-    emit("sampler_D", **out)
+    emit(phase, **out)
     if not np.all(np.isfinite(draws)):
-        fail("sampler_D: a draw is not finite")
+        fail("{0}: a draw is not finite".format(phase))
     if not all(moved):
-        fail("sampler_D: a chain never moved")
+        fail("{0}: a chain never moved".format(phase))
     if min(grew.values()) < calls[0]:
-        fail("sampler_D: exact-mode kernels launched fewer times than "
-             "batched calls: {0}".format(grew))
+        fail("{0}: kernels launched fewer times than batched calls: "
+             "{1}".format(phase, grew))
     return grew
 
 
@@ -1122,15 +1505,18 @@ def main():
          nvidia_smi=smi)
 
     t0 = time.perf_counter()
-    sources = ("fused4_primal.cu", "fused4_grad.cu", "dsfused.cu")
-    paths = _build.build([(src, {"CELERITE_P": p})
-                          for src in sources for p in WIDTHS])
-    emit("build", seconds=time.perf_counter() - t0, widths=list(WIDTHS),
+    widths = {"fused4_primal.cu": WIDTHS, "fused4_grad.cu": WIDTHS,
+              "dsfused.cu": WIDTHS, "adjoint.cu": WIDE_WIDTHS}
+    jobs = [(src, p) for src, ps in widths.items() for p in ps]
+    paths = _build.build([(src, {"CELERITE_P": p}) for src, p in jobs])
+    ptxas = {}
+    for (src, p), path in zip(jobs, paths):
+        ptxas.setdefault(src, {})[p] = ptxas_summary(
+            path.with_suffix(".ptxas.txt"))
+    emit("build", seconds=time.perf_counter() - t0,
+         widths={src: list(ps) for src, ps in widths.items()},
          flags={src: list(_build.FLAGS + _build.SOURCE_FLAGS.get(src, ()))
-                for src in sources},
-         ptxas={src: {p: ptxas_summary(path.with_suffix(".ptxas.txt"))
-                      for p, path in zip(WIDTHS, paths[i * len(WIDTHS):])}
-                for i, src in enumerate(sources)})
+                for src in widths}, ptxas=ptxas)
 
     errs = []
     check_kernel_cases(dev, errs)
@@ -1344,7 +1730,28 @@ def main():
     lane_sweep_d(t, y, yerr, packed_cf_ds(gp, theta),
                  torch.stack([packed_cf_ds(gp, th) for th in thetas]), pr, pc,
                  dev)
-    grew_d = sampler_d(lpd, theta, dev)
+    grew_d = sampler_nuts("sampler_D", lpd, theta, dev, ds_counts,
+                          SAMPLER_CHAINS, SAMPLER_D_WARMUP, SAMPLER_D_SAMPLES,
+                          seed=2027, max_tree_depth=SAMPLER_D_DEPTH)
+    del lpd, lps
+
+    # ---- wide models: adjoint_kernels, main path E, sampler_E ----
+    gpe = celerite_torch.GP(config2_kernel(terms, modes=3))
+    lpe = {dt: gpe.build_logprob(t, y, yerr=yerr, log_prior=prior, dtype=dt)
+           for dt in (torch.float32, torch.float64)}
+    if lpe[torch.float64].loglik.route != "adjoint":
+        fail("config[2] with three modes took the {0} route".format(
+            lpe[torch.float64].loglik.route))
+    thetae = torch.as_tensor(gpe.get_parameter_vector(), device=dev)
+    thetase = path_c_thetas(thetae, dev)
+    adj_errs = {name: [] for name in adjoint.ADJOINT_KERNELS}
+    adj_rows = check_adjoint_kernels(dev, gpe, lpe, thetae, thetase,
+                                     adj_errs)
+    counts_e = main_path_e(gpe, lpe, prior, thetae, thetase, t, y, yerr)
+    lane_sweep_e(gpe, t, y, yerr, prior, thetae, thetase)
+    grew_e = sampler_nuts("sampler_E", lpe[torch.float64], thetae, dev,
+                          adjoint_counts, SAMPLER_E_CHAINS, SAMPLER_E_WARMUP,
+                          SAMPLER_E_SAMPLES, seed=2028)
 
     kernels = [{
         "name": "fused4_primal",
@@ -1391,6 +1798,23 @@ def main():
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
+            "library_ms": None,
+        })
+    # The adjoint kernels at the shape of most of their launches:
+    # sampler_E's 4 chains folded, float64.
+    for name in adjoint.ADJOINT_KERNELS:
+        row = adj_rows[SAMPLER_E_CHAINS][name]
+        kernels.append({
+            "name": "adjoint_" + name,
+            "route": "cuda",
+            "source": "celerite_torch/csrc/adjoint.cu",
+            "replaces": ADJ_REPLACES[name],
+            "launches": counts_e[name] + grew_e[name],
+            "max_abs_err": max(adj_errs[name]),
+            "ms": row["ms_float64"],
+            "plain_ms": row["plain_ms_float64"],
+            "bound_ms": row["bound_ms_float64"],
+            "bound_by": row["bound_by_float64"],
             "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

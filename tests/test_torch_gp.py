@@ -181,8 +181,16 @@ def test_out_of_slice_options_raise():
                    for w in (0.1, 0.5, 0.9, 1.3)], tterms.JitterTerm(-1.0)),
               device="cpu")
     assert sum(np.multiply(wide.kernel.padded_size, (1, 2))) == 16
-    with pytest.raises(NotImplementedError, match="P > 12"):
-        wide.build_loglik(t, y, yerr=yerr, solver="fused")
+    # Width 16 builds the adjoint route, whose value closure waits for the
+    # value kernels of that width; width 20 waits for the blocked solver.
+    fn = wide.build_loglik(t, y, yerr=yerr, solver="fused")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 6"):
+        fn(torch.as_tensor(wide.get_parameter_vector()))
+    wider = GP(sum([tterms.SHOTerm(log_S0=0.0, log_Q=1.0, log_omega0=w)
+                    for w in (0.1, 0.5, 0.9, 1.3, 1.7)],
+                   tterms.JitterTerm(-1.0)), device="cpu")
+    with pytest.raises(NotImplementedError, match="P > 16"):
+        wider.build_loglik(t, y, yerr=yerr, solver="fused")
 
 
 def test_load_parameters_checks_names():

@@ -14,12 +14,15 @@ import pytest
 import torch
 
 from celerite_torch.ops import fused4, lanes4
-from celerite_torch.testing import (CASES, compare_grad_kernels, make_data,
+from celerite_torch.testing import (CASES, compare_adjoint_kernels,
+                                    compare_grad_kernels, make_data,
                                     pack_values)
 
 # The float32 gradient kernels against their float32 plain versions on the
 # same plan: ten times the largest error chip_smoke.py measured (PERF.md).
 GRAD_F32_RTOL = 4e-5
+# The same for the adjoint kernels on chip_smoke.py's small plans.
+ADJ_F32_RTOL = 7e-4
 
 
 @pytest.fixture
@@ -255,6 +258,75 @@ def test_gp_gradient_entries_on_the_card(cuda_device):
         rows = theta[None] + 0.01 * torch.arange(3, device=dev,
                                                  dtype=theta.dtype)[:, None]
         vals, grads = lp.value_and_grad_batch(rows)
+        out[dev] = (ll, grad, vals.cpu().numpy(), grads.cpu().numpy())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a, b, rtol=1e-8,
+                                   atol=1e-8 * float(np.abs(b).max()))
+
+
+def _wide_streams(width, dtype, device, n_chain=1):
+    """Lane streams of a width-13 or width-16 model over 64 lanes a chain
+    (N = 4099), its rows 1.0, 0.98, 1.02, 1.04 times the parameters."""
+    from celerite_torch import terms
+    from celerite_torch.ops import lanes
+    from celerite_torch.ops.lower import Coefficients
+    from celerite_torch.testing import wide_kernel
+
+    t, y, yerr = make_data(4099, seed=7, t_max=400.0)
+    plan = lanes.make_plan(t, y, yerr**2, 64, dtype=dtype, n_chain=n_chain,
+                           device=device)
+    kern = wide_kernel(terms, width)
+    th = torch.as_tensor(kern.get_parameter_vector(), device=device)
+    rows = th * torch.tensor([1.0, 0.98, 1.02, 1.04][:n_chain],
+                             dtype=th.dtype, device=device)[:, None]
+    coeffs = torch.func.vmap(lambda x: tuple(Coefficients(
+        *kern.get_padded_coefficients(x), jitter=kern.get_jitter(x))))(rows)
+    if n_chain == 1:
+        coeffs = [c[0] for c in coeffs]
+    return (*lanes.lower_lanes(coeffs, plan), plan.y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [13, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n_chain", [1, 4])
+def test_adjoint_kernels_match_plain(width, dtype, n_chain, cuda_device):
+    """Each of the four adjoint kernels equals its plain version on the
+    same streams, every output: 1e-10 in float64, ADJ_F32_RTOL in
+    float32; one chain, and four chains folded onto the lanes."""
+    streams = _wide_streams(width, dtype, cuda_device, n_chain)
+    errs = compare_adjoint_kernels(*streams, seg=64)
+    rtol = 1e-10 if dtype == torch.float64 else ADJ_F32_RTOL
+    bad = {k: e["outputs"] for k, e in errs.items() if e["max_rel_err"] > rtol}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+def test_adjoint_route_on_the_card(cuda_device):
+    """config[2] with three modes (P = 16) through the adjoint route on the
+    card (the kernels) equals the same entries on the CPU (the plain
+    versions), with an active mean: ``value_and_grad_batch`` over 3 rows
+    and ``grad_log_likelihood``."""
+    from celerite_torch import GP, terms
+    from celerite_torch.ops import adjoint
+    from celerite_torch.testing import config2_kernel
+
+    t, y, yerr = make_data(3000, seed=9, t_max=300.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gp = GP(config2_kernel(terms, modes=3), mean=0.1, fit_mean=True,
+                device=dev)
+        lp = gp.build_logprob(t, y, yerr=yerr, solver="fused", block_size=64)
+        assert lp.loglik.route == "adjoint"
+        theta = torch.as_tensor(gp.get_parameter_vector(), device=dev)
+        rows = theta[None] + 0.01 * torch.arange(3, device=dev,
+                                                 dtype=theta.dtype)[:, None]
+        before = adjoint.factor_bwd_cuda.launches
+        vals, grads = lp.value_and_grad_batch(rows)
+        launched = adjoint.factor_bwd_cuda.launches - before
+        assert launched == (1 if dev == "cuda" else 0)
+        gp.compute(t, yerr)
+        ll, grad = gp.grad_log_likelihood(y)
         out[dev] = (ll, grad, vals.cpu().numpy(), grads.cpu().numpy())
     for a, b in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(a, b, rtol=1e-8,
