@@ -33,11 +33,13 @@ FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Extra flags per source.  The gradient and adjoint kernels are compiled
-# without fma contraction so that they round as their plain versions do,
-# which keep every multiply and add separate; the primal keeps the default.
+# Extra flags per source.  The gradient, adjoint and three-pass kernels are
+# compiled without fma contraction so that they round as their plain
+# versions do, which keep every multiply and add separate (and so that
+# pallas_solver.cu's compensated sums hold); the primal keeps the default.
 SOURCE_FLAGS = {"fused4_grad.cu": ("-fmad=false",),
-                "adjoint.cu": ("-fmad=false",)}
+                "adjoint.cu": ("-fmad=false",),
+                "pallas_solver.cu": ("-fmad=false",)}
 
 _loaded: dict = {}
 

@@ -31,7 +31,9 @@
 // X = hS * Shin, hQm + hQm^T) and the column sums of S go through a
 // per-group tile in shared memory, since a register array indexed by
 // another thread's row would spill.  Every thread reads the step's stream
-// vectors (u, ph) whole; they are (L, P, B), lane fastest.
+// vectors (u, ph) whole; they are (L, P, B), lane fastest.  The group
+// helpers and the elements sweep are in lanes_common.cuh, shared with
+// pallas_solver.cu.
 //
 // Saves, (L, B, NSV): step s of lane l holds NSV consecutive words, each
 // saved matrix column-major (word j * P + i is entry (i, j)) and then the
@@ -53,68 +55,18 @@
 //
 // Compiled once per padded width: nvcc -DCELERITE_P=<P> (1 <= P <= 16).
 
-#include "fused4_common.cuh"
+#include "lanes_common.cuh"
 
-// Threads a block: LANES groups of G.
-constexpr int BLOCK = 128;
+// Lane groups of a block, and a group's tile.
 constexpr int LANES = BLOCK / G;
-static_assert(BLOCK % G == 0, "a block holds whole groups");
 constexpr int TS = P + 1;          // row stride of a group's tile
-constexpr int NSV0 = 2 * PP;       // elements saves a step: Shin, A_in
 constexpr int NSV1 = 2 * PP + P;   // factor saves a step: Shin, Mprev, mprev
 
-// The lane of this thread's group and its row; threads past the last lane
-// run lane 0 for the group's shuffles and write nothing.
-struct Lane {
-    int l, r;
-    bool live;
-};
-
-__device__ __forceinline__ Lane lane_of(int B) {
-    const size_t g = ((size_t)blockIdx.x * BLOCK + threadIdx.x) / G;
-    Lane ln;
-    ln.live = g < (size_t)B;
-    ln.l = ln.live ? (int)g : 0;
-    ln.r = (int)(threadIdx.x % G);
-    return ln;
-}
-
-// x[s, :, l] of an (L, P, B) stream, whole.
-template <typename T>
-__device__ __forceinline__ void load_vec(const T* __restrict__ x, int s, int B, int l,
-                                         T (&out)[P]) {
-    const T* p = x + (size_t)s * P * B + l;
-#pragma unroll
-    for (int j = 0; j < P; ++j) out[j] = p[(size_t)j * B];
-}
-
 // Row r of a column-major saved matrix at `base`; zeros for r >= P.
-template <typename T>
-__device__ __forceinline__ void save_row(T* __restrict__ base, int r, const T (&x)[P]) {
-    if (r >= P) return;
-#pragma unroll
-    for (int j = 0; j < P; ++j) base[j * P + r] = x[j];
-}
-
 template <typename T>
 __device__ __forceinline__ void load_row(const T* __restrict__ base, int r, T (&x)[P]) {
 #pragma unroll
     for (int j = 0; j < P; ++j) x[j] = r < P ? base[j * P + r] : T(0);
-}
-
-// Row r of a (P, P, B) per-lane matrix.
-template <typename T>
-__device__ __forceinline__ void put_mat(T* __restrict__ out, int r, int B, int l,
-                                        const T (&x)[P]) {
-#pragma unroll
-    for (int j = 0; j < P; ++j) out[((size_t)r * P + j) * B + l] = x[j];
-}
-
-template <typename T>
-__device__ __forceinline__ void get_mat(const T* __restrict__ in, int r, int B, int l,
-                                        T (&x)[P]) {
-#pragma unroll
-    for (int j = 0; j < P; ++j) x[j] = r < P ? in[((size_t)r * P + j) * B + l] : T(0);
 }
 
 // Row r of x^T (column r of x) through the group's tile; zeros for r >= P.
@@ -128,24 +80,6 @@ __device__ __forceinline__ void transpose_row(T* tile, int r, const T (&x)[P], T
 #pragma unroll
     for (int j = 0; j < P; ++j) xt[j] = r < P ? tile[j * TS + r] : T(0);
     __syncwarp();
-}
-
-// The step's intermediates, row r: S = Phi Shin Phi, su = S u, d = a -
-// u.su, w = (v - su) / d (w_r, and every w_j gathered).  Returns d.
-template <typename T>
-__device__ __forceinline__ T front_row(const T (&Shin)[P], const T (&u)[P], const T (&ph)[P],
-                                       T vr, T a, int r, T (&S)[P], T& su, T& wr, T (&w)[P]) {
-    const T phr = pick(ph, r);
-    su = T(0);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-        S[j] = phr * Shin[j] * ph[j];
-        su += S[j] * u[j];
-    }
-    const T d = a - group_sum(pick(u, r) * su);
-    wr = r < P ? (vr - su) / d : T(0);
-    gather(wr, w);
-    return d;
 }
 
 // Steps 5-1 of both backward sweeps (F5-F1 = E5-E1, fused4._riccati_adjoint),
@@ -212,42 +146,7 @@ adjoint_elements_fwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
                             const T* __restrict__ ph, const T* __restrict__ a, int L, int B,
                             T* __restrict__ A_out, T* __restrict__ J_out, T* __restrict__ C_out,
                             T* __restrict__ sv) {
-    const Lane ln = lane_of(B);
-    const int l = ln.l, r = ln.r;
-    T Sh[P], A[P], J[P];
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-        Sh[j] = J[j] = T(0);
-        A[j] = j == r ? T(1) : T(0);
-    }
-    for (int s = 0; s < L; ++s) {
-        if (ln.live) {
-            T* svs = sv + ((size_t)s * B + l) * NSV0;
-            save_row(svs, r, Sh);
-            save_row(svs + PP, r, A);
-        }
-        T uv[P], pv[P], w[P], uA[P], su, wr;
-        load_vec(u, s, B, l, uv);
-        load_vec(ph, s, B, l, pv);
-        const T vr = r < P ? v[((size_t)s * P + r) * B + l] : T(0);
-        const T d = front_row(Sh, uv, pv, vr, a[(size_t)s * B + l], r, Sh, su, wr, w);
-#pragma unroll
-        for (int j = 0; j < P; ++j) Sh[j] = Sh[j] + d * wr * w[j];
-        // uAc = A^T (Phi u): a sum over rows for every column.
-        const T phr = pick(pv, r), utr = phr * pick(uv, r);
-#pragma unroll
-        for (int j = 0; j < P; ++j) uA[j] = group_sum(A[j] * utr);
-        const T uAr = pick(uA, r);
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            A[j] = phr * A[j] - wr * uA[j];
-            J[j] = J[j] - uAr * (uA[j] / d);
-        }
-    }
-    if (!ln.live || r >= P) return;
-    put_mat(A_out, r, B, l, A);
-    put_mat(J_out, r, B, l, J);
-    put_mat(C_out, r, B, l, Sh);
+    elements_sweep<true>(u, v, ph, a, L, B, A_out, J_out, C_out, sv);
 }
 
 // ---------------------------------------------------------------------------
@@ -532,16 +431,12 @@ adjoint_factor_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
 // allocated.  Each returns cudaGetLastError() after its launch.
 // ---------------------------------------------------------------------------
 
-static inline dim3 grid_for(int B) {
-    return dim3((unsigned)(((size_t)B * G + BLOCK - 1) / BLOCK));
-}
-
 #define CELERITE_ADJOINT_ENTRIES(T, SFX)                                                        \
     int celerite_adjoint_elements_fwd_##SFX(const void* u, const void* v, const void* ph,      \
                                             const void* a, void* A, void* J, void* C,          \
                                             void* sv, int L, int B, void* stream) {            \
         adjoint_elements_fwd_kernel<T>                                                          \
-            <<<grid_for(B), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                    \
+            <<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                 \
             static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(ph),     \
             static_cast<const T*>(a), L, B, static_cast<T*>(A), static_cast<T*>(J),            \
             static_cast<T*>(C), static_cast<T*>(sv));                                          \
@@ -552,7 +447,7 @@ static inline dim3 grid_for(int B) {
         const void* hA, const void* hJ, const void* hC, void* hu, void* hv, void* hph,        \
         void* ha, int L, int B, void* stream) {                                                \
         adjoint_elements_bwd_kernel<T>                                                          \
-            <<<grid_for(B), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                    \
+            <<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                 \
             static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(ph),     \
             static_cast<const T*>(a), static_cast<const T*>(sv), static_cast<const T*>(hA),    \
             static_cast<const T*>(hJ), static_cast<const T*>(hC), L, B, static_cast<T*>(hu),   \
@@ -564,7 +459,7 @@ static inline dim3 grid_for(int B) {
         const void* sh0, void* M, void* m, void* Qm, void* qv, void* q0, void* ld, void* mind, \
         void* sv, int L, int B, void* stream) {                                                \
         adjoint_factor_fwd_kernel<T>                                                            \
-            <<<grid_for(B), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                    \
+            <<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                 \
             static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(ph),     \
             static_cast<const T*>(a), static_cast<const T*>(y), static_cast<const T*>(sh0), L, \
             B, static_cast<T*>(M), static_cast<T*>(m), static_cast<T*>(Qm),                    \
@@ -578,7 +473,7 @@ static inline dim3 grid_for(int B) {
         const void* hq0, const void* hld, void* hu, void* hv, void* hph, void* ha, void* hy,  \
         void* hsh0, int L, int B, void* stream) {                                              \
         adjoint_factor_bwd_kernel<T>                                                            \
-            <<<grid_for(B), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                    \
+            <<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                 \
             static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(ph),     \
             static_cast<const T*>(a), static_cast<const T*>(y), static_cast<const T*>(sv),     \
             static_cast<const T*>(hM), static_cast<const T*>(hm), static_cast<const T*>(hQm),  \

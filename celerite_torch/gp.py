@@ -24,10 +24,20 @@ grad)`` is that entry on one row.
 A model of padded width 13-16 at ``solver="auto"`` or ``"fused"`` takes the
 adjoint route (celerite_tpu/gp.py:812-923): ``lanes.lower_lanes`` and the
 four kernels of ``ops/adjoint`` (on the card at every N, their plain
-versions on the CPU from N = 4096, or at any N with ``solver="fused"``).
-It carries the same two value-and-gradient entries; its value closure
-raises until the value kernels of that width are ported (ROADMAP queue 2,
-item 6).  Wider models raise (queue 1, item 6).
+versions on the CPU from N = 4096, or at any N with ``solver="fused"``)
+for the same two value-and-gradient entries, and the three kernels of
+``ops/pallas_solver`` for the value closure (``fused.run_kernel`` over a
+value plan whose lane count is its own).  Under autograd the value's
+backward is the adjoint pipeline with ``fast_grad``, else autograd through
+``ops/blocked`` (celerite_tpu/gp.py:869-899).
+
+``solver="pallas"`` and ``"blocked"`` are closures over ``lower(...)``:
+the three-pass kernels (``pallas_solver.gp_log_likelihood``, whose
+autograd backward runs through ``blocked``) and the plain block-parallel
+solver; with ``fast_grad`` their backward is the adjoint pipeline
+(celerite_tpu/gp.py:926-999).  ``solver="auto"`` takes ``blocked`` above
+padded width 16 (gp.py:515-524), where the kernels stop (ROADMAP queue 2,
+item 10).
 
 Exact mode, ``precision="ds"``, is routed as the JAX package routes it
 (celerite_tpu/gp.py:410-433): a kernel of padded width 1-8 with a frozen
@@ -46,7 +56,8 @@ import numpy as np
 import torch
 
 from .modeling import ConstantModel, ModelSet
-from .ops import adjoint, dsfused, fused4, lanes, lanes4, seq
+from .ops import (adjoint, blocked, dsfused, fused, fused4, lanes, lanes4,
+                  pallas_solver, seq)
 from .ops.lower import Coefficients, lower
 
 __all__ = ["GP", "LinAlgError"]
@@ -182,6 +193,39 @@ class _ForwardModeLL(torch.autograd.Function):
         return gll * grad, None
 
 
+class _KernelValue(torch.autograd.Function):
+    """``(theta, value, grad) -> (ll, ok)``: the forward ``value(theta)``
+    (kernels, no autograd rule), the backward the cotangent times
+    ``grad(theta)``, computed then: the counterpart of the JAX package's
+    ``custom_vjp`` closures (celerite_tpu/gp.py:869-899, 974-999)."""
+
+    @staticmethod
+    def forward(ctx, theta, value, grad):
+        ll, ok = value(theta.detach())
+        ctx.save_for_backward(theta.detach())
+        ctx.grad = grad
+        ctx.mark_non_differentiable(ok)
+        return ll, ok
+
+    @staticmethod
+    def backward(ctx, gll, _gok):
+        (theta,) = ctx.saved_tensors
+        g = ctx.grad(theta).to(theta.dtype)
+        return gll.to(theta.dtype) * g, None, None
+
+
+def _autograd_grad(ll_fn):
+    """``theta -> d ll_fn(theta)[0] / d theta`` by one reverse pass."""
+
+    def grad(theta):
+        th = theta.detach().requires_grad_()
+        with torch.enable_grad():
+            (g,) = torch.autograd.grad(ll_fn(th)[0], th)
+        return g
+
+    return grad
+
+
 def _mean_value_fn(mean_model):
     """A torch (params, x) -> value function for a mean model.
 
@@ -314,9 +358,12 @@ class GP(ModelSet):
         params then mean params, frozen entries excluded); a 1-D tensor on
         any device.  ``solver``: "seq" (sequential), "fused" (the fused
         primal over a lane plan: the CUDA kernel on the card, its plain
-        version on the CPU) or "auto".  ``block_size`` sets the plan's lane
-        count B.  ``dtype`` is the working precision (float32 or float64).
-        ``precision="ds"`` is exact mode, always float64: under the JAX
+        version on the CPU), "pallas" (the three-pass kernels over blocks
+        of L steps), "blocked" (the plain block-parallel solver) or
+        "auto".  ``block_size`` sets the plan's lane count B, or L for
+        "pallas" and "blocked".  ``dtype`` is the working precision
+        (float32 or float64).  ``precision="ds"`` is exact mode, always
+        float64: under the JAX
         package's gates (module docstring) the forward-mode kernels of
         ``ops/dsfused`` (``route == "dsfused"``), whose value and gradient
         come from one sweep; otherwise the float64 route, standing in for
@@ -329,10 +376,11 @@ class GP(ModelSet):
         ``value_ok_grad_batch`` (module docstring), the tuned route,
         whatever ``fast_grad`` says, as JAX's does; ``fast_grad="tangent"``
         (the forward-mode kernels) is not ported yet.  A model of padded
-        width 13-16 takes the adjoint route (module docstring), whose
-        closure carries the two entries but raises when called.
-        ``loglik.route`` names the route taken: "seq", "fused", "adjoint"
-        or "dsfused".
+        width 13-16 takes the adjoint route (module docstring); wider
+        models take "blocked" at ``solver="auto"`` and raise with
+        "fused", "pallas" or a truthy ``fast_grad``.  ``loglik.route``
+        names the route taken: "seq", "fused", "adjoint", "dsfused",
+        "pallas" or "blocked".
         """
         if fast_grad == "tangent":
             raise _not_in_slice("fast_grad='tangent' (the forward-mode "
@@ -384,55 +432,89 @@ class GP(ModelSet):
                                               mean_fn, pr, pc, device)
 
         if solver == "auto":
-            use_seq = width == 0 or (device.type == "cpu" and n < _SEQ_BELOW)
-            solver = "seq" if use_seq else "fused"
-        if solver in ("blocked", "pallas"):
-            raise _not_in_slice("solver={0!r}".format(solver),
-                                "queue 1, item 6")
-        if solver not in ("seq", "fused"):
+            if width == 0 or (device.type == "cpu" and n < _SEQ_BELOW):
+                solver = "seq"
+            elif width > adjoint.MAX_WIDTH:
+                solver = "blocked"
+            else:
+                solver = "fused"
+        if solver not in ("seq", "fused", "blocked", "pallas"):
             raise ValueError("unknown solver '{0}'".format(solver))
-        if solver == "fused" and width > adjoint.MAX_WIDTH:
-            raise _not_in_slice("padded width P > 16", "queue 1, item 6")
+        if width > adjoint.MAX_WIDTH and (solver in ("fused", "pallas")
+                                          or fast_grad):
+            raise _not_in_slice(
+                "the kernels above padded width 16 (solver={0!r}, "
+                "fast_grad={1!r} at P = {2})".format(solver, fast_grad,
+                                                     width),
+                "queue 2, item 10")
+
+        # The SSM closures (seq, blocked, pallas, and the blocked backward
+        # of the wide route's value) lower on the device in the working
+        # dtype.
+        t_dev = torch.as_tensor(t_np, dtype=dtype, device=device)
+        y_dev = torch.as_tensor(y_np, dtype=dtype, device=device)
+        diag_dev = torch.as_tensor(np.array(diag_np), dtype=dtype,
+                                   device=device)
+        lower_kw = {}
+        if dtype == torch.float32:
+            # Static double-single grid: exact spacings and the lo half of
+            # t (ops/ds.py).
+            lower_kw = dict(
+                dt=torch.as_tensor(np.concatenate([[0.0], np.diff(t_np)]),
+                                   dtype=dtype, device=device),
+                t_lo=torch.as_tensor(
+                    t_np - t_np.astype(np.float32).astype(np.float64),
+                    dtype=dtype, device=device),
+            )
+
+        def ssm_resid(theta):
+            coeffs, mp = split_theta(theta)
+            return (lower(coeffs, t_dev, diag_dev, **lower_kw),
+                    y_dev - mean_fn(mp, t_dev))
+
         if solver == "fused" and width > fused4.MAX_WIDTH:
             return self._build_loglik_adjoint(
-                t_np, y_np, diag_np, split_theta, fixed, nk, mean_fn,
-                mean_active, width, block_size, dtype, device)
+                t_np, y_np, diag_np, split_theta, ssm_resid, fixed, nk,
+                mean_fn, mean_active, width, block_size, fast_grad, dtype,
+                device)
 
         if solver == "seq":
-            t_dev = torch.as_tensor(t_np, dtype=dtype, device=device)
-            y_dev = torch.as_tensor(y_np, dtype=dtype, device=device)
-            diag_dev = torch.as_tensor(diag_np, dtype=dtype, device=device)
-            lower_kw = {}
-            if dtype == torch.float32:
-                # Static double-single grid: exact spacings and the lo half
-                # of t (ops/ds.py).
-                lower_kw = dict(
-                    dt=torch.as_tensor(np.concatenate([[0.0], np.diff(t_np)]),
-                                       dtype=dtype, device=device),
-                    t_lo=torch.as_tensor(
-                        t_np - t_np.astype(np.float32).astype(np.float64),
-                        dtype=dtype, device=device),
-                )
-
             def loglik(theta):
-                coeffs, mp = split_theta(theta)
-                resid = y_dev - mean_fn(mp, t_dev)
-                ssm = lower(coeffs, t_dev, diag_dev, **lower_kw)
-                return seq.gp_log_likelihood(ssm, resid)
+                return seq.gp_log_likelihood(*ssm_resid(theta))
 
             loglik.route = "seq"
+            return loglik
+
+        if solver in ("blocked", "pallas"):
+            module = blocked if solver == "blocked" else pallas_solver
+
+            def value(theta):
+                return module.gp_log_likelihood(*ssm_resid(theta),
+                                                block_size=block_size)
+
+            loglik = value
+            if fast_grad:
+                # The adjoint backward (celerite_tpu/gp.py:974-999); JAX
+                # passes block_size to it as the lane count too.
+                adjoint_grad = _autograd_grad(
+                    lambda th: adjoint.gp_log_likelihood(
+                        *ssm_resid(th), num_blocks=block_size))
+
+                def loglik(theta):
+                    return _KernelValue.apply(theta, value, adjoint_grad)
+            loglik.route = solver
             return loglik
 
         nb = block_size or lanes4.default_num_blocks4(n, device)
         plan = lanes4.make_plan4(t_np, y_np, diag_np, nb, dtype=dtype,
                                  device=device)
         ll_plan = fused4.build_ll(plan, pr, pc)
-        t_dev = torch.as_tensor(t_np, dtype=torch.float64, device=device)
+        t64 = torch.as_tensor(t_np, dtype=torch.float64, device=device)
         if not mean_active:
             # Frozen mean: the residual stream is data, built once.
             y_fixed = plan.y - mean_fn(fixed[nk:], plan.t) * plan.mask
             y_fold = y_np - np.asarray(mean_fn(fixed[nk:].cpu(),
-                                               t_dev.cpu()), np.float64)
+                                               t64.cpu()), np.float64)
 
         def cf_of(theta):
             coeffs, _ = split_theta(theta)
@@ -456,7 +538,7 @@ class GP(ModelSet):
                                                        n_chain=nc)
 
         def mean_of(theta):
-            return mean_fn(split_theta(theta)[1], t_dev)
+            return mean_fn(split_theta(theta)[1], t64)
 
         def folded_vog(entry, th):
             """(ll, ok, grad) for a power-of-two batch of rows, one
@@ -480,21 +562,28 @@ class GP(ModelSet):
         loglik.route = "fused"
         return loglik
 
-    def _build_loglik_adjoint(self, t_np, y_np, diag_np, split_theta, fixed,
-                              nk, mean_fn, mean_active, width, block_size,
-                              dtype, device):
-        """Padded width 13-16: the adjoint kernels of ``ops/adjoint`` over a
-        lane plan of pre-lowered streams (celerite_tpu/gp.py:812-923).
+    def _build_loglik_adjoint(self, t_np, y_np, diag_np, split_theta,
+                              ssm_resid, fixed, nk, mean_fn, mean_active,
+                              width, block_size, fast_grad, dtype, device):
+        """Padded width 13-16 (celerite_tpu/gp.py:812-923): the adjoint
+        kernels of ``ops/adjoint`` for the value-and-gradient entries, the
+        three-pass kernels of ``ops/pallas_solver`` for the value, each
+        over a lane plan of pre-lowered streams.
 
         ``value_ok_grad_batch`` folds the rows onto the lanes: the
         coefficients of a chunk of rows are vmapped, ``lanes.lower_lanes``
         lays them out per chain, and one launch of each kernel serves the
-        chunk, the glue segmented per chain.  The value closure raises:
-        the JAX package computes it with the ``pallas_solver`` kernels,
-        which are not ported yet.
+        chunk, the glue segmented per chain.  The value closure runs
+        ``fused.run_kernel`` over the value plan (``loglik.value_plan``;
+        ``pallas_solver.default_lanes`` lanes, the adjoint plan itself when
+        the counts agree); under autograd its backward is
+        ``adjoint.value_and_grad_fn`` on the value plan with
+        ``fast_grad``, else autograd through ``blocked.gp_log_likelihood``
+        on ``ssm_resid(theta)`` (celerite_tpu/gp.py:869-899).
         """
         n = t_np.shape[0]
         nb = block_size or adjoint.default_adjoint_blocks(n, device)
+        nv = block_size or pallas_solver.default_lanes(n, device)
         t_dev = torch.as_tensor(t_np, dtype=torch.float64, device=device)
         if not mean_active:
             # Frozen mean: the residual is data, folded into the plan.
@@ -507,6 +596,19 @@ class GP(ModelSet):
         def mean_of(theta):
             return mean_fn(split_theta(theta)[1], t_dev)
 
+        def lane_inputs(th, plan):
+            """``(u, v, ph, a, y)`` of ``plan`` for the ``(n_chain, dim)``
+            rows ``th``, one a chain."""
+            coeffs = torch.func.vmap(coeffs_of)(th)
+            u, v, ph, a = lanes.lower_lanes(coeffs, plan)
+            y = plan.y
+            if mean_active:
+                mvals = torch.func.vmap(mean_of)(th).to(dtype)
+                y = y - plan.mask * lanes4.fold_lanes(
+                    mvals, plan.t.shape[-1] // plan.n_chain,
+                    plan.t.shape[0])[:, None]
+            return u, v, ph, a, y
+
         def folded_fn(nc):
             return (lanes.make_plan(t_np, y_np, diag_np, nb, dtype=dtype,
                                     n_chain=nc, device=device),)
@@ -516,33 +618,33 @@ class GP(ModelSet):
             folded launch of each kernel."""
             (plan,) = entry
             nc = th.shape[0]
-
-            def make_inputs(th):
-                coeffs = torch.func.vmap(coeffs_of)(th)
-                u, v, ph, a = lanes.lower_lanes(coeffs, plan)
-                y = plan.y
-                if mean_active:
-                    mvals = torch.func.vmap(mean_of)(th).to(dtype)
-                    y = y - plan.mask * lanes4.fold_lanes(
-                        mvals, nb, plan.t.shape[0])[:, None]
-                return u, v, ph, a, y
-
-            ll, ok, grad = adjoint.value_and_grad_fn(make_inputs, n,
-                                                     n_chain=nc)(th)
+            ll, ok, grad = adjoint.value_and_grad_fn(
+                lambda x: lane_inputs(x, plan), n, n_chain=nc)(th)
             return ll.reshape(nc), ok.reshape(nc), grad
 
         batch, single, entry = _fold_entries(
             folded_fn, folded_vog, _fold_cap(n, width, dtype, device),
             device)
+        plan = entry(1)[0]
+        vplan = plan if nv == nb else lanes.make_plan(
+            t_np, y_np, diag_np, nv, dtype=dtype, device=device)
+
+        def value(theta):
+            return fused.run_kernel(*lane_inputs(theta[None], vplan), n)
+
+        if fast_grad:
+            def grad(theta):
+                return adjoint.value_and_grad_fn(
+                    lambda th: lane_inputs(th[None], vplan), n)(theta)[2]
+        else:
+            grad = _autograd_grad(
+                lambda th: blocked.gp_log_likelihood(*ssm_resid(th)))
 
         def loglik(theta):
-            raise _not_in_slice(
-                "the log-likelihood value at padded width 13-16 (the "
-                "pallas_solver kernels; the value-and-gradient entries "
-                "value_ok_grad[_batch] are ported)", "queue 2, item 6")
+            return _KernelValue.apply(theta, value, grad)
 
         loglik.value_ok_grad_batch, loglik.value_ok_grad = batch, single
-        loglik.plan = entry(1)[0]
+        loglik.plan, loglik.value_plan = plan, vplan
         loglik.route = "adjoint"
         return loglik
 

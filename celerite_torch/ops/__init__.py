@@ -6,13 +6,39 @@
 - ``lower``: coefficient arrays -> semiseparable (U, V, phi, A) lowering
 - ``dense``: O(N^3) dense oracle (tests only)
 - ``seq``: sequential solver (oracle; CPU route below N = 4096)
+- ``blocked``: the block-parallel solver in plain torch (autograd), the
+  CPU route of wide models and the backward of the pre-lowered primals
 - ``lanes4``: the per-dataset lane plan and the packed coefficient vector
 - ``fused4``: the fused primal and the gradient pipeline: the CUDA kernels
   and their plain versions
 - ``dsfused``: exact mode (``precision="ds"``): the forward-mode kernels
   and their plain versions
 - ``lanes`` and ``fused``: the lane plan and lowering of pre-lowered
-  ``(L, P, B)`` streams
+  ``(L, P, B)`` streams, and the value on them
+- ``pallas_solver``: the three-pass primal on those streams (padded
+  widths up to 16): the CUDA kernels and their plain versions
 - ``adjoint``: the adjoint pipeline on those streams (padded widths up to
   16): the CUDA kernels and their plain versions
 """
+
+from . import blocked, fused, seq
+
+
+def best_ll(ssm, resid):
+    """GP log-likelihood of an SSM through the port's fastest backend for
+    the tensors' device (celerite_tpu/ops/__init__.py:18-37).
+
+    Below 4096 points the sequential solver; on the card
+    ``fused.gp_log_likelihood`` (which raises at padded width 8 or less
+    until the single fused kernel is ported, ROADMAP queue 2 item 7);
+    on the CPU ``blocked.gp_log_likelihood``.  Returns the ll value only
+    (-inf when the factorization fails).
+    """
+    n = ssm.U.shape[0]
+    if n < 4096:
+        ll, _ = seq.gp_log_likelihood(ssm, resid)
+    elif ssm.U.device.type == "cuda":
+        ll, _ = fused.gp_log_likelihood(ssm, resid)
+    else:
+        ll, _ = blocked.gp_log_likelihood(ssm, resid)
+    return ll

@@ -52,7 +52,7 @@ import math
 import torch
 
 from .. import _build
-from . import fused, fused4
+from . import blocked, fused, fused4
 from .fused4 import _eye, _front, _riccati, _riccati_adjoint, _tr
 
 __all__ = ["MAX_WIDTH", "ADJOINT_KERNELS", "elements_fwd_reference",
@@ -118,20 +118,11 @@ def _load(sv, p, nmat):
 
 def elements_fwd_reference(u, v, ph, a):
     """Each lane's Riccati element ``(A, J, C)``, each ``(P, P, B)``, and
-    the saves ``(L, B, 2 P^2)`` (``[Shin, A_in]`` of every step)."""
-    L, p, b = u.shape
-    A = _eye(p, b, u)
-    J = torch.zeros_like(A)
-    C = torch.zeros_like(A)
-    saves = []
-    for i in range(L):
-        saves.append(_save(C, A))
-        C, d, w = _riccati(C, u[i], v[i], ph[i], a[i])
-        ut = ph[i] * u[i]
-        uAc = torch.sum(A * _bi(ut), dim=-3)
-        A = _bi(ph[i]) * A - _bi(w) * _bj(uAc)
-        J = J - _bi(uAc) * _bj(uAc / d)
-    return A, J, C, torch.stack(saves)
+    the saves ``(L, B, 2 P^2)`` (``[Shin, A_in]`` of every step): the
+    elements pass of ``blocked``, keeping each step's input."""
+    steps = []
+    A, J, C = blocked._block_elements(u, v, ph, a, saves=steps)
+    return A, J, C, torch.stack([_save(*s) for s in steps])
 
 
 def elements_bwd_reference(u, v, ph, a, saves, hA0, hJ0, hC0):
@@ -290,23 +281,23 @@ def _kernel_fn(name, p, dtype):
 
 
 def _operands(name, u, pairs):
-    """Check a launch: ``u`` a float32 or float64 CUDA stream ``(L, P, B)``
-    with 1 <= P <= 16; every ``(tensor, shape)`` on the card with that
-    shape.  Returns the tensors contiguous in ``u``'s dtype."""
+    """Check a launch of kernel ``name`` (e.g. "adjoint factor_fwd"): ``u``
+    a float32 or float64 CUDA stream ``(L, P, B)`` with 1 <= P <= 16;
+    every ``(tensor, shape)`` on the card with that shape.  Returns the
+    tensors contiguous in ``u``'s dtype."""
     L, p, b = u.shape
     if not 1 <= p <= MAX_WIDTH:
         raise NotImplementedError(
-            "adjoint {0} kernel takes padded widths 1..16, got P = {1} "
-            "(ROADMAP queue 1, item 6)".format(name, p))
+            "{0} kernel takes padded widths 1..16, got P = {1} "
+            "(ROADMAP queue 2, item 10)".format(name, p))
     if u.dtype not in (torch.float32, torch.float64):
-        raise TypeError("adjoint kernels take float32 or float64")
+        raise TypeError("{0} kernel takes float32 or float64".format(name))
     out = []
     for x, shape in [(u, (L, p, b))] + pairs:
         if x.device.type != "cuda" or tuple(x.shape) != tuple(shape):
             raise ValueError(
-                "adjoint {0} operand must be a CUDA tensor shaped {1}, got "
-                "{2} on {3}".format(name, tuple(shape), tuple(x.shape),
-                                    x.device))
+                "{0} operand must be a CUDA tensor shaped {1}, got {2} on "
+                "{3}".format(name, tuple(shape), tuple(x.shape), x.device))
         out.append(x.to(u.dtype).contiguous())
     return out
 
@@ -324,7 +315,7 @@ def _launch(name, u, ptrs):
 def elements_fwd_cuda(u, v, ph, a):
     """:func:`elements_fwd_reference` on the card (``csrc/adjoint.cu``)."""
     L, p, b = u.shape
-    ins = _operands("elements_fwd", u, [(v, u.shape), (ph, u.shape),
+    ins = _operands("adjoint elements_fwd", u, [(v, u.shape), (ph, u.shape),
                                         (a, (L, 1, b))])
     A, J, C = (u.new_empty(p, p, b) for _ in range(3))
     saves = u.new_empty(L, b, 2 * p * p)
@@ -336,7 +327,7 @@ def elements_fwd_cuda(u, v, ph, a):
 def elements_bwd_cuda(u, v, ph, a, saves, hA0, hJ0, hC0):
     """:func:`elements_bwd_reference` on the card (``csrc/adjoint.cu``)."""
     L, p, b = u.shape
-    ins = _operands("elements_bwd", u, [
+    ins = _operands("adjoint elements_bwd", u, [
         (v, u.shape), (ph, u.shape), (a, (L, 1, b)),
         (saves, (L, b, 2 * p * p)), (hA0, (p, p, b)), (hJ0, (p, p, b)),
         (hC0, (p, p, b))])
@@ -350,7 +341,7 @@ def elements_bwd_cuda(u, v, ph, a, saves, hA0, hJ0, hC0):
 def factor_fwd_cuda(sh0, u, v, ph, a, y):
     """:func:`factor_fwd_reference` on the card (``csrc/adjoint.cu``)."""
     L, p, b = u.shape
-    ins = _operands("factor_fwd", u, [
+    ins = _operands("adjoint factor_fwd", u, [
         (v, u.shape), (ph, u.shape), (a, (L, 1, b)), (y, (L, 1, b)),
         (sh0, (p, p, b))])
     M, Qm = u.new_empty(p, p, b), u.new_empty(p, p, b)
@@ -366,7 +357,7 @@ def factor_fwd_cuda(sh0, u, v, ph, a, y):
 def factor_bwd_cuda(u, v, ph, a, y, saves, hM0, hm0, hQm, hqv, hq0, hld):
     """:func:`factor_bwd_reference` on the card (``csrc/adjoint.cu``)."""
     L, p, b = u.shape
-    ins = _operands("factor_bwd", u, [
+    ins = _operands("adjoint factor_bwd", u, [
         (v, u.shape), (ph, u.shape), (a, (L, 1, b)), (y, (L, 1, b)),
         (saves, (L, b, 2 * p * p + p)), (hM0, (p, p, b)), (hm0, (p, b)),
         (hQm, (p, p, b)), (hqv, (p, b)), (hq0, (b,)), (hld, (b,))])

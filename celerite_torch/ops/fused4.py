@@ -54,8 +54,8 @@ __all__ = ["primal_reference", "primal_cuda", "run_primal", "build_ll",
            "elem_fwd_reference", "factor_fwd_reference",
            "factor_bwd_reference", "elem_bwd_reference", "elem_fwd_cuda",
            "factor_fwd_cuda", "factor_bwd_cuda", "elem_bwd_cuda", "elem_fwd",
-           "factor_fwd", "factor_bwd", "elem_bwd", "prefix_sh0", "lane_quad",
-           "assemble_ll", "build_ll_and_grad", "GRAD_KERNELS"]
+           "factor_fwd", "factor_bwd", "elem_bwd", "prefix_sh0", "prefix_h0",
+           "lane_quad", "assemble_ll", "build_ll_and_grad", "GRAD_KERNELS"]
 
 MAX_WIDTH = 12
 
@@ -560,12 +560,12 @@ def prefix_sh0(A, J, C, seg):
     return _lanes_last(_exclusive(C))
 
 
-def lane_quad(M, m, Qm, qv, q0, seg):
-    """Per-lane ``quad_l = q0 - 2 qv.h + h^T Qm h`` in float64 ``(B,)``.
+def prefix_h0(M, m, seg):
+    """Each lane's incoming state ``h``: the exclusive segmented prefix of
+    the affine maps ``h -> M h + m``.
 
-    ``h`` is each lane's incoming state, the exclusive segmented prefix of
-    the affine maps ``(M, m)`` (fused4.py:1003 ``_assemble_ll``).
-    Differentiable with autograd.
+    Takes ``(P, P, B)`` and ``(P, B)`` of any float dtype and returns the
+    float64 ``(P, B)``.  Differentiable with autograd.
     """
     p = M.shape[0]
     # [M | m] per lane: one matmul composes the map and its offset.
@@ -576,7 +576,16 @@ def lane_quad(M, m, Qm, qv, q0, seg):
         c = torch.cat([c[..., :p], c[..., p:] + Mm[:, s:, :, p:]], -1)
         Mm = torch.cat([Mm[:, :s], c], 1)
         s *= 2
-    h = _lanes_last(_exclusive(Mm[..., p]))  # (P, B)
+    return _lanes_last(_exclusive(Mm[..., p]))
+
+
+def lane_quad(M, m, Qm, qv, q0, seg):
+    """Per-lane ``quad_l = q0 - 2 qv.h + h^T Qm h`` in float64 ``(B,)``.
+
+    ``h`` is each lane's incoming state (:func:`prefix_h0`;
+    fused4.py:1003 ``_assemble_ll``).  Differentiable with autograd.
+    """
+    h = prefix_h0(M, m, seg)
     Qm, qv = Qm.double(), qv.double()
     Qh = torch.sum(Qm * h[None, :], dim=1)
     return q0.double() - 2.0 * torch.sum(qv * h, dim=0) \

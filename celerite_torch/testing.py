@@ -2,9 +2,10 @@
 
 The data makers are numpy (or take a ``terms`` module as an argument), so
 the same inputs can be fed to this package and to the JAX reference
-package.  :func:`compare_grad_kernels`, :func:`compare_ds_kernels` and
-:func:`compare_adjoint_kernels` hold the gradient, the exact-mode and the
-adjoint kernels against their plain versions on the card.
+package.  :func:`compare_grad_kernels`, :func:`compare_ds_kernels`,
+:func:`compare_adjoint_kernels` and :func:`compare_solver_kernels` hold the
+gradient, the exact-mode, the adjoint and the three-pass kernels against
+their plain versions on the card.
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ import numpy as np
 import torch
 
 __all__ = ["make_data", "CASES", "pack_values", "pack_values_ds",
-           "bench_kernel", "config2_kernel", "wide_kernel",
-           "compare_grad_kernels", "compare_ds_kernels",
-           "compare_adjoint_kernels"]
+           "bench_kernel", "config2_kernel", "wide_kernel", "width_kernel",
+           "blocked_streams", "compare_grad_kernels", "compare_ds_kernels",
+           "compare_adjoint_kernels", "compare_solver_kernels"]
 
 # (jr, jc, coefficient values) of the fused primal tests: packed as
 # [a_real, c_real, a_comp, b_comp, c_comp, d_comp]; complex terms keep
@@ -89,6 +90,34 @@ def wide_kernel(terms, width):
                                             log_omega0=0.2 + 0.7 * k)
         return kernel
     raise ValueError("width must be 13 or 16")
+
+
+def width_kernel(terms, width):
+    """A model of padded width 2 (:func:`bench_kernel`), 8
+    (:func:`config2_kernel`), 13 or 16 (:func:`wide_kernel`) or 20
+    (config[2] with four modes)."""
+    if width == 2:
+        return bench_kernel(terms)
+    if width in (8, 20):
+        return config2_kernel(terms, modes=1 if width == 8 else 4)
+    return wide_kernel(terms, width)
+
+
+def blocked_streams(kernel, t, y, yerr, L, dtype=torch.float64,
+                    device="cpu"):
+    """The ``(u, v, ph, a, y)`` blocks of ``L`` steps (``blocked.
+    _pad_blocks``, a padded tail unless L divides N) of a ``celerite_torch``
+    kernel at its parameters, lowered in float64 and then cast."""
+    from .ops import blocked
+    from .ops.lower import Coefficients, lower
+
+    th = torch.as_tensor(kernel.get_parameter_vector())
+    coeffs = Coefficients(*kernel.get_padded_coefficients(th),
+                          jitter=kernel.get_jitter(th))
+    ssm = lower(coeffs, torch.as_tensor(np.asarray(t, np.float64)),
+                torch.as_tensor(np.asarray(yerr, np.float64) ** 2))
+    streams = blocked._pad_blocks(ssm, torch.as_tensor(y), L)[:5]
+    return tuple(x.to(dtype=dtype, device=device) for x in streams)
 
 
 def _errors(got, want, summed=False, seg=None):
@@ -277,6 +306,45 @@ def compare_adjoint_kernels(u, v, ph, a, y, seg=None):
     out = {}
     for name, (names, got, want) in runs.items():
         errs = {n: _errors(g, w) for n, g, w in zip(names, got, want)}
+        out[name] = {"max_abs_err": max(e[0] for e in errs.values()),
+                     "max_rel_err": max(e[1] for e in errs.values()),
+                     "outputs": {n: e[1] for n, e in errs.items()}}
+    return out
+
+
+def compare_solver_kernels(u, v, ph, a, y):
+    """Each three-pass kernel against its plain version on the same streams
+    (one segment of B lanes, on the card; the plain versions run there
+    too), subst both on a group of threads a lane and on one thread a lane
+    (``subst_one_thread``).  The factor kernel takes the seeds
+    ``fused4.prefix_sh0`` makes from the plain elements, subst the plain
+    factor's d and w and the states ``fused4.prefix_h0`` makes from its
+    maps.  Every output is compared against its largest reference value.
+    Returns ``{kernel: {"max_abs_err", "max_rel_err", "outputs": {name:
+    rel}}}``.
+    """
+    from .ops import fused4, pallas_solver as ps
+
+    b = u.shape[-1]
+    elems = ps.elements_reference(u, v, ph, a)
+    sh0 = fused4.prefix_sh0(*elems, b)
+    fac = ps.factor_reference(sh0, u, v, ph, a, y)
+    d, w, M, m = fac
+    h0 = fused4.prefix_h0(M, m, b)
+    sub = ps.subst_reference(h0, u, ph, w, y, d)
+    names = ("quad", "logdet", "mind")
+    runs = {
+        "elements": (("A", "J", "C"), ps.elements_cuda(u, v, ph, a), elems),
+        "factor": (("d", "w", "M", "m"), ps.factor_cuda(sh0, u, v, ph, a, y),
+                   fac),
+        "subst": (names, ps.subst_cuda(h0, u, ph, w, y, d, one_thread=False),
+                  sub),
+        "subst_one_thread": (names, ps.subst_cuda(h0, u, ph, w, y, d,
+                                                  one_thread=True), sub),
+    }
+    out = {}
+    for name, (names_, got, want) in runs.items():
+        errs = {n: _errors(g, x) for n, g, x in zip(names_, got, want)}
         out[name] = {"max_abs_err": max(e[0] for e in errs.values()),
                      "max_rel_err": max(e[1] for e in errs.values()),
                      "outputs": {n: e[1] for n, e in errs.items()}}

@@ -7,8 +7,9 @@ Usage (from the root of a checkout, on a machine with an NVIDIA H100):
 
 Builds the fused primal kernel (celerite_torch/csrc/fused4_primal.cu), the
 four gradient kernels (celerite_torch/csrc/fused4_grad.cu), the two
-exact-mode kernels (celerite_torch/csrc/dsfused.cu) and the four adjoint
-kernels (celerite_torch/csrc/adjoint.cu) with nvcc for every padded width it
+exact-mode kernels (celerite_torch/csrc/dsfused.cu), the four adjoint
+kernels (celerite_torch/csrc/adjoint.cu) and the three three-pass kernels
+(celerite_torch/csrc/pallas_solver.cu) with nvcc for every padded width it
 uses, one nvcc process per library, all at once; holds each kernel against
 its plain PyTorch version on the card; then drives the port's main paths
 through the entry points a user calls:
@@ -45,7 +46,23 @@ through the entry points a user calls:
   prefix, the sequential solver; with the lanes-a-chain sweep;
 - sampler_E: dense-mass NUTS on E's log probability in float64 over 4
   folded chains, SAMPLER_E_WARMUP warmup and SAMPLER_E_SAMPLES sampling
-  transitions, tree depth 6 in warmup and 8 in sampling.
+  transitions, tree depth 6 in warmup and 8 in sampling;
+- solver_kernels: the three pallas_solver kernels against their plain
+  versions at padded widths 2, 8, 13 and 16 on small plans (an odd lane
+  count and a padded tail) and on main path F's own plans, timed there,
+  subst on a group of threads a lane and on one thread a lane;
+- F: the log-likelihood value of wide models: E's model and data through
+  ``build_logprob(...)(theta)`` and ``GP.log_likelihood`` (the value
+  closure of the adjoint route, the three-pass kernels over the value
+  plan), ``build_loglik(solver="pallas")`` on E's and B's models and on
+  bench.py's model at N = 1e6 in float32, ``solver="blocked"`` on E's
+  model, and config[2] with four modes (P = 20) through
+  ``solver="auto"`` (the plain blocked solver), value and autograd
+  gradient, float32 and float64; gated against the adjoint route's
+  ``value_ok_grad``, the fused route and the sequential solver on a
+  4096-point prefix;
+- lane_sweep_F: the value plan's lanes a chain and the L of
+  ``solver="pallas"`` and ``"blocked"``, the counts in turn over rounds.
 
 Each main path resets every kernel's launch counter just before it runs and
 reads the counters just after; a kernel of the path that did not launch
@@ -71,13 +88,15 @@ import torch
 import celerite_torch
 from celerite_torch import _build, inference, terms
 from celerite_torch.inference import adaptation, diagnostics
-from celerite_torch.ops import adjoint, dsfused, fused4, lanes, lanes4
+from celerite_torch.ops import (adjoint, blocked, dsfused, fused4, lanes,
+                                lanes4, pallas_solver)
 from celerite_torch.ops.lower import Coefficients
-from celerite_torch.testing import (CASES, bench_kernel,
+from celerite_torch.testing import (CASES, bench_kernel, blocked_streams,
                                     compare_adjoint_kernels,
                                     compare_ds_kernels, compare_grad_kernels,
-                                    config2_kernel, make_data, pack_values,
-                                    pack_values_ds, wide_kernel)
+                                    compare_solver_kernels, config2_kernel,
+                                    make_data, pack_values, pack_values_ds,
+                                    wide_kernel, width_kernel)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): memory rate and the
 # non-tensor-core float rates.
@@ -113,12 +132,23 @@ DS_F64_RTOL = 1e-10
 ADJ_F64_RTOL = 1e-10
 ADJ_F32_RTOL = 7e-4
 ADJ_F32_PATH_RTOL = 3e-3
+# The three-pass kernels against their plain versions, every output
+# against its largest reference value: float64, and float32 kernel against
+# float32 plain on the same streams, ten times the largest reading on the
+# small plans (1.04e-4, factor's w at P = 13) and on main path F's plans
+# (7.4e-5 on the value plan's 782-step lanes), PERF.md; float32 plain is
+# itself up to 1.7e-4 from float64 there, reported beside it.
+SOLVER_F64_RTOL = 1e-10
+SOLVER_F32_RTOL = 1.05e-3
+SOLVER_F32_PATH_RTOL = 7.5e-4
 # The CUDA kernels of csrc/fused4_primal.cu, csrc/fused4_grad.cu,
-# csrc/dsfused.cu and csrc/adjoint.cu, by their names in a profile.
+# csrc/dsfused.cu, csrc/adjoint.cu and csrc/pallas_solver.cu, by their
+# names in a profile.
 PORT_KERNELS = ("elem_kernel", "elem_round", "factor_kernel", "affine_round",
                 "assemble") + tuple(k + "_kernel" for k in fused4.GRAD_KERNELS
                                     + dsfused.DS_KERNELS) + tuple(
-    "adjoint_" + k + "_kernel" for k in adjoint.ADJOINT_KERNELS)
+    "adjoint_" + k + "_kernel" for k in adjoint.ADJOINT_KERNELS) + tuple(
+    "solver_" + k + "_kernel" for k in pallas_solver.SOLVER_KERNELS)
 SAMPLER_CHAINS = 16
 # Directions a launch swept on main path D's 16-chain plan (C = 17 at
 # config[2]).
@@ -140,6 +170,13 @@ E_LANES = (64, 128, 256, 512, 1024)
 SAMPLER_E_CHAINS = 4
 SAMPLER_E_WARMUP = 30
 SAMPLER_E_SAMPLES = 4
+# Padded widths of the three-pass kernels this script builds and holds, and
+# main path F's sweeps: the value plan's lanes a chain, the L of
+# solver="pallas" and solver="blocked", the counts in turn over rounds.
+SOLVER_WIDTHS = (2, 8, 13, 16)
+F_LANES = (64, 128, 256, 512, 1024, 2048, 4096)
+F_BLOCKS = (64, 128, 256, 512, 1024, 2048)
+F_SWEEP_ROUNDS = 3
 
 
 T_START = time.perf_counter()
@@ -176,15 +213,17 @@ def nvcc_version():
 
 
 def ptxas_summary(path):
-    """{kernel<dtype or tan/value>: {"registers", "spill_stores",
-    "spill_loads"}}."""
+    """{kernel<[threads a lane,] dtype or tan/value>: {"registers",
+    "spill_stores", "spill_loads"}}."""
     out, cur, props = {}, None, None
     tags = {"f": "f32", "d": "f64", "Lb1": "tan", "Lb0": "value"}
     for line in path.read_text().splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+(\w+?)I([df]|Lb[01])E",
-                      line)
+        m = re.search(r"Compiling entry function "
+                      r"'_Z\d+(\w+?)I(?:Li(\d+)E)?([df]|Lb[01])E", line)
         if m:
-            cur = "{0}<{1}>".format(m.group(1), tags[m.group(2)])
+            cur = "{0}<{1}{2}>".format(
+                m.group(1), "" if m.group(2) is None else m.group(2) + ",",
+                tags[m.group(3)])
             out[cur] = {}
             continue
         m = re.search(r"Function properties for (\S+)", line)
@@ -591,6 +630,8 @@ def reset_counts():
         getattr(dsfused, name + "_cuda").launches = 0
     for name in adjoint.ADJOINT_KERNELS:
         getattr(adjoint, name + "_cuda").launches = 0
+    for name in pallas_solver.SOLVER_KERNELS:
+        getattr(pallas_solver, name + "_cuda").launches = 0
 
 
 def reference_value_and_grad(gp, plan, theta, prior):
@@ -1485,6 +1526,402 @@ def sampler_nuts(phase, lp, theta, dev, counts, chains, warmup, samples,
     return grew
 
 
+SOLVER_REPLACES = {
+    "elements": "celerite_tpu/ops/pallas_solver.py:62",
+    "factor": "celerite_tpu/ops/pallas_solver.py:114",
+    "subst": "celerite_tpu/ops/pallas_solver.py:154",
+}
+
+
+def solver_counts():
+    return {name: getattr(pallas_solver, name + "_cuda").launches
+            for name in pallas_solver.SOLVER_KERNELS}
+
+
+def solver_bound_ms(name, u):
+    """Least time for one launch of three-pass kernel ``name`` on blocked
+    streams shaped like ``u`` ``(L, P, B)``: max(bytes / rate, operations
+    / peak).
+
+    Bytes, each input read once and each output written once: elements
+    reads u, v, ph, a (3P + 1 words a point) and writes (A, J, C) (3P^2 a
+    lane); factor reads those and y (3P + 2 a point) and the seed (P^2 a
+    lane), writes d and w (P + 1 a point) and (M, m) (P^2 + P a lane);
+    subst reads u, ph, w, y, d (3P + 2 a point) and h0 (P a lane), writes
+    three words a lane.  Operations per point, counted from the kernels'
+    code: the Riccati step's front (S, su, d, w: 4 P^2 + 4 P + 1) and
+    update (3 P^2), then elements' A and J updates (8 P^2 + 3 P),
+    factor's M and m updates (5 P^2 + 6 P + 2), subst's 5 P + 11.
+    """
+    L, p, b = u.shape
+    it = u.element_size()
+    pts, pp = L * b, p * p
+    front = 7 * pp + 4 * p + 1
+    words, per_point = {
+        "elements": ((3 * p + 1) * pts + 3 * pp * b, front + 8 * pp + 3 * p),
+        "factor": ((4 * p + 3) * pts + (2 * pp + p) * b,
+                   front + 5 * pp + 6 * p + 2),
+        "subst": ((3 * p + 2) * pts + p * b + 3 * b, 5 * p + 11),
+    }[name]
+    t_bytes = words * it / PEAK_BYTES_S * 1e3
+    t_ops = per_point * pts / PEAK_FLOPS[u.dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def solver_kernel_calls(streams):
+    """{name: (kernel call, plain call)} on the same inputs, for timing;
+    subst in both layouts."""
+    u, v, ph, a, y = streams
+    b = u.shape[-1]
+    sh0 = fused4.prefix_sh0(*pallas_solver.elements_cuda(u, v, ph, a), b)
+    d, w, M, m = pallas_solver.factor_cuda(sh0, u, v, ph, a, y)
+    h0 = fused4.prefix_h0(M, m, b)
+    ps = pallas_solver
+    return {
+        "elements": (lambda: ps.elements_cuda(u, v, ph, a),
+                     lambda: ps.elements_reference(u, v, ph, a)),
+        "factor": (lambda: ps.factor_cuda(sh0, u, v, ph, a, y),
+                   lambda: ps.factor_reference(sh0, u, v, ph, a, y)),
+        "subst": (lambda: ps.subst_cuda(h0, u, ph, w, y, d),
+                  lambda: ps.subst_reference(h0, u, ph, w, y, d)),
+        "subst_group": (
+            lambda: ps.subst_cuda(h0, u, ph, w, y, d, one_thread=False),
+            None),
+        "subst_one_thread": (
+            lambda: ps.subst_cuda(h0, u, ph, w, y, d, one_thread=True),
+            None),
+    }
+
+
+def plain_solver_f32_floor(streams64):
+    """Each plain pass in float32 against float64 on the same streams (the
+    float32 ones rounded from them), every output against its largest
+    float64 value: the rounding floor under a float32 kernel-vs-plain
+    reading."""
+    ps = pallas_solver
+    outs = {}
+    for dt in (torch.float32, torch.float64):
+        u, v, ph, a, y = (x.to(dt) for x in streams64)
+        b = u.shape[-1]
+        el = ps.elements_reference(u, v, ph, a)
+        fa = ps.factor_reference(fused4.prefix_sh0(*el, b), u, v, ph, a, y)
+        su = ps.subst_reference(fused4.prefix_h0(*fa[2:], b), u, ph, fa[1],
+                                y, fa[0])
+        outs[dt] = dict(zip(("A", "J", "C", "d", "w", "M", "m", "quad",
+                             "logdet", "mind"), (*el, *fa, *su)))
+    return {k: float((x.double() - outs[torch.float64][k]).abs().max()
+                     / outs[torch.float64][k].abs().max())
+            for k, x in outs[torch.float32].items()}
+
+
+def solver_case(solver_errs, tag, streams, limit, floor=None, **info):
+    """One solver_kernel_vs_plain case: every output of the three kernels
+    (subst in both layouts) against the plain versions' at ``limit``.
+    ``solver_errs[name]`` collects each kernel's float64 max abs error."""
+    errs = compare_solver_kernels(*streams)
+    u = streams[0]
+    f64 = u.dtype == torch.float64
+    emit("solver_kernel_vs_plain", case=tag, width=u.shape[1],
+         dtype=str(u.dtype).split(".")[1], limit=limit, lanes=u.shape[-1],
+         steps_per_lane=u.shape[0],
+         max_rel_err={k: e["max_rel_err"] for k, e in errs.items()},
+         outputs={k: e["outputs"] for k, e in errs.items()},
+         **({"plain_f32_vs_f64": floor} if floor else {}), **info)
+    for name, e in errs.items():
+        if f64:
+            solver_errs.setdefault(name.split("_one")[0], []).append(
+                e["max_abs_err"])
+        if not e["max_rel_err"] <= limit:
+            fail("pallas_solver {0} kernel disagrees with plain: {1} "
+                 "{2}".format(name, tag, info))
+
+
+def time_solver_kernels(streams, plain=True):
+    """{name: {"ms", "plain_ms", "bound_ms", "bound_by"}} on ``streams``:
+    each kernel by CUDA events over 10 launches, its plain version once."""
+    rows = {}
+    for name, (kern, plain_fn) in solver_kernel_calls(streams).items():
+        row = rows[name] = {"ms": sync_time_ms(kern, reps=10)}
+        if plain and plain_fn is not None:
+            row["plain_ms"] = sync_time_ms(plain_fn, reps=1, warm=0)
+        row["bound_ms"], row["bound_by"] = solver_bound_ms(
+            name.split("_")[0], streams[0])
+    return rows
+
+
+def check_solver_kernels(dev, gpe, lpe, thetae, solver_errs):
+    """solver_kernels: the three kernels against their plain versions.
+
+    Widths 2, 8, 13 and 16 on a small plan (N = 4099 in blocks of 96
+    steps: 43 lanes and a padded tail of 29 rows) in float64 and float32,
+    then on main path F's own plans, where each kernel and its plain
+    version are timed and the bound computed: the value plan of E's model
+    (float64 and float32), and the ``solver="pallas"`` blocks of E's and
+    B's models at N = 1e5 (float64) and of bench.py's model at N = 1e6
+    (float32).  Returns ``{plan: {name: row}}``.
+    """
+    t, y, yerr = make_data(4099, seed=7, t_max=400.0)
+    for width in SOLVER_WIDTHS:
+        kern = width_kernel(terms, width)
+        s64 = blocked_streams(kern, t, y, yerr, 96, device=dev)
+        floor = plain_solver_f32_floor(s64)
+        solver_case(solver_errs, "small", s64, SOLVER_F64_RTOL, n=4099)
+        solver_case(solver_errs, "small",
+                    tuple(x.float() for x in s64), SOLVER_F32_RTOL,
+                    floor=floor, n=4099)
+    rows = {}
+    vplans = {dt: lp.loglik.value_plan for dt, lp in lpe.items()}
+    for dt, vplan in vplans.items():
+        streams = lane_streams(gpe, vplan, thetae)
+        f64 = dt == torch.float64
+        floor = None if f64 else plain_solver_f32_floor(
+            lane_streams(gpe, vplans[torch.float64], thetae))
+        solver_case(solver_errs, "value_plan", streams,
+                    SOLVER_F64_RTOL if f64 else SOLVER_F32_PATH_RTOL,
+                    floor=floor, n=vplan.n)
+        key = "value_plan_" + str(dt).split(".")[1]
+        rows[key] = time_solver_kernels(streams, plain=f64)
+        emit("solver_kernel_time_F", plan=key, n=vplan.n,
+             lanes=streams[0].shape[-1], steps_per_lane=streams[0].shape[0],
+             kernels=rows[key])
+    L = pallas_solver.default_block_size(dev)
+    n = 100_000
+    rng = np.random.default_rng(2)
+    tb = np.sort(rng.uniform(0, 100.0, n))
+    yerrb = np.full(n, 0.3)
+    yb = np.sin(tb) + 0.5 * np.sin(3.1 * tb) + yerrb * rng.standard_normal(n)
+    tm, ym, yerrm = bench_data()
+    cases = (("pallas_E", 16, (tb, yb, yerrb), torch.float64),
+             ("pallas_B", 8, (tb, yb, yerrb), torch.float64),
+             ("pallas_bench", 2, (tm, ym, yerrm), torch.float32))
+    for key, width, data, dt in cases:
+        s64 = blocked_streams(width_kernel(terms, width), *data, L,
+                              device=dev)
+        streams = tuple(x.to(dt) for x in s64)
+        f64 = dt == torch.float64
+        solver_case(solver_errs, key, streams,
+                    SOLVER_F64_RTOL if f64 else SOLVER_F32_PATH_RTOL,
+                    floor=None if f64 else plain_solver_f32_floor(s64),
+                    n=len(data[0]), block_size=L)
+        del s64
+        rows[key] = time_solver_kernels(streams)
+        emit("solver_kernel_time_F", plan=key, n=len(data[0]),
+             dtype=str(dt).split(".")[1], lanes=streams[0].shape[-1],
+             steps_per_lane=streams[0].shape[0], kernels=rows[key])
+        del streams
+        torch.cuda.empty_cache()
+    return rows
+
+
+def bench_data(n=1_000_000):
+    """Main path A's data: bench.py's N = 1e6 series."""
+    rng = np.random.default_rng(42)
+    t = np.sort(rng.uniform(0, 1000.0, n))
+    return t, rng.standard_normal(n), np.full(n, 0.1)
+
+
+def autograd_value_and_grad(fn, theta):
+    """(ll, ok, d ll / d theta) of a closure by one reverse pass."""
+    th = theta.detach().clone().requires_grad_()
+    ll, ok = fn(th)
+    (grad,) = torch.autograd.grad(ll, th)
+    return ll.detach(), ok, grad
+
+
+def seq_prefix_values(gp_of, t, y, yerr, theta, calls, n=4096):
+    """The first ``n`` points through the sequential solver on the CPU
+    (value and autograd gradient) and through each of ``calls`` (name ->
+    ``gp -> fn``, built on the card at the same points): their relative
+    distances, value and gradient (norm)."""
+    gp_cpu = gp_of("cpu")
+    fseq = gp_cpu.build_loglik(t[:n], y[:n], yerr=yerr[:n], solver="seq")
+    ll_s, _, g_s = autograd_value_and_grad(fseq, theta.cpu())
+    gp = gp_of(None)
+    out = {}
+    for name, make in calls.items():
+        ll, ok, g = autograd_value_and_grad(
+            make(gp, t[:n], y[:n], yerr[:n]), theta)
+        if not bool(ok):
+            fail("main path F: {0} on the 4096-point prefix is not "
+                 "positive definite".format(name))
+        out[name] = (rel(ll, ll_s), grad_rel(g.cpu(), g_s))
+    return out
+
+
+def main_path_f(gpe, lpe, prior, thetae, t, y, yerr):
+    """The value of wide models (P = 16 and 20) at N = 1e5, and
+    ``solver="pallas"`` on P = 16, 8 and 2 (bench.py's model at N = 1e6),
+    ``solver="blocked"`` on P = 16: the entry points a user calls, float32
+    and float64, and under autograd.
+
+    Gates: every float64 value within 1e-10 of its model's own reference
+    (the adjoint route's ``value_ok_grad`` for E's model, the fused route
+    for B's and bench.py's) and, on a 4096-point prefix, of the sequential
+    solver; float32 within 1e-4 of float64; the gradients of the value
+    closure (``fast_grad`` False and True), of ``solver="pallas"`` and of
+    ``solver="blocked"`` within 1e-8 (norm) of ``value_ok_grad``'s; P = 20
+    within 1e-10 and 1e-8 of the sequential solver on the prefix.  The
+    three kernels must each launch in the path's run.
+    """
+    dev = thetae.device
+    dts = (torch.float32, torch.float64)
+    gp8 = celerite_torch.GP(config2_kernel(terms))
+    theta8 = torch.as_tensor(gp8.get_parameter_vector(), device=dev)
+    gpb = celerite_torch.GP(bench_kernel(terms))
+    thetab = torch.as_tensor(gpb.get_parameter_vector(), device=dev)
+    tb, yb, yerrb = bench_data()
+    gp20 = celerite_torch.GP(config2_kernel(terms, modes=4))
+    theta20 = torch.as_tensor(gp20.get_parameter_vector(), device=dev)
+    fns = {
+        ("value", dt): lpe[dt] for dt in dts}
+    fns.update({("pallas_E", dt): gpe.build_loglik(
+        t, y, yerr=yerr, solver="pallas", dtype=dt) for dt in dts})
+    fns.update({("pallas_B", dt): gp8.build_loglik(
+        t, y, yerr=yerr, solver="pallas", dtype=dt) for dt in dts})
+    fns.update({("pallas_bench", dt): gpb.build_loglik(
+        tb, yb, yerr=yerrb, solver="pallas", dtype=dt) for dt in dts})
+    fns.update({("blocked_E", dt): gpe.build_loglik(
+        t, y, yerr=yerr, solver="blocked", dtype=dt) for dt in dts})
+    fns.update({("auto_P20", dt): gp20.build_loglik(t, y, yerr=yerr,
+                                                     dtype=dt) for dt in dts})
+    value_fast = gpe.build_loglik(t, y, yerr=yerr, fast_grad=True)
+    thetas = {"value": thetae, "pallas_E": thetae, "pallas_B": theta8,
+              "pallas_bench": thetab, "blocked_E": thetae,
+              "auto_P20": theta20}
+    routes = {k: getattr(fn, "loglik", fn).route for k, fn in fns.items()}
+    if routes["auto_P20", torch.float64] != "blocked" or routes[
+            "value", torch.float64] != "adjoint":
+        fail("main path F took the routes {0}".format(routes))
+    gpe.compute(t, yerr)
+
+    # ---- the path: counters reset just before, read just after ----
+    reset_counts()
+    vals = {k: fn(thetas[k[0]]) for k, fn in fns.items()}
+    ll_gp = gpe.log_likelihood(y)
+    grads = {
+        "value": autograd_value_and_grad(lpe[torch.float64].loglik, thetae),
+        "value_fast_grad": autograd_value_and_grad(value_fast, thetae),
+        "pallas_E": autograd_value_and_grad(fns["pallas_E", torch.float64],
+                                            thetae),
+        "blocked_E": autograd_value_and_grad(fns["blocked_E", torch.float64],
+                                             thetae),
+        "auto_P20": autograd_value_and_grad(fns["auto_P20", torch.float64],
+                                            theta20),
+    }
+    torch.cuda.synchronize()
+    counts = solver_counts()
+    emit("main_path_F_launches", **counts, adjoint=adjoint_counts(),
+         fused4=dict(grad_counts(), primal=fused4.primal_cuda.launches))
+    if min(counts.values()) < 1:
+        fail("main path F did not launch every pallas_solver kernel: "
+             "{0}".format(counts))
+
+    # ---- references and gates ----
+    ll_vog, ok_vog, g_vog = lpe[torch.float64].loglik.value_ok_grad(thetae)
+    ref = {"value": float(ll_vog) + float(prior(thetae)),
+           "pallas_E": float(ll_vog), "blocked_E": float(ll_vog)}
+    for key, gp, th, data in (("pallas_B", gp8, theta8, (t, y, yerr)),
+                              ("pallas_bench", gpb, thetab,
+                               (tb, yb, yerrb))):
+        ll_f, ok_f = gp.build_loglik(*data[:2], yerr=data[2])(th)
+        ref[key] = float(ll_f)
+    errs = {}
+    for key in ref:
+        v64, v32 = (vals[key, dt] for dt in (torch.float64, torch.float32))
+        v64 = v64 if torch.is_tensor(v64) and v64.ndim == 0 else v64[0]
+        v32 = v32 if torch.is_tensor(v32) and v32.ndim == 0 else v32[0]
+        errs[key] = {"f64": rel(v64, ref[key]), "f32_vs_f64": rel(v32, v64),
+                     "value_f64": float(v64), "value_f32": float(v32)}
+    ll20 = {dt: float(vals["auto_P20", dt][0]) for dt in dts}
+    errs["auto_P20"] = {"f32_vs_f64": rel(ll20[torch.float32],
+                                          ll20[torch.float64]),
+                        "value_f64": ll20[torch.float64]}
+    errs["GP.log_likelihood"] = {"f64": rel(ll_gp, ll_vog)}
+    grad_errs = {k: grad_rel(g[2], g_vog) for k, g in grads.items()
+                 if k != "auto_P20"}
+    prefix = seq_prefix_values(
+        lambda d: celerite_torch.GP(config2_kernel(terms, modes=3),
+                                    device=d), t, y, yerr, thetae,
+        {"value": lambda gp, *d: gp.build_loglik(*d[:2], yerr=d[2]),
+         "pallas": lambda gp, *d: gp.build_loglik(*d[:2], yerr=d[2],
+                                                  solver="pallas"),
+         "blocked": lambda gp, *d: gp.build_loglik(*d[:2], yerr=d[2],
+                                                   solver="blocked")})
+    prefix.update(seq_prefix_values(
+        lambda d: celerite_torch.GP(config2_kernel(terms, modes=4),
+                                    device=d), t, y, yerr, theta20,
+        {"auto_P20": lambda gp, *d: gp.build_loglik(*d[:2], yerr=d[2])}))
+
+    spread = {}
+    for (key, dt), fn in fns.items():
+        reps = 2 if key in ("blocked_E", "auto_P20") else 10
+        spread[key + "_" + str(dt).split(".")[1]] = eval_spread_ms(
+            fn, thetas[key], batches=5, per_batch=reps)
+    spread["value_and_autograd_grad_float64"] = eval_spread_ms(
+        lambda th: autograd_value_and_grad(lpe[torch.float64].loglik, th),
+        thetae, batches=3, per_batch=2)
+    spread["value_fast_grad_and_autograd_grad_float64"] = eval_spread_ms(
+        lambda th: autograd_value_and_grad(value_fast, th), thetae,
+        batches=3, per_batch=2)
+    vplan = lpe[torch.float64].loglik.value_plan
+    emit("main_path_F", model_E="config[2] 4xSHO + jitter (P=16, modes=3)",
+         model_B="config[2] 2xSHO + jitter (P=8)",
+         model_bench="bench.py ComplexTerm (P=2), N=1e6",
+         model_P20="config[2] 5xSHO + jitter (P=20, modes=4)", n=len(t),
+         routes={"{0}_{1}".format(k, str(dt).split(".")[1]): r
+                 for (k, dt), r in routes.items()},
+         value_plan_lanes=vplan.t.shape[-1],
+         value_plan_steps=vplan.t.shape[0],
+         pallas_block_size=pallas_solver.default_block_size(dev),
+         blocked_block_size=blocked.default_block_size(len(t), dev),
+         ll_value_ok_grad_f64=float(ll_vog), ll_gp_log_likelihood=ll_gp,
+         rel_err=errs, rel_err_grad_vs_value_ok_grad=grad_errs,
+         rel_err_vs_seq_prefix4096=prefix, ms_per_call=spread)
+    flat64 = [e["f64"] for e in errs.values() if "f64" in e]
+    flat64 += [p[0] for p in prefix.values()]
+    if not all(math.isfinite(e["value_f64"]) for e in errs.values()
+               if "value_f64" in e) or max(flat64) > F64_RTOL:
+        fail("main path F: a float64 value off its reference: "
+             "{0} {1}".format(errs, prefix))
+    if max(e["f32_vs_f64"] for e in errs.values()
+           if "f32_vs_f64" in e) > F32_RTOL:
+        fail("main path F: a float32 value off float64: {0}".format(errs))
+    if max(list(grad_errs.values()) + [p[1] for p in prefix.values()]) \
+            > GRAD_AUTOGRAD_RTOL:
+        fail("main path F: a gradient off value_ok_grad's or the "
+             "sequential solver's: {0} {1}".format(grad_errs, prefix))
+    emit("profile_F", dtype="float64", call="build_logprob(...)(theta)",
+         **profile_evals(lpe[torch.float64], thetae, evals=10))
+    emit("profile_F", dtype="float64", call="solver='pallas'",
+         **profile_evals(fns["pallas_E", torch.float64], thetae, evals=10))
+    return counts
+
+
+def lane_sweep_f(gpe, t, y, yerr, thetae, rounds=F_SWEEP_ROUNDS):
+    """F's float64 value ms over the value plan's lanes a chain
+    (``block_size`` of the adjoint route), over the L of
+    ``solver="pallas"`` and over the L of ``solver="blocked"``.  The
+    counts take turns, ``rounds`` rounds of 3 calls each (the blocked
+    solver's 1), and each count's median round is reported."""
+    fns = {("value", nb): gpe.build_loglik(t, y, yerr=yerr, block_size=nb)
+           for nb in F_LANES}
+    for solver in ("pallas", "blocked"):
+        fns.update({(solver, L): gpe.build_loglik(
+            t, y, yerr=yerr, solver=solver, block_size=L) for L in F_BLOCKS})
+    ms = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            reps = 1 if k[0] == "blocked" else 3
+            ms[k].append(sync_time_ms(lambda: fn(thetae), reps=reps, warm=1))
+    for (what, count), m in ms.items():
+        if what == "value":
+            shape = dict(lanes=count, steps_per_lane=-(-len(t) // count))
+        else:
+            shape = dict(lanes=-(-len(t) // count), steps_per_lane=count)
+        emit("lane_sweep_F", solver=what, **shape, ms=float(np.median(m)),
+             rounds=m)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1506,7 +1943,8 @@ def main():
 
     t0 = time.perf_counter()
     widths = {"fused4_primal.cu": WIDTHS, "fused4_grad.cu": WIDTHS,
-              "dsfused.cu": WIDTHS, "adjoint.cu": WIDE_WIDTHS}
+              "dsfused.cu": WIDTHS, "adjoint.cu": WIDE_WIDTHS,
+              "pallas_solver.cu": SOLVER_WIDTHS}
     jobs = [(src, p) for src, ps in widths.items() for p in ps]
     paths = _build.build([(src, {"CELERITE_P": p}) for src, p in jobs])
     ptxas = {}
@@ -1753,6 +2191,12 @@ def main():
                           adjoint_counts, SAMPLER_E_CHAINS, SAMPLER_E_WARMUP,
                           SAMPLER_E_SAMPLES, seed=2028)
 
+    # ---- the value of wide models: solver_kernels, main path F, sweep ----
+    solver_errs = {}
+    solver_rows = check_solver_kernels(dev, gpe, lpe, thetae, solver_errs)
+    counts_f = main_path_f(gpe, lpe, prior, thetae, t, y, yerr)
+    lane_sweep_f(gpe, t, y, yerr, thetae)
+
     kernels = [{
         "name": "fused4_primal",
         "route": "cuda",
@@ -1815,6 +2259,23 @@ def main():
             "plain_ms": row["plain_ms_float64"],
             "bound_ms": row["bound_ms_float64"],
             "bound_by": row["bound_by_float64"],
+            "library_ms": None,
+        })
+    # The three-pass kernels at the value closure's shape (F's value plan
+    # of E's model, float64).
+    for name in pallas_solver.SOLVER_KERNELS:
+        row = solver_rows["value_plan_float64"][name]
+        kernels.append({
+            "name": "pallas_solver_" + name,
+            "route": "cuda",
+            "source": "celerite_torch/csrc/pallas_solver.cu",
+            "replaces": SOLVER_REPLACES[name],
+            "launches": counts_f[name],
+            "max_abs_err": max(solver_errs[name]),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
             "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

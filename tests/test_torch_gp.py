@@ -20,10 +20,14 @@ import jax.numpy as jnp
 import celerite_tpu
 from celerite_tpu import terms as jterms
 from celerite_torch import GP, LinAlgError, convert, terms as tterms
-from celerite_torch.testing import bench_kernel, config2_kernel, make_data
+from celerite_torch.ops import fused
+from celerite_torch.testing import (bench_kernel, config2_kernel, make_data,
+                                    width_kernel)
 from test_golden import GOLDEN
 
-KERNELS = {"bench": bench_kernel, "config2": config2_kernel}
+KERNELS = {"bench": bench_kernel, "config2": config2_kernel,
+           "wide16": lambda T: width_kernel(T, 16),
+           "wide20": lambda T: width_kernel(T, 20)}
 
 
 def golden_kernel(T, name):
@@ -72,7 +76,7 @@ def _pair(kname, fit_mean=False, perturb=0.0, seed=0):
     return jgp, tgp
 
 
-@pytest.mark.parametrize("kname", sorted(KERNELS))
+@pytest.mark.parametrize("kname", ["bench", "config2"])
 @pytest.mark.parametrize("n", [300, 5000])
 def test_build_loglik_matches_jax(kname, n):
     jgp, tgp = _pair(kname, perturb=0.05)
@@ -87,7 +91,7 @@ def test_build_loglik_matches_jax(kname, n):
     assert hasattr(fn, "plan") == (n >= 4096)
 
 
-@pytest.mark.parametrize("kname", sorted(KERNELS))
+@pytest.mark.parametrize("kname", ["bench", "config2"])
 def test_build_logprob_matches_jax(kname):
     jgp, tgp = _pair(kname, fit_mean=True)
     t, y, yerr = make_data(300, seed=3, t_max=30.0)
@@ -173,24 +177,25 @@ def test_out_of_slice_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gp.build_logprob(t, y, yerr=yerr, fast_grad="tangent")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gp.build_loglik(t, y, yerr=yerr, solver="blocked")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         gp.compute(t, yerr, A=np.ones(50), U=np.ones((1, 50)),
                    V=np.ones((1, 50)))
     wide = GP(sum([tterms.SHOTerm(log_S0=0.0, log_Q=1.0, log_omega0=w)
                    for w in (0.1, 0.5, 0.9, 1.3)], tterms.JitterTerm(-1.0)),
               device="cpu")
     assert sum(np.multiply(wide.kernel.padded_size, (1, 2))) == 16
-    # Width 16 builds the adjoint route, whose value closure waits for the
-    # value kernels of that width; width 20 waits for the blocked solver.
+    # Width 16 builds the adjoint route, whose value closure runs; width
+    # 20 has the blocked solver alone: the kernels stop at width 16.
     fn = wide.build_loglik(t, y, yerr=yerr, solver="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2, item 6"):
-        fn(torch.as_tensor(wide.get_parameter_vector()))
+    _, ok = fn(torch.as_tensor(wide.get_parameter_vector()))
+    assert bool(ok)
     wider = GP(sum([tterms.SHOTerm(log_S0=0.0, log_Q=1.0, log_omega0=w)
                     for w in (0.1, 0.5, 0.9, 1.3, 1.7)],
                    tterms.JitterTerm(-1.0)), device="cpu")
-    with pytest.raises(NotImplementedError, match="P > 16"):
-        wider.build_loglik(t, y, yerr=yerr, solver="fused")
+    for kw in (dict(solver="fused"), dict(solver="pallas"),
+               dict(fast_grad=True)):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 2, item 10"):
+            wider.build_loglik(t, y, yerr=yerr, **kw)
 
 
 def test_load_parameters_checks_names():
@@ -215,3 +220,53 @@ def test_default_box_prior():
     inside = float(lp(torch.tensor([0.1, 0.5], dtype=torch.float64)))
     assert math.isfinite(inside)
     assert float(lp(torch.tensor([2.0, 0.5], dtype=torch.float64))) == -math.inf
+
+
+@pytest.mark.parametrize("kname", ["config2", "wide16"])
+@pytest.mark.parametrize("solver", ["pallas", "blocked"])
+def test_pallas_and_blocked_closures_match_jax(kname, solver):
+    """``solver="pallas"`` (the plain three-pass kernels, L = 256) and
+    ``"blocked"`` (L = 62 by the JAX package's rule) at N = 1000 against
+    JAX's blocked route at 1e-10, with an active mean."""
+    jgp, tgp = _pair(kname, fit_mean=True, perturb=0.02, seed=5)
+    t, y, yerr = make_data(1000, seed=8, t_max=100.0)
+    theta = jgp.get_parameter_vector()
+    llj, okj = jax.jit(jgp.build_loglik(t, y, yerr=yerr, solver="blocked"))(
+        jnp.asarray(theta))
+    fn = tgp.build_loglik(t, y, yerr=yerr, solver=solver)
+    assert fn.route == solver
+    llt, okt = fn(torch.as_tensor(theta))
+    assert bool(okj) and bool(okt)
+    np.testing.assert_allclose(float(llt), float(llj), rtol=1e-10)
+
+
+def test_auto_above_width_16_is_blocked():
+    """Padded width 20 (config[2] with four modes) at N = 4096 takes
+    ``blocked`` at ``solver="auto"``, as the JAX package's CPU route does:
+    the value at 1e-10 and its autograd gradient at 1e-8."""
+    jgp, tgp = _pair("wide20", fit_mean=True, perturb=0.02, seed=6)
+    assert sum(np.multiply(tgp.kernel.padded_size, (1, 2))) == 20
+    t, y, yerr = make_data(4096, seed=9, t_max=400.0)
+    theta = jgp.get_parameter_vector()
+    fj = jgp.build_loglik(t, y, yerr=yerr)
+    llj, gj = jax.jit(jax.value_and_grad(lambda th: fj(th)[0]))(
+        jnp.asarray(theta))
+    fn = tgp.build_loglik(t, y, yerr=yerr)
+    assert fn.route == "blocked"
+    th = torch.tensor(theta, requires_grad=True)
+    ll, ok = fn(th)
+    ll.backward()
+    assert bool(ok)
+    np.testing.assert_allclose(float(ll.detach()), float(llj), rtol=1e-10)
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(gj), rtol=1e-8,
+                               atol=1e-8 * float(np.abs(gj).max()))
+
+
+@pytest.mark.parametrize("p", [2, 8])
+def test_run_kernel_raises_at_width_8_or_less(p):
+    """The JAX package's value at padded width 8 or less is its single
+    fused kernel, not ported yet: ``fused.run_kernel`` raises rather than
+    run the three-pass kernels in its place."""
+    streams = [torch.ones(4, p, 3)] * 3 + [torch.ones(4, 1, 3)] * 2
+    with pytest.raises(NotImplementedError, match="queue 2, item 7"):
+        fused.run_kernel(*streams, 12)

@@ -14,15 +14,19 @@ import pytest
 import torch
 
 from celerite_torch.ops import fused4, lanes4
-from celerite_torch.testing import (CASES, compare_adjoint_kernels,
-                                    compare_grad_kernels, make_data,
-                                    pack_values)
+from celerite_torch.testing import (CASES, blocked_streams,
+                                    compare_adjoint_kernels,
+                                    compare_grad_kernels,
+                                    compare_solver_kernels, make_data,
+                                    pack_values, width_kernel)
 
 # The float32 gradient kernels against their float32 plain versions on the
 # same plan: ten times the largest error chip_smoke.py measured (PERF.md).
 GRAD_F32_RTOL = 4e-5
 # The same for the adjoint kernels on chip_smoke.py's small plans.
 ADJ_F32_RTOL = 7e-4
+# The same for the three-pass kernels on chip_smoke.py's small plans.
+SOLVER_F32_RTOL = 1.05e-3
 
 
 @pytest.fixture
@@ -331,3 +335,86 @@ def test_adjoint_route_on_the_card(cuda_device):
     for a, b in zip(out["cuda"], out["cpu"]):
         np.testing.assert_allclose(a, b, rtol=1e-8,
                                    atol=1e-8 * float(np.abs(b).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 8, 13, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_solver_kernels_match_plain(width, dtype, cuda_device):
+    """Each of the three pallas_solver kernels (subst on a group of threads
+    a lane and on one thread a lane) equals its plain version on the same
+    streams, every output: 1e-10 in float64, SOLVER_F32_RTOL in float32.
+    N = 1000 in blocks of 96 steps: 11 lanes (odd) and a padded tail."""
+    from celerite_torch import terms
+
+    t, y, yerr = make_data(1000, seed=1, t_max=50.0)
+    streams = blocked_streams(width_kernel(terms, width), t, y, yerr, 96,
+                              dtype=dtype, device=cuda_device)
+    assert streams[0].shape[-1] == 11
+    errs = compare_solver_kernels(*streams)
+    rtol = 1e-10 if dtype == torch.float64 else SOLVER_F32_RTOL
+    bad = {k: e["outputs"] for k, e in errs.items() if e["max_rel_err"] > rtol}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_thread", [False, True])
+def test_solver_subst_kernel_keeps_compensation(one_thread, cuda_device):
+    """800 float32 steps of positive terms (u = 0, phi = 1, w = 0): the
+    kernel's Kahan sums stay within two float32 ulps of the float64 sums
+    of the same float32 terms, and equal the plain version's."""
+    from celerite_torch.ops import pallas_solver
+
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    steps, p, b = 800, 16, 37
+    y = torch.randn(steps, 1, b, generator=gen, device=cuda_device)
+    d = 1.5 + 7.5 * torch.rand(steps, 1, b, generator=gen,
+                               device=cuda_device)
+    zero = torch.zeros(steps, p, b, device=cuda_device)
+    args = (torch.zeros(p, b, device=cuda_device), zero,
+            torch.ones_like(zero), zero, y, d)
+    quad, logdet, mind = pallas_solver.subst_cuda(*args,
+                                                  one_thread=one_thread)
+    want = pallas_solver.subst_reference(*args)
+    eps = torch.finfo(torch.float32).eps
+    sums = ((y * y / d).double().sum(0)[0], torch.log(d).double().sum(0)[0])
+    for got, ref in zip((quad, logdet), sums):
+        assert float(((got - ref) / ref).abs().max()) <= 2 * eps
+    for got, ref in zip((quad, logdet, mind), want):
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                   rtol=2 * eps)
+
+
+@pytest.mark.cuda
+def test_solver_routes_on_the_card(cuda_device):
+    """The wide route's value closure (P = 16), ``solver="pallas"`` and
+    ``"blocked"`` on the card equal the same closures on the CPU (the plain
+    versions), value and autograd gradient, at N = 3000 with 64-point
+    blocks; the value closure launches each kernel once a call."""
+    from celerite_torch import GP, terms
+    from celerite_torch.ops import pallas_solver
+
+    t, y, yerr = make_data(3000, seed=9, t_max=300.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gp = GP(width_kernel(terms, 16), mean=0.1, fit_mean=True, device=dev)
+        theta = torch.tensor(gp.get_parameter_vector(), device=dev,
+                             requires_grad=True)
+        for solver in ("fused", "pallas", "blocked"):
+            fn = gp.build_loglik(t, y, yerr=yerr, solver=solver,
+                                 block_size=64)
+            before = [getattr(pallas_solver, k + "_cuda").launches
+                      for k in pallas_solver.SOLVER_KERNELS]
+            ll, ok = fn(theta)
+            after = [getattr(pallas_solver, k + "_cuda").launches
+                     for k in pallas_solver.SOLVER_KERNELS]
+            (grad,) = torch.autograd.grad(ll, theta)
+            assert bool(ok)
+            if solver == "fused" and dev == "cuda":
+                assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+            out[dev, solver] = np.concatenate(
+                [[float(ll.detach())], grad.cpu().numpy()])
+    for solver in ("fused", "pallas", "blocked"):
+        want = out["cpu", solver]
+        np.testing.assert_allclose(out["cuda", solver], want, rtol=1e-8,
+                                   atol=1e-8 * float(np.abs(want).max()))

@@ -10,8 +10,13 @@ adjoint route on the CPU (the plain versions of ``ops/adjoint``); its
 ``value_ok_grad`` is held against ``jax.value_and_grad`` of the JAX
 package's ``build_loglik(solver="blocked")`` at tests/test_adjoint.py's
 tolerances (ll 1e-10, gradient rtol 1e-7 / atol 1e-9).  The folded batch
-entry equals one-row calls, the value closure raises, and NUTS runs on
-the route.  The CUDA kernels are held against the plain versions by
+entry equals one-row calls, and NUTS runs on the route.  The value
+closure at widths 13 and 16 (the three-pass kernels' plain versions over
+the value plan) is held against JAX's ``build_loglik`` at 1e-10 and its
+own ``value_ok_grad`` at 1e-12, its autograd gradient (``fast_grad`` True
+and False) against ``value_ok_grad``'s at 1e-8 (norm), and
+``GP.log_likelihood`` / ``grad_log_likelihood`` against the JAX ``GP``'s.
+The CUDA kernels are held against the plain versions by
 tests/test_torch_kernels.py and ``chip_smoke.py``.
 """
 
@@ -147,22 +152,77 @@ def test_batch_entry_equals_single_rows(fit_mean):
         _close(grad[r], g1, rtol=1e-12, atol=1e-12 * float(g1.abs().max()))
 
 
-def test_value_closure_raises_naming_the_next_slice():
-    t, y, yerr = _config2_data(600)
-    _, tgp = _pair()
-    theta = torch.as_tensor(tgp.get_parameter_vector())
-    fn = tgp.build_loglik(t, y, yerr=yerr, solver="fused")
-    with pytest.raises(NotImplementedError, match="queue 2, item 6"):
-        fn(theta)
-    lp = tgp.build_logprob(t, y, yerr=yerr, solver="fused")
-    with pytest.raises(NotImplementedError, match="queue 2, item 6"):
-        lp(theta)
+def _wide_pair(width):
+    """The width-``width`` model in both packages, with an active mean."""
+    jgp = celerite_tpu.GP(wide_kernel(jterms, width), mean=0.1,
+                          fit_mean=True)
+    tgp = GP(wide_kernel(tterms, width), mean=0.1, fit_mean=True,
+             device="cpu")
+    convert.load_parameters(
+        tgp, jgp.get_parameter_names(include_frozen=True),
+        jgp.get_parameter_vector(include_frozen=True), jgp.unfrozen_mask)
+    return jgp, tgp
+
+
+@pytest.mark.parametrize("width", [13, 16])
+def test_value_closure_matches_jax(width):
+    """N = 4096: the value closure (``fused.run_kernel`` over the value
+    plan, the plain three-pass kernels on the CPU) against JAX's
+    ``build_loglik`` (its CPU route is ``blocked``) at 1e-10, and against
+    the closure's own ``value_ok_grad`` at 1e-12; ``build_logprob`` adds
+    the prior to it."""
+    t, y, yerr = _config2_data(4096)
+    jgp, tgp = _wide_pair(width)
+    theta = jgp.get_parameter_vector()
+    ll_j, ok_j = jax.jit(jgp.build_loglik(t, y, yerr=yerr))(
+        jnp.asarray(theta))
+    fn = tgp.build_loglik(t, y, yerr=yerr)
+    assert fn.route == "adjoint" and fn.value_plan is fn.plan
+    ll, ok = fn(torch.as_tensor(theta))
+    assert bool(ok) and bool(ok_j)
+    _close(float(ll), float(ll_j), rtol=1e-10)
+    ll_vog, _, _ = fn.value_ok_grad(torch.as_tensor(theta))
+    _close(float(ll), float(ll_vog), rtol=1e-12)
+    prior = lambda th: -0.5 * torch.sum(th ** 2)  # noqa: E731
+    lp = tgp.build_logprob(t, y, yerr=yerr, log_prior=prior)
+    th = torch.as_tensor(theta)
+    _close(float(lp(th)), float(ll) + float(prior(th)), rtol=1e-14)
+
+
+@pytest.mark.parametrize("width", [13, 16])
+@pytest.mark.parametrize("fast_grad", [False, True])
+def test_value_closure_gradient_equals_value_ok_grad(width, fast_grad):
+    """Under autograd the value closure's backward (the adjoint pipeline
+    with ``fast_grad``, else autograd through ``blocked``) gives
+    ``value_ok_grad``'s gradient at 1e-8 (norm)."""
+    t, y, yerr = _config2_data(4096)
+    _, tgp = _wide_pair(width)
+    fn = tgp.build_loglik(t, y, yerr=yerr, fast_grad=fast_grad)
+    theta = torch.tensor(tgp.get_parameter_vector(), requires_grad=True)
+    ll, ok = fn(theta)
+    (grad,) = torch.autograd.grad(ll, theta)
+    _, _, want = fn.value_ok_grad(theta.detach())
+    assert bool(ok)
+    assert float((grad - want).norm() / want.norm()) <= 1e-8
+
+
+def test_gp_entry_points_on_the_wide_model():
+    """``GP.log_likelihood`` and ``grad_log_likelihood`` of config[2] with
+    three modes at N = 4096 against the JAX ``GP``'s: its
+    ``log_likelihood``, and for the gradient what its
+    ``grad_log_likelihood`` computes (``jax.value_and_grad`` of its
+    ``build_loglik``), jitted."""
+    t, y, yerr = _config2_data(4096, seed=3)
+    jgp, tgp = _pair(fit_mean=True)
+    jgp.compute(t, yerr)
     tgp.compute(t, yerr)
-    assert tgp.build_loglik(t, y, yerr=yerr).route == "seq"
-    big = np.linspace(0.0, 50.0, 4096)
-    tgp.compute(big, 0.3)
-    with pytest.raises(NotImplementedError, match="queue 2, item 6"):
-        tgp.log_likelihood(np.sin(big))
+    _close(tgp.log_likelihood(y), jgp.log_likelihood(y), rtol=1e-10)
+    ll, grad = tgp.grad_log_likelihood(y)
+    fl = jgp.build_loglik(t, y, yerr=yerr)
+    ll_j, grad_j = jax.jit(jax.value_and_grad(lambda x: fl(x)[0]))(
+        jnp.asarray(jgp.get_parameter_vector()))
+    _close(ll, float(ll_j), rtol=1e-10)
+    _close(grad, grad_j, rtol=1e-7, atol=1e-9)
 
 
 def test_nuts_on_the_route_stays_finite():
