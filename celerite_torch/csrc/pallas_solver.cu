@@ -19,12 +19,12 @@
 // Design.  elements and factor carry P x P state (Sh with A and J, or with
 // M): a group of G threads a lane, a row of every state each, as in
 // adjoint.cu (lanes_common.cuh; elements is that file's elements sweep
-// without its saves).  subst carries a P-vector and two Kahan pairs: it
-// runs either on a group of G threads a lane, a row of h each, or on one
-// thread a lane with all of h (more steps of work a thread, fewer threads,
-// each row's stream loads coalesced across lanes); the wrapper picks one
-// by measurement (ops/pallas_solver.py, _SUBST_ONE_THREAD).  Threads of a
-// group past the last lane run lane 0 for the shuffles and write nothing.
+// without its saves).  subst carries a P-vector and two Kahan pairs, on
+// the same groups, a row of h a thread: on one thread a lane with all of h
+// (each row's loads coalesced across lanes, G times fewer threads) it took
+// 1.2-2.7 times as long on every plan chip_smoke.py timed (PERF.md, PR 5).
+// Threads of a group past the last lane run lane 0 for the shuffles and
+// write nothing.
 //
 // Bound.  Bytes, per point: elements reads u, v, ph, a (3P + 1 words),
 // factor those and y and writes d and w (3P + 2 read, P + 1 written),
@@ -106,56 +106,31 @@ solver_factor_kernel(const T* __restrict__ u, const T* __restrict__ v,
 }
 
 // ---------------------------------------------------------------------------
-// subst: forward substitution with Kahan-compensated sums, GS threads a
-// lane (1, or G), thread r holding h's rows r, r + GS, ...
+// subst: forward substitution with Kahan-compensated sums, a row of h a
+// thread.
 // ---------------------------------------------------------------------------
 
-// Sum over the GS consecutive threads of a lane, received by all of them.
-template <int GS, typename T>
-__device__ __forceinline__ T lane_sum(T x) {
-#pragma unroll
-    for (int o = GS / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o, GS);
-    return x;
-}
-
-template <int GS, typename T>
+template <typename T>
 __global__ void __launch_bounds__(BLOCK)
 solver_subst_kernel(const T* __restrict__ u, const T* __restrict__ ph,
                     const T* __restrict__ w, const T* __restrict__ y,
                     const T* __restrict__ d, const T* __restrict__ h0, int L, int B,
                     double* __restrict__ quad_out, double* __restrict__ logdet_out,
                     T* __restrict__ mind_out) {
-    constexpr int R = (P + GS - 1) / GS;  // rows a thread
-    const size_t g = ((size_t)blockIdx.x * BLOCK + threadIdx.x) / GS;
-    const bool live = g < (size_t)B;
-    const int l = live ? (int)g : 0, r = (int)(threadIdx.x % GS);
-    T h[R];
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-        const int j = k * GS + r;
-        h[k] = j < P ? h0[(size_t)j * B + l] : T(0);
-    }
-    // The scalar sums are kept alike in every thread of the lane.
+    const Lane ln = lane_of(B);
+    const int l = ln.l, r = ln.r;
+    T h = r < P ? h0[(size_t)r * B + l] : T(0);
+    // The scalar sums are kept alike in every thread of the group.
     T quad = T(0), cq = T(0), ld = T(0), cl = T(0), mind = T(INFINITY);
     for (int s = 0; s < L; ++s) {
-        const size_t o1 = (size_t)s * B + l;
-        T f[R], part = T(0);
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-            const int j = k * GS + r;
-            f[k] = T(0);
-            if (j < P) {
-                const size_t o = ((size_t)s * P + j) * B + l;
-                f[k] = ph[o] * h[k];
-                part += u[o] * f[k];
-            }
+        const size_t o = ((size_t)s * P + r) * B + l, o1 = (size_t)s * B + l;
+        T f = T(0), uf = T(0);
+        if (r < P) {
+            f = ph[o] * h;
+            uf = u[o] * f;
         }
-        const T z = y[o1] - lane_sum<GS>(part);
-#pragma unroll
-        for (int k = 0; k < R; ++k) {
-            const int j = k * GS + r;
-            if (j < P) h[k] = f[k] + w[((size_t)s * P + j) * B + l] * z;
-        }
+        const T z = y[o1] - group_sum(uf);
+        if (r < P) h = f + w[o] * z;
         const T dd = d[o1];
         const T x1 = z * z / dd - cq;
         const T t1 = quad + x1;
@@ -168,7 +143,7 @@ solver_subst_kernel(const T* __restrict__ u, const T* __restrict__ ph,
         // NaN-propagating min, like torch.minimum.
         mind = (dd < mind || dd != dd) ? dd : mind;
     }
-    if (!live || r != 0) return;
+    if (!ln.live || r != 0) return;
     quad_out[l] = (double)quad + (double)cq;
     logdet_out[l] = (double)ld + (double)cl;
     mind_out[l] = mind;
@@ -203,21 +178,13 @@ solver_subst_kernel(const T* __restrict__ u, const T* __restrict__ ph,
     }                                                                                          \
     int celerite_solver_subst_##SFX(const void* u, const void* ph, const void* w,              \
                                     const void* y, const void* d, const void* h0, void* quad,  \
-                                    void* logdet, void* mind, int L, int B, int one_thread,    \
-                                    void* stream) {                                            \
-        const cudaStream_t st = static_cast<cudaStream_t>(stream);                             \
-        if (one_thread)                                                                        \
-            solver_subst_kernel<1, T><<<grid_for(B, 1), BLOCK, 0, st>>>(                        \
-                static_cast<const T*>(u), static_cast<const T*>(ph), static_cast<const T*>(w), \
-                static_cast<const T*>(y), static_cast<const T*>(d), static_cast<const T*>(h0), \
-                L, B, static_cast<double*>(quad), static_cast<double*>(logdet),                \
-                static_cast<T*>(mind));                                                        \
-        else                                                                                   \
-            solver_subst_kernel<G, T><<<grid_for(B, G), BLOCK, 0, st>>>(                        \
-                static_cast<const T*>(u), static_cast<const T*>(ph), static_cast<const T*>(w), \
-                static_cast<const T*>(y), static_cast<const T*>(d), static_cast<const T*>(h0), \
-                L, B, static_cast<double*>(quad), static_cast<double*>(logdet),                \
-                static_cast<T*>(mind));                                                        \
+                                    void* logdet, void* mind, int L, int B, void* stream) {    \
+        solver_subst_kernel<T>                                                                  \
+            <<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                 \
+            static_cast<const T*>(u), static_cast<const T*>(ph), static_cast<const T*>(w),     \
+            static_cast<const T*>(y), static_cast<const T*>(d), static_cast<const T*>(h0), L,  \
+            B, static_cast<double*>(quad), static_cast<double*>(logdet),                       \
+            static_cast<T*>(mind));                                                            \
         return (int)cudaGetLastError();                                                        \
     }
 

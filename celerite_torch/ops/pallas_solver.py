@@ -60,11 +60,6 @@ _CUDA_LANES = 128
 # chip_smoke.py's lane_sweep_F (PERF.md).  The JAX package's 256 was the
 # TPU's.
 _CUDA_BLOCK = 1024
-# subst on one thread a lane (True) or on a group of G threads a lane,
-# a row of the state each (False): the group was the faster on every plan
-# of chip_smoke.py's solver_kernels phase (0.73 against 1.94 ms on the
-# value plan, P = 16, float64; PERF.md).
-_SUBST_ONE_THREAD = False
 
 
 def default_block_size(device):
@@ -92,8 +87,7 @@ subst_reference = blocked._block_subst
 # The CUDA kernels: ctypes entry points and their wrappers
 # ---------------------------------------------------------------------------
 
-# Pointer arguments of each entry point; every one then takes (L, B), subst
-# also its one_thread flag, and the stream.
+# Pointer arguments of each entry point; every one then takes (L, B, stream).
 _NPTR = {"elements": 7, "factor": 10, "subst": 9}
 
 
@@ -103,18 +97,17 @@ def _kernel_fn(name, p, dtype):
     lib = _build.load("pallas_solver.cu", {"CELERITE_P": p})
     fn = getattr(lib, "celerite_solver_{0}_{1}".format(
         name, "f32" if dtype == torch.float32 else "f64"))
-    nint = 3 if name == "subst" else 2
-    fn.argtypes = [ctypes.c_void_p] * _NPTR[name] + [ctypes.c_int] * nint \
+    fn.argtypes = [ctypes.c_void_p] * _NPTR[name] + [ctypes.c_int] * 2 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name, u, ptrs, *flags):
+def _launch(name, u, ptrs):
     L, p, b = u.shape
     fn = _kernel_fn(name, p, u.dtype)
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    err = fn(*[x.data_ptr() for x in ptrs], L, b, *flags, stream)
+    err = fn(*[x.data_ptr() for x in ptrs], L, b, stream)
     if err != 0:
         raise RuntimeError("pallas_solver {0} kernel launch failed: CUDA "
                            "error {1}".format(name, err))
@@ -144,19 +137,15 @@ def factor_cuda(sh0, u, v, ph, a, y):
     return d, w, M, m
 
 
-def subst_cuda(h0, u, ph, w, y, d, one_thread=None):
-    """:func:`subst_reference` on the card (``csrc/pallas_solver.cu``), on
-    one thread a lane or a group of threads a lane (default
-    ``_SUBST_ONE_THREAD``)."""
+def subst_cuda(h0, u, ph, w, y, d):
+    """:func:`subst_reference` on the card (``csrc/pallas_solver.cu``)."""
     L, p, b = u.shape
     ins = _operands("pallas_solver subst", u, [
         (ph, u.shape), (w, u.shape), (y, (L, 1, b)), (d, (L, 1, b)),
         (h0, (p, b))])
     quad, logdet = (u.new_empty(b, dtype=torch.float64) for _ in range(2))
     mind = u.new_empty(b)
-    if one_thread is None:
-        one_thread = _SUBST_ONE_THREAD
-    _launch("subst", u, ins + [quad, logdet, mind], int(one_thread))
+    _launch("subst", u, ins + [quad, logdet, mind])
     subst_cuda.launches += 1
     return quad, logdet, mind
 

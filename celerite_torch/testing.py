@@ -315,8 +315,7 @@ def compare_adjoint_kernels(u, v, ph, a, y, seg=None):
 def compare_solver_kernels(u, v, ph, a, y):
     """Each three-pass kernel against its plain version on the same streams
     (one segment of B lanes, on the card; the plain versions run there
-    too), subst both on a group of threads a lane and on one thread a lane
-    (``subst_one_thread``).  The factor kernel takes the seeds
+    too).  The factor kernel takes the seeds
     ``fused4.prefix_sh0`` makes from the plain elements, subst the plain
     factor's d and w and the states ``fused4.prefix_h0`` makes from its
     maps.  Every output is compared against its largest reference value.
@@ -332,19 +331,16 @@ def compare_solver_kernels(u, v, ph, a, y):
     d, w, M, m = fac
     h0 = fused4.prefix_h0(M, m, b)
     sub = ps.subst_reference(h0, u, ph, w, y, d)
-    names = ("quad", "logdet", "mind")
     runs = {
         "elements": (("A", "J", "C"), ps.elements_cuda(u, v, ph, a), elems),
         "factor": (("d", "w", "M", "m"), ps.factor_cuda(sh0, u, v, ph, a, y),
                    fac),
-        "subst": (names, ps.subst_cuda(h0, u, ph, w, y, d, one_thread=False),
-                  sub),
-        "subst_one_thread": (names, ps.subst_cuda(h0, u, ph, w, y, d,
-                                                  one_thread=True), sub),
+        "subst": (("quad", "logdet", "mind"),
+                  ps.subst_cuda(h0, u, ph, w, y, d), sub),
     }
     out = {}
-    for name, (names_, got, want) in runs.items():
-        errs = {n: _errors(g, x) for n, g, x in zip(names_, got, want)}
+    for name, (names, got, want) in runs.items():
+        errs = {n: _errors(g, x) for n, g, x in zip(names, got, want)}
         out[name] = {"max_abs_err": max(e[0] for e in errs.values()),
                      "max_rel_err": max(e[1] for e in errs.values()),
                      "outputs": {n: e[1] for n, e in errs.items()}}

@@ -49,8 +49,7 @@ through the entry points a user calls:
   transitions, tree depth 6 in warmup and 8 in sampling;
 - solver_kernels: the three pallas_solver kernels against their plain
   versions at padded widths 2, 8, 13 and 16 on small plans (an odd lane
-  count and a padded tail) and on main path F's own plans, timed there,
-  subst on a group of threads a lane and on one thread a lane;
+  count and a padded tail) and on main path F's own plans, timed there;
 - F: the log-likelihood value of wide models: E's model and data through
   ``build_logprob(...)(theta)`` and ``GP.log_likelihood`` (the value
   closure of the adjoint route, the three-pass kernels over the value
@@ -1569,8 +1568,7 @@ def solver_bound_ms(name, u):
 
 
 def solver_kernel_calls(streams):
-    """{name: (kernel call, plain call)} on the same inputs, for timing;
-    subst in both layouts."""
+    """{name: (kernel call, plain call)} on the same inputs, for timing."""
     u, v, ph, a, y = streams
     b = u.shape[-1]
     sh0 = fused4.prefix_sh0(*pallas_solver.elements_cuda(u, v, ph, a), b)
@@ -1584,12 +1582,6 @@ def solver_kernel_calls(streams):
                    lambda: ps.factor_reference(sh0, u, v, ph, a, y)),
         "subst": (lambda: ps.subst_cuda(h0, u, ph, w, y, d),
                   lambda: ps.subst_reference(h0, u, ph, w, y, d)),
-        "subst_group": (
-            lambda: ps.subst_cuda(h0, u, ph, w, y, d, one_thread=False),
-            None),
-        "subst_one_thread": (
-            lambda: ps.subst_cuda(h0, u, ph, w, y, d, one_thread=True),
-            None),
     }
 
 
@@ -1616,7 +1608,7 @@ def plain_solver_f32_floor(streams64):
 
 def solver_case(solver_errs, tag, streams, limit, floor=None, **info):
     """One solver_kernel_vs_plain case: every output of the three kernels
-    (subst in both layouts) against the plain versions' at ``limit``.
+    against the plain versions' at ``limit``.
     ``solver_errs[name]`` collects each kernel's float64 max abs error."""
     errs = compare_solver_kernels(*streams)
     u = streams[0]
@@ -1629,8 +1621,7 @@ def solver_case(solver_errs, tag, streams, limit, floor=None, **info):
          **({"plain_f32_vs_f64": floor} if floor else {}), **info)
     for name, e in errs.items():
         if f64:
-            solver_errs.setdefault(name.split("_one")[0], []).append(
-                e["max_abs_err"])
+            solver_errs.setdefault(name, []).append(e["max_abs_err"])
         if not e["max_rel_err"] <= limit:
             fail("pallas_solver {0} kernel disagrees with plain: {1} "
                  "{2}".format(name, tag, info))
@@ -1642,10 +1633,9 @@ def time_solver_kernels(streams, plain=True):
     rows = {}
     for name, (kern, plain_fn) in solver_kernel_calls(streams).items():
         row = rows[name] = {"ms": sync_time_ms(kern, reps=10)}
-        if plain and plain_fn is not None:
+        if plain:
             row["plain_ms"] = sync_time_ms(plain_fn, reps=1, warm=0)
-        row["bound_ms"], row["bound_by"] = solver_bound_ms(
-            name.split("_")[0], streams[0])
+        row["bound_ms"], row["bound_by"] = solver_bound_ms(name, streams[0])
     return rows
 
 

@@ -341,9 +341,9 @@ def test_adjoint_route_on_the_card(cuda_device):
 @pytest.mark.parametrize("width", [2, 8, 13, 16])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_solver_kernels_match_plain(width, dtype, cuda_device):
-    """Each of the three pallas_solver kernels (subst on a group of threads
-    a lane and on one thread a lane) equals its plain version on the same
-    streams, every output: 1e-10 in float64, SOLVER_F32_RTOL in float32.
+    """Each of the three pallas_solver kernels equals its plain version on
+    the same streams, every output: 1e-10 in float64, SOLVER_F32_RTOL in
+    float32.
     N = 1000 in blocks of 96 steps: 11 lanes (odd) and a padded tail."""
     from celerite_torch import terms
 
@@ -358,8 +358,7 @@ def test_solver_kernels_match_plain(width, dtype, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("one_thread", [False, True])
-def test_solver_subst_kernel_keeps_compensation(one_thread, cuda_device):
+def test_solver_subst_kernel_keeps_compensation(cuda_device):
     """800 float32 steps of positive terms (u = 0, phi = 1, w = 0): the
     kernel's Kahan sums stay within two float32 ulps of the float64 sums
     of the same float32 terms, and equal the plain version's."""
@@ -373,8 +372,7 @@ def test_solver_subst_kernel_keeps_compensation(one_thread, cuda_device):
     zero = torch.zeros(steps, p, b, device=cuda_device)
     args = (torch.zeros(p, b, device=cuda_device), zero,
             torch.ones_like(zero), zero, y, d)
-    quad, logdet, mind = pallas_solver.subst_cuda(*args,
-                                                  one_thread=one_thread)
+    quad, logdet, mind = pallas_solver.subst_cuda(*args)
     want = pallas_solver.subst_reference(*args)
     eps = torch.finfo(torch.float32).eps
     sums = ((y * y / d).double().sum(0)[0], torch.log(d).double().sum(0)[0])
