@@ -22,7 +22,7 @@
 // without its saves).  subst carries a P-vector and two Kahan pairs, on
 // the same groups, a row of h a thread: on one thread a lane with all of h
 // (each row's loads coalesced across lanes, G times fewer threads) it took
-// 1.2-2.7 times as long on every plan chip_smoke.py timed (PERF.md, PR 5).
+// 1.4-3.1 times as long on every plan chip_smoke.py timed (PERF.md).
 // Threads of a group past the last lane run lane 0 for the shuffles and
 // write nothing.
 //

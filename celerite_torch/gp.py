@@ -363,8 +363,8 @@ class GP(ModelSet):
         "auto".  ``block_size`` sets the plan's lane count B, or L for
         "pallas" and "blocked".  ``dtype`` is the working precision
         (float32 or float64).  ``precision="ds"`` is exact mode, always
-        float64: under the JAX
-        package's gates (module docstring) the forward-mode kernels of
+        float64: under the JAX package's gates (module docstring) the
+        forward-mode kernels of
         ``ops/dsfused`` (``route == "dsfused"``), whose value and gradient
         come from one sweep; otherwise the float64 route, standing in for
         the unported ``dsblocked``.  ``ll`` is differentiable with autograd;
@@ -377,8 +377,8 @@ class GP(ModelSet):
         whatever ``fast_grad`` says, as JAX's does; ``fast_grad="tangent"``
         (the forward-mode kernels) is not ported yet.  A model of padded
         width 13-16 takes the adjoint route (module docstring); wider
-        models take "blocked" at ``solver="auto"`` and raise with
-        "fused", "pallas" or a truthy ``fast_grad``.  ``loglik.route``
+        models take "blocked" at ``solver="auto"`` and raise with "fused",
+        "pallas", or "blocked" with a truthy ``fast_grad``.  ``loglik.route``
         names the route taken: "seq", "fused", "adjoint", "dsfused",
         "pallas" or "blocked".
         """
@@ -440,8 +440,9 @@ class GP(ModelSet):
                 solver = "fused"
         if solver not in ("seq", "fused", "blocked", "pallas"):
             raise ValueError("unknown solver '{0}'".format(solver))
-        if width > adjoint.MAX_WIDTH and (solver in ("fused", "pallas")
-                                          or fast_grad):
+        if width > adjoint.MAX_WIDTH and (
+                solver in ("fused", "pallas")
+                or (solver == "blocked" and fast_grad)):
             raise _not_in_slice(
                 "the kernels above padded width 16 (solver={0!r}, "
                 "fast_grad={1!r} at P = {2})".format(solver, fast_grad,

@@ -315,8 +315,8 @@ def _launch(name, u, ptrs):
 def elements_fwd_cuda(u, v, ph, a):
     """:func:`elements_fwd_reference` on the card (``csrc/adjoint.cu``)."""
     L, p, b = u.shape
-    ins = _operands("adjoint elements_fwd", u, [(v, u.shape), (ph, u.shape),
-                                        (a, (L, 1, b))])
+    ins = _operands("adjoint elements_fwd", u,
+                    [(v, u.shape), (ph, u.shape), (a, (L, 1, b))])
     A, J, C = (u.new_empty(p, p, b) for _ in range(3))
     saves = u.new_empty(L, b, 2 * p * p)
     _launch("elements_fwd", u, ins + [A, J, C, saves])

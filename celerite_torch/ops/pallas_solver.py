@@ -49,17 +49,18 @@ __all__ = ["MAX_WIDTH", "SOLVER_KERNELS", "default_lanes",
 MAX_WIDTH = 16
 SOLVER_KERNELS = ("elements", "factor", "subst")
 
-# Lanes of the wide route's value plan on the card (gp.py).  One theta of
-# config[2] with three oscillation modes (P = 16) at N = 1e5 took 12.8-15.6
-# ms at every count of 64-4096 in chip_smoke.py's lane_sweep_F, bound by
-# the host (PERF.md); 128, within 2% of the fastest, is the adjoint
-# route's count, so the value closure shares its plan.
+# Lanes of the wide route's value plan on the card (gp.py): the fastest
+# count of 64-4096 for one theta of config[2] with three oscillation modes
+# (P = 16) at N = 1e5 in chip_smoke.py's lane_sweep_F, where the call is
+# bound by the host (PERF.md).  It is the adjoint route's count, so the
+# value closure shares that route's plan.
 _CUDA_LANES = 128
 # Steps a block of solver="pallas" on the card: the fastest L of 64-2048
 # for config[2] with three oscillation modes (P = 16) at N = 1e5 in
-# chip_smoke.py's lane_sweep_F (PERF.md).  The JAX package's 256 was the
+# chip_smoke.py's lane_sweep_F (PERF.md; 256-1024 lie within 12% of each
+# other, the call being bound by the host).  The JAX package's 256 was the
 # TPU's.
-_CUDA_BLOCK = 1024
+_CUDA_BLOCK = 512
 
 
 def default_block_size(device):

@@ -1891,8 +1891,10 @@ def lane_sweep_f(gpe, t, y, yerr, thetae, rounds=F_SWEEP_ROUNDS):
     """F's float64 value ms over the value plan's lanes a chain
     (``block_size`` of the adjoint route), over the L of
     ``solver="pallas"`` and over the L of ``solver="blocked"``.  The
-    counts take turns, ``rounds`` rounds of 3 calls each (the blocked
-    solver's 1), and each count's median round is reported."""
+    counts take turns, ``rounds`` rounds of 3 calls each after one warm-up
+    call (the blocked solver's: 1 call, no warm-up; it has nothing to warm
+    and takes seconds at large L), and each count's median round is
+    reported."""
     fns = {("value", nb): gpe.build_loglik(t, y, yerr=yerr, block_size=nb)
            for nb in F_LANES}
     for solver in ("pallas", "blocked"):
@@ -1901,8 +1903,9 @@ def lane_sweep_f(gpe, t, y, yerr, thetae, rounds=F_SWEEP_ROUNDS):
     ms = {k: [] for k in fns}
     for _ in range(rounds):
         for k, fn in fns.items():
-            reps = 1 if k[0] == "blocked" else 3
-            ms[k].append(sync_time_ms(lambda: fn(thetae), reps=reps, warm=1))
+            reps, warm = (1, 0) if k[0] == "blocked" else (3, 1)
+            ms[k].append(sync_time_ms(lambda: fn(thetae), reps=reps,
+                                      warm=warm))
     for (what, count), m in ms.items():
         if what == "value":
             shape = dict(lanes=count, steps_per_lane=-(-len(t) // count))

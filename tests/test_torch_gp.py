@@ -192,7 +192,7 @@ def test_out_of_slice_options_raise():
                     for w in (0.1, 0.5, 0.9, 1.3, 1.7)],
                    tterms.JitterTerm(-1.0)), device="cpu")
     for kw in (dict(solver="fused"), dict(solver="pallas"),
-               dict(fast_grad=True)):
+               dict(solver="blocked", fast_grad=True)):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP queue 2, item 10"):
             wider.build_loglik(t, y, yerr=yerr, **kw)
