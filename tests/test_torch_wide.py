@@ -194,10 +194,13 @@ def test_value_closure_matches_jax(width):
 def test_value_closure_gradient_equals_value_ok_grad(width, fast_grad):
     """Under autograd the value closure's backward (the adjoint pipeline
     with ``fast_grad``, else autograd through ``blocked``) gives
-    ``value_ok_grad``'s gradient at 1e-8 (norm)."""
-    t, y, yerr = _config2_data(4096)
+    ``value_ok_grad``'s gradient at 1e-8 (norm), at N = 1000 on the route
+    (``solver="fused"``)."""
+    t, y, yerr = _config2_data(1000)
     _, tgp = _wide_pair(width)
-    fn = tgp.build_loglik(t, y, yerr=yerr, fast_grad=fast_grad)
+    fn = tgp.build_loglik(t, y, yerr=yerr, solver="fused",
+                          fast_grad=fast_grad)
+    assert fn.route == "adjoint"
     theta = torch.tensor(tgp.get_parameter_vector(), requires_grad=True)
     ll, ok = fn(theta)
     (grad,) = torch.autograd.grad(ll, theta)
