@@ -60,7 +60,6 @@
 // Lane groups of a block, and a group's tile.
 constexpr int LANES = BLOCK / G;
 constexpr int TS = P + 1;          // row stride of a group's tile
-constexpr int NSV1 = 2 * PP + P;   // factor saves a step: Shin, Mprev, mprev
 
 // Row r of a column-major saved matrix at `base`; zeros for r >= P.
 template <typename T>
@@ -244,72 +243,8 @@ adjoint_factor_fwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
                           T* __restrict__ qv_out, double* __restrict__ q0_out,
                           double* __restrict__ ld_out, T* __restrict__ mind_out,
                           T* __restrict__ sv) {
-    const Lane ln = lane_of(B);
-    const int l = ln.l, r = ln.r;
-    // Row r of Sh, M, Qm, entry r of m and qv; the scalar statistics are
-    // kept alike in every thread of the group.
-    T Sh[P], M[P], Qm[P];
-    get_mat(sh0, r, B, l, Sh);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-        M[j] = j == r ? T(1) : T(0);
-        Qm[j] = T(0);
-    }
-    T mr = T(0), qvr = T(0), q0 = T(0), cq0 = T(0), ld = T(0), cld = T(0);
-    T mind = T(INFINITY);
-    for (int s = 0; s < L; ++s) {
-        if (ln.live) {
-            T* svs = sv + ((size_t)s * B + l) * NSV1;
-            save_row(svs, r, Sh);
-            save_row(svs + PP, r, M);
-            if (r < P) svs[2 * PP + r] = mr;
-        }
-        T uv[P], pv[P], w[P], g[P], su, wr;
-        load_vec(u, s, B, l, uv);
-        load_vec(ph, s, B, l, pv);
-        const T vr = r < P ? v[((size_t)s * P + r) * B + l] : T(0);
-        const size_t o = (size_t)s * B + l;
-        const T d = front_row(Sh, uv, pv, vr, a[o], r, Sh, su, wr, w);
-#pragma unroll
-        for (int j = 0; j < P; ++j) Sh[j] = Sh[j] + d * wr * w[j];
-        // M <- Phi M - w g^T with g = (Phi M)^T u.
-        const T phr = pick(pv, r), ur = pick(uv, r);
-#pragma unroll
-        for (int j = 0; j < P; ++j) M[j] = phr * M[j];
-#pragma unroll
-        for (int j = 0; j < P; ++j) g[j] = group_sum(M[j] * ur);
-        const T gr = pick(g, r);
-#pragma unroll
-        for (int j = 0; j < P; ++j) M[j] = M[j] - wr * g[j];
-        // m <- Phi m + w z0 with z0 = y - u . Phi m.
-        const T mh = phr * mr;
-        const T z0 = y[o] - group_sum(ur * mh);
-        mr = mh + wr * z0;
-        // Kahan-compensated quad and log-det.
-        const T x1 = z0 * z0 / d - cq0;
-        const T t1 = q0 + x1;
-        cq0 = (t1 - q0) - x1;
-        q0 = t1;
-        const T x2 = dlog(d) - cld;
-        const T t2 = ld + x2;
-        cld = (t2 - ld) - x2;
-        ld = t2;
-        qvr = qvr + (z0 / d) * gr;
-#pragma unroll
-        for (int j = 0; j < P; ++j) Qm[j] = Qm[j] + gr * (g[j] / d);
-        // NaN-propagating min, like torch.minimum.
-        mind = (d < mind || d != d) ? d : mind;
-    }
-    if (!ln.live || r >= P) return;
-    put_mat(M_out, r, B, l, M);
-    put_mat(Qm_out, r, B, l, Qm);
-    m_out[(size_t)r * B + l] = mr;
-    qv_out[(size_t)r * B + l] = qvr;
-    if (r == 0) {
-        q0_out[l] = (double)q0 + (double)cq0;
-        ld_out[l] = (double)ld + (double)cld;
-        mind_out[l] = mind;
-    }
+    factor_sweep<true>(u, v, ph, a, y, sh0, L, B, M_out, m_out, Qm_out, qv_out, q0_out, ld_out,
+                       mind_out, sv);
 }
 
 // ---------------------------------------------------------------------------

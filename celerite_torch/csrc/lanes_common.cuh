@@ -1,5 +1,5 @@
 // Shared device code of the kernels on pre-lowered (L, P, B) streams
-// (adjoint.cu, pallas_solver.cu), padded widths 1..16.
+// (adjoint.cu, pallas_solver.cu, fused.cu, tangent.cu), padded widths 1..16.
 //
 // A group of G threads (the power of two at or above P; fused4_common.cuh)
 // owns one lane, thread r row r of every P x P state, so a thread holds a
@@ -8,9 +8,10 @@
 // reads the step's stream vectors (u, ph) whole; they are (L, P, B), lane
 // fastest.  Per-lane outputs are (P, P, B) and (P, B).
 //
-// Also the elements sweep both sources run: each lane's Riccati element
+// Also the elements sweep these sources run: each lane's Riccati element
 // (A, J, C) from a zero seed, with per-step saves in adjoint.cu and
-// without in pallas_solver.cu.
+// without in pallas_solver.cu and fused.cu; and the seeded factor sweep,
+// with saves in adjoint.cu and without in fused.cu.
 
 #pragma once
 
@@ -20,6 +21,7 @@
 constexpr int BLOCK = 128;
 static_assert(BLOCK % G == 0, "a block holds whole groups");
 constexpr int NSV0 = 2 * PP;       // elements saves a step: Shin, A_in
+constexpr int NSV1 = 2 * PP + P;   // factor saves a step: Shin, Mprev, mprev
 
 // The lane of this thread's group and its row; threads past the last lane
 // run lane 0 for the group's shuffles and write nothing.
@@ -134,6 +136,90 @@ __device__ __forceinline__ void elements_sweep(const T* __restrict__ u, const T*
     put_mat(A_out, r, B, l, A);
     put_mat(J_out, r, B, l, J);
     put_mat(C_out, r, B, l, Sh);
+}
+
+// Each lane's seeded factor from sh0 (P, P, B), its affine map (M, m) and
+// statistics (Qm, qv, Kahan-summed q0 and log-det, min pivot): the Pallas
+// factor kernels adjoint.py:188 (with SAVE, each step's input [Sh, M, m]
+// to the save stream sv, NSV1 words a lane and step) and, without saves,
+// the phase 1 of fused.py:130 (fused.cu).
+template <bool SAVE, typename T>
+__device__ __forceinline__ void factor_sweep(const T* __restrict__ u, const T* __restrict__ v,
+                                             const T* __restrict__ ph,
+                                             const T* __restrict__ a,
+                                             const T* __restrict__ y,
+                                             const T* __restrict__ sh0, int L, int B,
+                                             T* __restrict__ M_out, T* __restrict__ m_out,
+                                             T* __restrict__ Qm_out, T* __restrict__ qv_out,
+                                             double* __restrict__ q0_out,
+                                             double* __restrict__ ld_out,
+                                             T* __restrict__ mind_out, T* __restrict__ sv) {
+    const Lane ln = lane_of(B);
+    const int l = ln.l, r = ln.r;
+    // Row r of Sh, M, Qm, entry r of m and qv; the scalar statistics are
+    // kept alike in every thread of the group.
+    T Sh[P], M[P], Qm[P];
+    get_mat(sh0, r, B, l, Sh);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        M[j] = j == r ? T(1) : T(0);
+        Qm[j] = T(0);
+    }
+    T mr = T(0), qvr = T(0), q0 = T(0), cq0 = T(0), ld = T(0), cld = T(0);
+    T mind = T(INFINITY);
+    for (int s = 0; s < L; ++s) {
+        if (SAVE && ln.live) {
+            T* svs = sv + ((size_t)s * B + l) * NSV1;
+            save_row(svs, r, Sh);
+            save_row(svs + PP, r, M);
+            if (r < P) svs[2 * PP + r] = mr;
+        }
+        T uv[P], pv[P], w[P], g[P], su, wr;
+        load_vec(u, s, B, l, uv);
+        load_vec(ph, s, B, l, pv);
+        const T vr = r < P ? v[((size_t)s * P + r) * B + l] : T(0);
+        const size_t o = (size_t)s * B + l;
+        const T d = front_row(Sh, uv, pv, vr, a[o], r, Sh, su, wr, w);
+#pragma unroll
+        for (int j = 0; j < P; ++j) Sh[j] = Sh[j] + d * wr * w[j];
+        // M <- Phi M - w g^T with g = (Phi M)^T u.
+        const T phr = pick(pv, r), ur = pick(uv, r);
+#pragma unroll
+        for (int j = 0; j < P; ++j) M[j] = phr * M[j];
+#pragma unroll
+        for (int j = 0; j < P; ++j) g[j] = group_sum(M[j] * ur);
+        const T gr = pick(g, r);
+#pragma unroll
+        for (int j = 0; j < P; ++j) M[j] = M[j] - wr * g[j];
+        // m <- Phi m + w z0 with z0 = y - u . Phi m.
+        const T mh = phr * mr;
+        const T z0 = y[o] - group_sum(ur * mh);
+        mr = mh + wr * z0;
+        // Kahan-compensated quad and log-det.
+        const T x1 = z0 * z0 / d - cq0;
+        const T t1 = q0 + x1;
+        cq0 = (t1 - q0) - x1;
+        q0 = t1;
+        const T x2 = dlog(d) - cld;
+        const T t2 = ld + x2;
+        cld = (t2 - ld) - x2;
+        ld = t2;
+        qvr = qvr + (z0 / d) * gr;
+#pragma unroll
+        for (int j = 0; j < P; ++j) Qm[j] = Qm[j] + gr * (g[j] / d);
+        // NaN-propagating min, like torch.minimum.
+        mind = (d < mind || d != d) ? d : mind;
+    }
+    if (!ln.live || r >= P) return;
+    put_mat(M_out, r, B, l, M);
+    put_mat(Qm_out, r, B, l, Qm);
+    m_out[(size_t)r * B + l] = mr;
+    qv_out[(size_t)r * B + l] = qvr;
+    if (r == 0) {
+        q0_out[l] = (double)q0 + (double)cq0;
+        ld_out[l] = (double)ld + (double)cld;
+        mind_out[l] = mind;
+    }
 }
 
 // Blocks of BLOCK threads for B lanes of gs threads each.

@@ -31,13 +31,27 @@ value plan whose lane count is its own).  Under autograd the value's
 backward is the adjoint pipeline with ``fast_grad``, else autograd through
 ``ops/blocked`` (celerite_tpu/gp.py:869-899).
 
+``fast_grad="tangent"`` at ``solver="auto"`` or ``"fused"`` and padded
+width 1-16 takes the tangent route (celerite_tpu/gp.py:812-923, fused4
+skipped as gp.py:571 skips it): ``lanes.lower_lanes`` over one lane plan,
+the value closure through ``fused.run_kernel`` (the single-sweep kernel
+at width 8 or less, the three-pass kernels above), and the gradient in
+forward mode along the parameters' basis directions through
+``ops/tangent`` (the single-sweep kernel with tangents at width 8 or
+less, the split pair above), for the value closure's backward and the two
+value-and-gradient entries.  On the CPU every route runs the kernels'
+plain versions (the JAX package's CPU backward goes through ``blocked``).
+
 ``solver="pallas"`` and ``"blocked"`` are closures over ``lower(...)``:
 the three-pass kernels (``pallas_solver.gp_log_likelihood``, whose
 autograd backward runs through ``blocked``) and the plain block-parallel
 solver; with ``fast_grad`` their backward is the adjoint pipeline
-(celerite_tpu/gp.py:926-999).  ``solver="auto"`` takes ``blocked`` above
-padded width 16 (gp.py:515-524), where the kernels stop (ROADMAP queue 2,
-item 10).
+(celerite_tpu/gp.py:926-999), with ``fast_grad="tangent"`` (and so for
+``"seq"``) ``tangent.gp_log_likelihood_jac`` on ``block_size`` lanes, as
+the JAX package passes it (gp.py:940-973).  ``solver="auto"`` takes
+``blocked`` above padded width 16 (gp.py:515-524), where the kernels stop
+(ROADMAP queue 2, item 10): there ``"fused"``, ``"pallas"``, a truthy
+``fast_grad`` with ``"blocked"`` and ``fast_grad="tangent"`` raise.
 
 Exact mode, ``precision="ds"``, is routed as the JAX package routes it
 (celerite_tpu/gp.py:410-433): a kernel of padded width 1-8 with a frozen
@@ -55,9 +69,10 @@ import math
 import numpy as np
 import torch
 
+from . import ops
 from .modeling import ConstantModel, ModelSet
 from .ops import (adjoint, blocked, dsfused, fused, fused4, lanes, lanes4,
-                  pallas_solver, seq)
+                  pallas_solver, seq, tangent)
 from .ops.lower import Coefficients, lower
 
 __all__ = ["GP", "LinAlgError"]
@@ -107,6 +122,18 @@ def _fold_cap_ds(lanes, p, c, device):
     glue's temporaries, taken as eight times that.
     """
     return _chains_within(8 * lanes * (1 + c) * (6 * p * p + 2 * p + 3) * 8,
+                          device)
+
+
+def _fold_cap_tangent(n, p, dim, dtype, device):
+    """Chains per folded call of the tangent route.
+
+    No saves: a chain holds its ``(3 P + 2)``-word streams a point and
+    their ``dim`` tangents, and the lowering's vmapped temporaries, taken
+    as four times that.
+    """
+    item = torch.finfo(dtype).bits // 8
+    return _chains_within(4 * max(n, 1) * (3 * p + 2) * (dim + 1) * item,
                           device)
 
 
@@ -226,6 +253,32 @@ def _autograd_grad(ll_fn):
     return grad
 
 
+def _lane_inputs(split_theta, mean_fn, mean_active, t64, dtype):
+    """``(th, plan) -> (u, v, ph, a, y)`` of a lane plan for the ``(n_chain,
+    dim)`` rows ``th``, one a chain: ``lanes.lower_lanes`` of the vmapped
+    coefficients and, with an active mean, each chain's residual (with a
+    frozen mean the plan's data is the residual)."""
+
+    def coeffs_of(theta):
+        return tuple(split_theta(theta)[0])
+
+    def mean_of(theta):
+        return mean_fn(split_theta(theta)[1], t64)
+
+    def lane_inputs(th, plan):
+        coeffs = torch.func.vmap(coeffs_of)(th)
+        u, v, ph, a = lanes.lower_lanes(coeffs, plan)
+        y = plan.y
+        if mean_active:
+            mvals = torch.func.vmap(mean_of)(th).to(dtype)
+            y = y - plan.mask * lanes4.fold_lanes(
+                mvals, plan.t.shape[-1] // plan.n_chain,
+                plan.t.shape[0])[:, None]
+        return u, v, ph, a, y
+
+    return lane_inputs
+
+
 def _mean_value_fn(mean_model):
     """A torch (params, x) -> value function for a mean model.
 
@@ -283,10 +336,12 @@ class GP(ModelSet):
     # -- compute / log_likelihood ------------------------------------------
     def compute(self, t, yerr=1.123e-12, check_sorted=True, A=None, U=None,
                 V=None):
-        """Store the coordinates and per-point variances.
+        """Store the coordinates and per-point variances, lower the kernel
+        at the current parameters on the GP's device and factor it
+        (celerite_tpu/gp.py:134-171).
 
-        Raises ValueError for unsorted input.  The factorization runs in
-        :meth:`log_likelihood`.
+        Raises ValueError for unsorted input and LinAlgError when the
+        covariance matrix does not factor (not positive definite).
         """
         if any(x is not None and np.size(x) > 0 for x in (A, U, V)):
             raise _not_in_slice("general (A, U, V) blocks",
@@ -298,6 +353,29 @@ class GP(ModelSet):
             raise ValueError("dimension mismatch")
         self._t = t
         self._diag = np.broadcast_to(np.asarray(yerr, float) ** 2, t.shape)
+        self._factor()
+
+    def _factor(self):
+        """Factor the covariance matrix at the current parameters in
+        float64: ``ops.best_ll`` (the sequential solver below 4096 points;
+        above, on the card, the single-sweep kernel at padded width 8 or
+        less and the three-pass kernels up to 16) on a zero residual.
+        Raises LinAlgError when a pivot is not positive."""
+        device = lanes4.resolve_device(self.device)
+        kp = torch.as_tensor(self.parameter_vector)[:self.kernel.full_size]
+        coeffs = Coefficients(*self.kernel.get_padded_coefficients(kp),
+                              jitter=self.kernel.get_jitter(kp))
+        t = torch.as_tensor(self._t, dtype=torch.float64, device=device)
+        diag = torch.as_tensor(np.array(self._diag), dtype=torch.float64,
+                               device=device)
+        ssm = lower(Coefficients(*(torch.as_tensor(c).to(t) for c in coeffs)),
+                    t, diag)
+        if ssm.U.shape[1] == 0:
+            ll, _ = seq.gp_log_likelihood(ssm, torch.zeros_like(t))
+        else:
+            ll = ops.best_ll(ssm, torch.zeros_like(t))
+        if not bool(torch.isfinite(ll)):
+            raise LinAlgError("failed to factorize or solve matrix")
 
     def log_likelihood(self, y, quiet=False):
         """Marginal GP log-likelihood of ``y`` (requires compute first).
@@ -374,17 +452,17 @@ class GP(ModelSet):
         exact-mode route's backward multiplies by its forward-mode gradient.
         The fused and exact-mode closures carry ``value_ok_grad`` and
         ``value_ok_grad_batch`` (module docstring), the tuned route,
-        whatever ``fast_grad`` says, as JAX's does; ``fast_grad="tangent"``
-        (the forward-mode kernels) is not ported yet.  A model of padded
-        width 13-16 takes the adjoint route (module docstring); wider
-        models take "blocked" at ``solver="auto"`` and raise with "fused",
-        "pallas", or "blocked" with a truthy ``fast_grad``.  ``loglik.route``
-        names the route taken: "seq", "fused", "adjoint", "dsfused",
-        "pallas" or "blocked".
+        whatever ``fast_grad`` says, as JAX's does, except that
+        ``fast_grad="tangent"`` at "fused" (or "auto") takes the
+        forward-mode route of ``ops/tangent`` at padded widths 1-16, and
+        makes the backward of "seq", "pallas" and "blocked" forward mode
+        (module docstring).  A model of padded width 13-16 takes the
+        adjoint route (module docstring); wider models take "blocked" at
+        ``solver="auto"`` and raise with "fused", "pallas", "blocked" with a
+        truthy ``fast_grad``, or ``fast_grad="tangent"``.  ``loglik.route``
+        names the route taken: "seq", "fused", "adjoint", "tangent",
+        "dsfused", "pallas" or "blocked".
         """
-        if fast_grad == "tangent":
-            raise _not_in_slice("fast_grad='tangent' (the forward-mode "
-                                "kernels)", "queue 2, item 8")
         if precision not in (None, "ds"):
             raise ValueError(
                 "precision must be None or 'ds', got {0!r}".format(precision)
@@ -441,7 +519,7 @@ class GP(ModelSet):
         if solver not in ("seq", "fused", "blocked", "pallas"):
             raise ValueError("unknown solver '{0}'".format(solver))
         if width > adjoint.MAX_WIDTH and (
-                solver in ("fused", "pallas")
+                solver in ("fused", "pallas") or fast_grad == "tangent"
                 or (solver == "blocked" and fast_grad)):
             raise _not_in_slice(
                 "the kernels above padded width 16 (solver={0!r}, "
@@ -473,38 +551,19 @@ class GP(ModelSet):
             return (lower(coeffs, t_dev, diag_dev, **lower_kw),
                     y_dev - mean_fn(mp, t_dev))
 
+        if solver == "fused" and fast_grad == "tangent":
+            return self._build_loglik_tangent(
+                t_np, y_np, diag_np, split_theta, fixed, nk, mean_fn,
+                mean_active, width, block_size, dtype, device)
         if solver == "fused" and width > fused4.MAX_WIDTH:
             return self._build_loglik_adjoint(
                 t_np, y_np, diag_np, split_theta, ssm_resid, fixed, nk,
                 mean_fn, mean_active, width, block_size, fast_grad, dtype,
                 device)
 
-        if solver == "seq":
-            def loglik(theta):
-                return seq.gp_log_likelihood(*ssm_resid(theta))
-
-            loglik.route = "seq"
-            return loglik
-
-        if solver in ("blocked", "pallas"):
-            module = blocked if solver == "blocked" else pallas_solver
-
-            def value(theta):
-                return module.gp_log_likelihood(*ssm_resid(theta),
-                                                block_size=block_size)
-
-            loglik = value
-            if fast_grad:
-                # The adjoint backward (celerite_tpu/gp.py:974-999); JAX
-                # passes block_size to it as the lane count too.
-                adjoint_grad = _autograd_grad(
-                    lambda th: adjoint.gp_log_likelihood(
-                        *ssm_resid(th), num_blocks=block_size))
-
-                def loglik(theta):
-                    return _KernelValue.apply(theta, value, adjoint_grad)
-            loglik.route = solver
-            return loglik
+        if solver in ("seq", "blocked", "pallas"):
+            return self._build_loglik_ssm(solver, ssm_resid, block_size,
+                                          fast_grad)
 
         nb = block_size or lanes4.default_num_blocks4(n, device)
         plan = lanes4.make_plan4(t_np, y_np, diag_np, nb, dtype=dtype,
@@ -563,6 +622,45 @@ class GP(ModelSet):
         loglik.route = "fused"
         return loglik
 
+    @staticmethod
+    def _build_loglik_ssm(solver, ssm_resid, block_size, fast_grad):
+        """The closures over ``ssm_resid(theta) -> (lower(...), resid)``:
+        the sequential solver, the plain block-parallel solver or the
+        three-pass kernels.  Their backward: autograd; with
+        ``fast_grad="tangent"`` the forward-mode pipeline on ``block_size``
+        lanes (celerite_tpu/gp.py:940-973); with another truthy
+        ``fast_grad`` (not "seq") the adjoint pipeline (gp.py:974-999).
+        JAX passes ``block_size`` to both as the lane count."""
+        if solver == "seq":
+            def value(theta):
+                return seq.gp_log_likelihood(*ssm_resid(theta))
+        else:
+            module = blocked if solver == "blocked" else pallas_solver
+
+            def value(theta):
+                return module.gp_log_likelihood(*ssm_resid(theta),
+                                                block_size=block_size)
+
+        if fast_grad == "tangent":
+            def grad(theta):
+                (ssm, resid), (dssm, dresid) = lanes.basis_jvp(ssm_resid,
+                                                               theta)
+                return tangent.gp_log_likelihood_jac(
+                    ssm, resid, dssm, dresid, num_blocks=block_size)[2]
+        elif fast_grad and solver != "seq":
+            grad = _autograd_grad(lambda th: adjoint.gp_log_likelihood(
+                *ssm_resid(th), num_blocks=block_size))
+        else:
+            grad = None
+
+        if grad is None:
+            loglik = value
+        else:
+            def loglik(theta):
+                return _KernelValue.apply(theta, value, grad)
+        loglik.route = solver
+        return loglik
+
     def _build_loglik_adjoint(self, t_np, y_np, diag_np, split_theta,
                               ssm_resid, fixed, nk, mean_fn, mean_active,
                               width, block_size, fast_grad, dtype, device):
@@ -590,25 +688,8 @@ class GP(ModelSet):
             # Frozen mean: the residual is data, folded into the plan.
             y_np = y_np - np.asarray(mean_fn(fixed[nk:].cpu(), t_dev.cpu()),
                                      np.float64)
-
-        def coeffs_of(theta):
-            return tuple(split_theta(theta)[0])
-
-        def mean_of(theta):
-            return mean_fn(split_theta(theta)[1], t_dev)
-
-        def lane_inputs(th, plan):
-            """``(u, v, ph, a, y)`` of ``plan`` for the ``(n_chain, dim)``
-            rows ``th``, one a chain."""
-            coeffs = torch.func.vmap(coeffs_of)(th)
-            u, v, ph, a = lanes.lower_lanes(coeffs, plan)
-            y = plan.y
-            if mean_active:
-                mvals = torch.func.vmap(mean_of)(th).to(dtype)
-                y = y - plan.mask * lanes4.fold_lanes(
-                    mvals, plan.t.shape[-1] // plan.n_chain,
-                    plan.t.shape[0])[:, None]
-            return u, v, ph, a, y
+        lane_inputs = _lane_inputs(split_theta, mean_fn, mean_active, t_dev,
+                                   dtype)
 
         def folded_fn(nc):
             return (lanes.make_plan(t_np, y_np, diag_np, nb, dtype=dtype,
@@ -647,6 +728,69 @@ class GP(ModelSet):
         loglik.value_ok_grad_batch, loglik.value_ok_grad = batch, single
         loglik.plan, loglik.value_plan = plan, vplan
         loglik.route = "adjoint"
+        return loglik
+
+    def _build_loglik_tangent(self, t_np, y_np, diag_np, split_theta, fixed,
+                              nk, mean_fn, mean_active, width, block_size,
+                              dtype, device):
+        """``fast_grad="tangent"`` at ``solver="fused"`` (or "auto"), padded
+        width 1-16 (celerite_tpu/gp.py:812-923, skipping fused4 as
+        gp.py:571 does): one lane plan per dataset and chain count
+        (``tangent.default_jac_blocks`` lanes a chain).
+
+        The value closure runs ``fused.run_kernel`` on the plan (the
+        single-sweep kernel at width 8 or less, the three-pass kernels
+        above); under autograd its backward is the cotangent times
+        ``lanes.gp_log_likelihood_jac``'s gradient (gp.py:869-877).
+        ``value_ok_grad`` is ``lanes.gp_log_likelihood_jac``;
+        ``value_ok_grad_batch`` folds the rows onto the lanes (one segment
+        a chain; JAX's ``vmap`` adds a grid axis instead) with one launch
+        of each kernel a chunk of rows.  On the CPU the kernels' plain
+        versions run (JAX's CPU backward goes through ``blocked``).
+        """
+        n = t_np.shape[0]
+        nb = block_size or tangent.default_jac_blocks(n, device)
+        t_dev = torch.as_tensor(t_np, dtype=torch.float64, device=device)
+        if not mean_active:
+            # Frozen mean: the residual is data, folded into the plan.
+            y_np = y_np - np.asarray(mean_fn(fixed[nk:].cpu(), t_dev.cpu()),
+                                     np.float64)
+        lane_inputs = _lane_inputs(split_theta, mean_fn, mean_active, t_dev,
+                                   dtype)
+        dim = int(np.count_nonzero(self.unfrozen_mask))
+
+        def folded_fn(nc):
+            return (lanes.make_plan(t_np, y_np, diag_np, nb, dtype=dtype,
+                                    n_chain=nc, device=device),)
+
+        def folded_vog(entry, th):
+            """(ll, ok, grad) for a power-of-two batch of rows, one
+            folded launch of each kernel."""
+            (plan,) = entry
+            nc = th.shape[0]
+            ll, ok, grad = lanes.gp_log_likelihood_jac(
+                lambda x: lane_inputs(x, plan), th, n, n_chain=nc)
+            return (ll.reshape(nc), ok.reshape(nc),
+                    grad.reshape(nc, -1).to(th.dtype))
+
+        batch, single, entry = _fold_entries(
+            folded_fn, folded_vog,
+            _fold_cap_tangent(n, width, dim, dtype, device), device)
+        plan = entry(1)[0]
+
+        def value(theta):
+            return fused.run_kernel(*lane_inputs(theta[None], plan), n)
+
+        def grad(theta):
+            return lanes.gp_log_likelihood_jac(
+                lambda th: lane_inputs(th[None], plan), theta, n)[2]
+
+        def loglik(theta):
+            return _KernelValue.apply(theta, value, grad)
+
+        loglik.value_ok_grad_batch, loglik.value_ok_grad = batch, single
+        loglik.plan = plan
+        loglik.route = "tangent"
         return loglik
 
     def _build_loglik_dsfused(self, t_np, y_np, diag_np, split_theta,
@@ -724,10 +868,11 @@ class GP(ModelSet):
         through the log-likelihood's ``value_ok_grad`` entries; where the
         log probability is not finite it is -inf and its gradient 0
         (celerite_tpu/gp.py:1207-1219).  ``fast_grad=False`` attaches
-        neither (samplers then use autograd); ``"tangent"`` is not ported.
-        ``precision="ds"`` takes exact mode (:meth:`build_loglik`); on
-        config[2]-sized data that is the forward-mode kernels, whose
-        entries these two wrap unchanged.
+        neither (samplers then use autograd); ``"tangent"`` takes the
+        forward-mode route (:meth:`build_loglik`).  ``precision="ds"``
+        takes exact mode (:meth:`build_loglik`); on config[2]-sized data
+        that is the forward-mode kernels.  These two wrap either route's
+        entries unchanged.
         """
         ll_fn = self.build_loglik(
             t, y, yerr=yerr, solver=solver, block_size=block_size,

@@ -14,7 +14,10 @@
 - ``dsfused``: exact mode (``precision="ds"``): the forward-mode kernels
   and their plain versions
 - ``lanes`` and ``fused``: the lane plan and lowering of pre-lowered
-  ``(L, P, B)`` streams, and the value on them
+  ``(L, P, B)`` streams, and the value on them: the single-sweep kernel
+  (padded widths up to 8) and its plain version
+- ``tangent``: the value and its forward-mode gradient on those streams
+  (padded widths up to 16): the CUDA kernels and their plain versions
 - ``pallas_solver``: the three-pass primal on those streams (padded
   widths up to 16): the CUDA kernels and their plain versions
 - ``adjoint``: the adjoint pipeline on those streams (padded widths up to
@@ -29,15 +32,16 @@ def best_ll(ssm, resid):
     the tensors' device (celerite_tpu/ops/__init__.py:18-37).
 
     Below 4096 points the sequential solver; on the card
-    ``fused.gp_log_likelihood`` (which raises at padded width 8 or less
-    until the single fused kernel is ported, ROADMAP queue 2 item 7);
-    on the CPU ``blocked.gp_log_likelihood``.  Returns the ll value only
-    (-inf when the factorization fails).
+    ``fused.gp_log_likelihood`` up to padded width 16 (the single-sweep
+    kernel at width 8 or less, the three-pass kernels above) and
+    ``blocked.gp_log_likelihood`` above, where the kernels stop (ROADMAP
+    queue 2, item 10); on the CPU ``blocked.gp_log_likelihood``.  Returns
+    the ll value only (-inf when the factorization fails).
     """
-    n = ssm.U.shape[0]
+    n, p = ssm.U.shape
     if n < 4096:
         ll, _ = seq.gp_log_likelihood(ssm, resid)
-    elif ssm.U.device.type == "cuda":
+    elif ssm.U.device.type == "cuda" and p <= 16:
         ll, _ = fused.gp_log_likelihood(ssm, resid)
     else:
         ll, _ = blocked.gp_log_likelihood(ssm, resid)

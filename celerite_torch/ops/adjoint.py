@@ -160,13 +160,16 @@ def elements_bwd_reference(u, v, ph, a, saves, hA0, hJ0, hC0):
     return hu_out, hv_out, hph_out, ha_out
 
 
-def factor_fwd_reference(sh0, u, v, ph, a, y):
+def factor_fwd_reference(sh0, u, v, ph, a, y, keep_saves=True):
     """Seeded factor, affine map and statistics with saves.
 
     ``sh0`` is each lane's seed ``(P, P, B)``.  Returns ``(M, m, Qm, qv,
     q0, ld, mind, saves)``: ``(P, P, B)``, ``(P, B)``, ``(P, P, B)``,
     ``(P, B)``, float64 ``(B,)`` twice, ``(B,)`` and ``(L, B, 2 P^2 + P)``
-    (``[Shin, Mprev, mprev]`` of every step).
+    (``[Shin, Mprev, mprev]`` of every step).  With ``keep_saves=False``
+    the saves are neither kept nor returned: the phase 1 of the single-sweep
+    value (``fused.kernel_reference``) and, in forward mode, of the
+    tangent kernels (``tangent.factor_jvp_reference``).
     """
     L, p, b = u.shape
     Sh = sh0.to(u.dtype)
@@ -179,7 +182,8 @@ def factor_fwd_reference(sh0, u, v, ph, a, y):
     saves = []
     for i in range(L):
         ui, phi = u[i], ph[i]
-        saves.append(_save(Sh, M, m))
+        if keep_saves:
+            saves.append(_save(Sh, M, m))
         Sh, d, w = _riccati(Sh, ui, v[i], phi, a[i])
         d = d[0]
         PhM = _bi(phi) * M
@@ -199,8 +203,9 @@ def factor_fwd_reference(sh0, u, v, ph, a, y):
         qv = qv + (z0 / d) * g
         Qm = Qm + _bi(g) * _bj(g / d)
         mind = torch.minimum(mind, d)
-    return (M, m, Qm, qv, q0.double() + cq0.double(),
-            ld.double() + cld.double(), mind, torch.stack(saves))
+    out = (M, m, Qm, qv, q0.double() + cq0.double(),
+           ld.double() + cld.double(), mind)
+    return (*out, torch.stack(saves)) if keep_saves else out
 
 
 def factor_bwd_reference(u, v, ph, a, y, saves, hM0, hm0, hQm, hqv, hq0,
@@ -378,12 +383,12 @@ def _by_device(cuda_fn, plain_fn, arg):
     """The kernel for CUDA streams, the plain version for CPU streams;
     ``arg`` is the position of the ``(L, P, B)`` stream ``u``."""
 
-    def fn(*args):
+    def fn(*args, **kwargs):
         kind = args[arg].device.type
         if kind == "cuda":
-            return cuda_fn(*args)
+            return cuda_fn(*args, **kwargs)
         if kind == "cpu":
-            return plain_fn(*args)
+            return plain_fn(*args, **kwargs)
         raise ValueError("unsupported device {0}".format(args[arg].device))
 
     fn.__name__ = cuda_fn.__name__[:-len("_cuda")]

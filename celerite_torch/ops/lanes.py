@@ -1,7 +1,7 @@
 """Lane-layout lowering: the adjoint kernels' (L, P, B) inputs, built
 directly.
 
-Port of ``celerite_tpu/ops/lanes.py:39-152``.  The adjoint pipeline
+Port of ``celerite_tpu/ops/lanes.py:39-185``.  The adjoint pipeline
 (:mod:`celerite_torch.ops.adjoint`) streams pre-lowered ``(L, P, B)``
 arrays, step ``i`` of lane ``l`` at ``[i, :, l]``.  Everything about their
 shape is static per dataset; only the coefficients change between
@@ -9,7 +9,8 @@ evaluations.  So :func:`make_plan` lays out the time grid, the spacings,
 the double-single lo part of the grid, the mask, the variances and the
 data once, on the host in float64, and :func:`lower_lanes` builds
 ``(U, V, phi, A)`` as elementwise broadcasts of the coefficients against
-those arrays: torch ops, differentiated by autograd.
+those arrays: torch ops, differentiated by autograd, or in forward mode
+by :func:`lane_tangents` (the ``fast_grad="tangent"`` route).
 
 Padding contract (``fused._to_lanes`` too): pad rows have dt = 0 (so
 phi = 1 with no masking), U = V = 0 and A = 1, and y = 0 through the
@@ -37,7 +38,8 @@ from . import ds
 from .lanes4 import resolve_device
 from .lower import Coefficients
 
-__all__ = ["LanePlan", "make_plan", "lower_lanes"]
+__all__ = ["LanePlan", "make_plan", "lower_lanes", "basis_jvp",
+           "lane_tangents", "gp_log_likelihood_jac"]
 
 
 class LanePlan(NamedTuple):
@@ -157,3 +159,48 @@ def lower_lanes(coeffs: Coefficients, plan: LanePlan):
     a = plan.mask * (plan.diag + _planes(total[..., None], b)) \
         + (1.0 - plan.mask)
     return u, v, ph, a
+
+
+
+def basis_jvp(fn, theta):
+    """``fn(theta)`` and its jvp along each basis direction of ``theta``'s
+    last axis (for ``(n_chain, T)`` rows, direction ``k`` moves entry ``k``
+    of every row): ``(value, tangents)``, every tangent leaf with a leading
+    T axis.  One vmapped ``torch.func.jvp``, in which the value runs
+    once."""
+    dim = theta.shape[-1]
+    eye = torch.eye(dim, dtype=theta.dtype, device=theta.device)
+    dirs = eye if theta.ndim == 1 else eye[:, None, :].expand(dim,
+                                                              *theta.shape)
+    vals, tans = torch.func.vmap(
+        lambda d: torch.func.jvp(fn, (theta,), (d,)))(dirs)
+    return torch.utils._pytree.tree_map(lambda x: x[0], vals), tans
+
+
+def lane_tangents(make_inputs, theta):
+    """``make_inputs(theta) -> (u, v, ph, a, y)`` in lane layout and their
+    tangents along ``theta``'s basis directions as ``(L, T, P, B)`` /
+    ``(L, T, 1, B)`` streams (:func:`basis_jvp`)."""
+    vals, tans = basis_jvp(make_inputs, theta)
+    return tuple(vals), tuple(x.movedim(0, 1) for x in tans)
+
+
+def gp_log_likelihood_jac(make_inputs, theta, plan_n, n_chain=1,
+                          max_tangents=None):
+    """Value and forward-mode gradient from a lane-layout input function
+    (celerite_tpu/ops/lanes.py:164).
+
+    ``make_inputs(theta) -> (u, v, ph, a, y)`` in lane layout.  The T basis
+    directions of ``theta`` push through it in one vmapped
+    ``torch.func.jvp`` (:func:`lane_tangents`; its value runs once) into
+    the tangent streams of ``tangent.run_jac_kernel``.  ``theta`` is ``(T,)``, or ``(n_chain, T)`` rows of a chain-folded
+    plan, direction ``k`` then moving entry ``k`` of every row (the
+    chains' segments do not mix).  Returns ``(ll, ok, dll)`` as
+    ``run_jac_kernel`` does.
+    """
+    from . import tangent
+
+    streams, tangents = lane_tangents(make_inputs, theta)
+    return tangent.run_jac_kernel(*streams, *tangents, plan_n,
+                                  max_tangents=max_tangents,
+                                  n_chain=n_chain)

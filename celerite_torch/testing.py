@@ -5,7 +5,10 @@ the same inputs can be fed to this package and to the JAX reference
 package.  :func:`compare_grad_kernels`, :func:`compare_ds_kernels`,
 :func:`compare_adjoint_kernels` and :func:`compare_solver_kernels` hold the
 gradient, the exact-mode, the adjoint and the three-pass kernels against
-their plain versions on the card.
+their plain versions on the card; :func:`compare_fused_kernel` and
+:func:`compare_tangent_kernels` the single-sweep kernel and the tangent
+kernels, on the streams :func:`blocked_streams` and
+:func:`lane_tangent_streams` make.
 """
 
 from __future__ import annotations
@@ -17,8 +20,10 @@ import torch
 
 __all__ = ["make_data", "CASES", "pack_values", "pack_values_ds",
            "bench_kernel", "config2_kernel", "wide_kernel", "width_kernel",
-           "blocked_streams", "compare_grad_kernels", "compare_ds_kernels",
-           "compare_adjoint_kernels", "compare_solver_kernels"]
+           "blocked_streams", "lane_tangent_streams", "compare_grad_kernels",
+           "compare_ds_kernels", "compare_adjoint_kernels",
+           "compare_solver_kernels", "compare_fused_kernel",
+           "compare_tangent_kernels"]
 
 # (jr, jc, coefficient values) of the fused primal tests: packed as
 # [a_real, c_real, a_comp, b_comp, c_comp, d_comp]; complex terms keep
@@ -93,11 +98,14 @@ def wide_kernel(terms, width):
 
 
 def width_kernel(terms, width):
-    """A model of padded width 2 (:func:`bench_kernel`), 8
-    (:func:`config2_kernel`), 13 or 16 (:func:`wide_kernel`) or 20
-    (config[2] with four modes)."""
+    """A model of padded width 2 (:func:`bench_kernel`), 5 (a RealTerm plus
+    an SHO term), 8 (:func:`config2_kernel`), 13 or 16
+    (:func:`wide_kernel`) or 20 (config[2] with four modes)."""
     if width == 2:
         return bench_kernel(terms)
+    if width == 5:
+        return (terms.RealTerm(log_a=-0.5, log_c=-1.0)
+                + terms.SHOTerm(log_S0=0.2, log_Q=-0.3, log_omega0=0.2))
     if width in (8, 20):
         return config2_kernel(terms, modes=1 if width == 8 else 4)
     return wide_kernel(terms, width)
@@ -118,6 +126,44 @@ def blocked_streams(kernel, t, y, yerr, L, dtype=torch.float64,
                 torch.as_tensor(np.asarray(yerr, np.float64) ** 2))
     streams = blocked._pad_blocks(ssm, torch.as_tensor(y), L)[:5]
     return tuple(x.to(dtype=dtype, device=device) for x in streams)
+
+
+def lane_tangent_streams(kernel, t, y, yerr, num_blocks, n_chain=1,
+                         dtype=torch.float64, device="cpu", seed=0):
+    """Lane-plan streams of a ``celerite_torch`` kernel and their tangents
+    along the T parameters' basis directions: ``((u, v, ph, a, y), (du,
+    dv, dph, da, dy))``, ``(L, P, B)`` / ``(L, 1, B)`` and ``(L, T, P, B)``
+    / ``(L, T, 1, B)``, lowered in float64 (``lanes.lower_lanes``, one
+    vmapped ``torch.func.jvp``) and then cast.  With ``n_chain > 1`` the
+    plan folds that many chains, each at the parameters plus 0.01 N(0, 1)
+    (numpy, ``seed``; chain 0 unmoved), and direction k moves parameter k
+    of every chain."""
+    from .ops import lanes
+    from .ops.lower import Coefficients
+
+    th0 = np.asarray(kernel.get_parameter_vector(), np.float64)
+    rng = np.random.default_rng(seed)
+    rows = th0[None] + 0.01 * rng.standard_normal((n_chain, th0.size))
+    rows[0] = th0
+    rows = torch.as_tensor(rows)
+    plan = lanes.make_plan(t, y, np.asarray(yerr, np.float64) ** 2,
+                           num_blocks, dtype=torch.float64, n_chain=n_chain,
+                           device="cpu")
+
+    def coeffs_of(x):
+        return tuple(Coefficients(*kernel.get_padded_coefficients(x),
+                                  jitter=kernel.get_jitter(x)))
+
+    def make(th):
+        return (*lanes.lower_lanes(torch.func.vmap(coeffs_of)(th), plan),
+                plan.y)
+
+    streams, tangents = lanes.lane_tangents(make, rows)
+
+    def cast(x):
+        return x.to(dtype=dtype, device=device).contiguous()
+
+    return tuple(map(cast, streams)), tuple(map(cast, tangents))
 
 
 def _errors(got, want, summed=False, seg=None):
@@ -345,3 +391,65 @@ def compare_solver_kernels(u, v, ph, a, y):
                      "max_rel_err": max(e[1] for e in errs.values()),
                      "outputs": {n: e[1] for n, e in errs.items()}}
     return out
+
+
+def _compare(runs):
+    out = {}
+    for name, (names, got, want) in runs.items():
+        errs = {n: _errors(g, x) for n, g, x in zip(names, got, want)}
+        out[name] = {"max_abs_err": max(e[0] for e in errs.values()),
+                     "max_rel_err": max(e[1] for e in errs.values()),
+                     "outputs": {n: e[1] for n, e in errs.items()}}
+    return out
+
+
+def compare_fused_kernel(u, v, ph, a, y, seg=None):
+    """The single-sweep kernel against its plain version on the same
+    streams (on the card; the plain version runs there too), per segment
+    of ``seg`` lanes: ``quad``, ``ld`` and ``mind``, each against its
+    largest reference value.  Returns ``{"fused": {"max_abs_err",
+    "max_rel_err", "outputs": {name: rel}}}``."""
+    from .ops import fused
+
+    return _compare({"fused": (("quad", "ld", "mind"),
+                               fused.kernel_cuda(u, v, ph, a, y, seg),
+                               fused.kernel_reference(u, v, ph, a, y, seg))})
+
+
+def compare_tangent_kernels(streams, tangents, seg=None,
+                            kernels=("elements_jvp", "factor_jvp", "jac")):
+    """The tangent kernels named in ``kernels`` against their plain versions
+    on the same streams and tangents (on the card; the plain versions run
+    there too).  The factor kernel takes the seeds and their tangents that
+    ``dsfused.prefix_sh0_ds`` makes from the plain elements; ``jac`` runs
+    over segments of ``seg`` lanes.  Every output is compared against its
+    largest reference value.  Returns ``{kernel: {"max_abs_err",
+    "max_rel_err", "outputs": {name: rel}}}``."""
+    from .ops import dsfused, tangent
+
+    u, v, ph, a, y = streams
+    du, dv, dph, da, dy = tangents
+    b = u.shape[-1]
+    runs = {}
+    if {"elements_jvp", "factor_jvp"} & set(kernels):
+        el = tangent.elements_jvp_reference(u, v, ph, a, du, dv, dph, da)
+    if "elements_jvp" in kernels:
+        runs["elements_jvp"] = (
+            ("A", "J", "C", "DA", "DJ", "DC"),
+            tangent.elements_jvp_cuda(u, v, ph, a, du, dv, dph, da), el)
+    if "factor_jvp" in kernels:
+        sh = dsfused.prefix_sh0_ds(*(torch.cat([x[None], dx])
+                                     for x, dx in zip(el[:3], el[3:])),
+                                   seg or b)
+        args = (sh[0], sh[1:], u, v, ph, a, y, du, dv, dph, da, dy)
+        runs["factor_jvp"] = (
+            ("M", "m", "Qm", "qv", "q0", "ld", "mind", "DM", "Dm", "DQm",
+             "Dqv", "Dq0", "Dld"),
+            tangent.factor_jvp_cuda(*args),
+            tangent.factor_jvp_reference(*args))
+    if "jac" in kernels:
+        args = (u, v, ph, a, y, du, dv, dph, da, dy)
+        runs["jac"] = (("quad", "ld", "mind", "dquad", "dld"),
+                       tangent.jac_cuda(*args, seg=seg),
+                       tangent.jac_reference(*args, seg=seg))
+    return _compare(runs)

@@ -8,8 +8,10 @@ Usage (from the root of a checkout, on a machine with an NVIDIA H100):
 Builds the fused primal kernel (celerite_torch/csrc/fused4_primal.cu), the
 four gradient kernels (celerite_torch/csrc/fused4_grad.cu), the two
 exact-mode kernels (celerite_torch/csrc/dsfused.cu), the four adjoint
-kernels (celerite_torch/csrc/adjoint.cu) and the three three-pass kernels
-(celerite_torch/csrc/pallas_solver.cu) with nvcc for every padded width it
+kernels (celerite_torch/csrc/adjoint.cu), the three three-pass kernels
+(celerite_torch/csrc/pallas_solver.cu), the single-sweep kernel
+(celerite_torch/csrc/fused.cu) and the three tangent kernels
+(celerite_torch/csrc/tangent.cu) with nvcc for every padded width it
 uses, one nvcc process per library, all at once; holds each kernel against
 its plain PyTorch version on the card; then drives the port's main paths
 through the entry points a user calls:
@@ -24,8 +26,9 @@ through the entry points a user calls:
   N = 1e6, held against autograd through the plain primal in float64, with
   the lane sweeps of the value-and-gradient path;
 - sampler_C: dense-mass HMC on config[2] at N = 1e5 in float64, 16 chains
-  folded: step-size search, 60 warmup transitions (dual averaging, dense
-  inverse mass from the second half), 60 sampling transitions;
+  folded: step-size search, SAMPLER_C_TRANSITIONS warmup transitions (dual
+  averaging, dense inverse mass from the second half) and as many
+  sampling transitions;
 - ds_kernels: the exact-mode kernels against their plain versions at every
   width and on main path D's own plans, timed there, and the sweep of the
   directions a launch (tan_chunk);
@@ -33,8 +36,9 @@ through the entry points a user calls:
   N = 1e5: ``value_and_grad`` (one theta) and ``value_and_grad_batch``
   (16 thetas folded), held against the float64 fused4 route;
 - sampler_D: dense-mass NUTS (``inference.sample_nuts``) in exact mode over
-  16 folded chains, SAMPLER_D_WARMUP warmup and SAMPLER_D_SAMPLES sampling
-  transitions, tree depth 6 in warmup and SAMPLER_D_DEPTH in sampling;
+  SAMPLER_D_CHAINS folded chains, SAMPLER_D_WARMUP warmup and
+  SAMPLER_D_SAMPLES sampling transitions, tree depth 6 in warmup and
+  SAMPLER_D_DEPTH in sampling;
 - adjoint_kernels: the four adjoint kernels against their plain versions at
   padded widths 13 and 16 on a small plan and on main path E's own plans
   (1, 4 and 16 chains), timed there;
@@ -46,7 +50,7 @@ through the entry points a user calls:
   prefix, the sequential solver; with the lanes-a-chain sweep;
 - sampler_E: dense-mass NUTS on E's log probability in float64 over 4
   folded chains, SAMPLER_E_WARMUP warmup and SAMPLER_E_SAMPLES sampling
-  transitions, tree depth 6 in warmup and 8 in sampling;
+  transitions, tree depth 6 in warmup and SAMPLER_E_DEPTH in sampling;
 - solver_kernels: the three pallas_solver kernels against their plain
   versions at padded widths 2, 8, 13 and 16 on small plans (an odd lane
   count and a padded tail) and on main path F's own plans, timed there;
@@ -61,7 +65,20 @@ through the entry points a user calls:
   ``value_ok_grad``, the fused route and the sequential solver on a
   4096-point prefix;
 - lane_sweep_F: the value plan's lanes a chain and the L of
-  ``solver="pallas"`` and ``"blocked"``, the counts in turn over rounds.
+  ``solver="pallas"`` and ``"blocked"``, the counts in turn over rounds;
+- tangent_kernels: the single-sweep kernel (celerite_torch/csrc/fused.cu)
+  and the three tangent kernels (celerite_torch/csrc/tangent.cu) against
+  their plain versions at padded widths 2, 8, 13 and 16 on small plans
+  and on main path G's own plans, timed there;
+- G: ``fast_grad="tangent"``: ``build_logprob(..., fast_grad="tangent")``
+  for config[2] (P = 8) and E's model (P = 16) at N = 1e5, one theta's
+  value, ``value_and_grad`` and ``value_and_grad_batch`` over 16 thetas,
+  float32 and float64, held against the fused4 and adjoint routes; and
+  ``ops.best_ll`` at P = 8 against ``blocked``;
+- lane_sweep_G: the tangent route's lanes a chain;
+- sampler_G: dense-mass NUTS on config[2] through the tangent route over
+  SAMPLER_G_CHAINS folded chains, SAMPLER_G_WARMUP warmup and
+  SAMPLER_G_SAMPLES sampling transitions, tree depth SAMPLER_G_DEPTH.
 
 Each main path resets every kernel's launch counter just before it runs and
 reads the counters just after; a kernel of the path that did not launch
@@ -85,17 +102,20 @@ import numpy as np
 import torch
 
 import celerite_torch
-from celerite_torch import _build, inference, terms
+from celerite_torch import _build, inference, ops, terms
 from celerite_torch.inference import adaptation, diagnostics
-from celerite_torch.ops import (adjoint, blocked, dsfused, fused4, lanes,
-                                lanes4, pallas_solver)
-from celerite_torch.ops.lower import Coefficients
+from celerite_torch.ops import (adjoint, blocked, dsfused, fused, fused4,
+                                lanes, lanes4, pallas_solver, tangent)
+from celerite_torch.ops.lower import Coefficients, lower
 from celerite_torch.testing import (CASES, bench_kernel, blocked_streams,
                                     compare_adjoint_kernels,
-                                    compare_ds_kernels, compare_grad_kernels,
-                                    compare_solver_kernels, config2_kernel,
-                                    make_data, pack_values, pack_values_ds,
-                                    wide_kernel, width_kernel)
+                                    compare_ds_kernels, compare_fused_kernel,
+                                    compare_grad_kernels,
+                                    compare_solver_kernels,
+                                    compare_tangent_kernels, config2_kernel,
+                                    lane_tangent_streams, make_data,
+                                    pack_values, pack_values_ds, wide_kernel,
+                                    width_kernel)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): memory rate and the
 # non-tensor-core float rates.
@@ -140,6 +160,17 @@ ADJ_F32_PATH_RTOL = 3e-3
 SOLVER_F64_RTOL = 1e-10
 SOLVER_F32_RTOL = 1.05e-3
 SOLVER_F32_PATH_RTOL = 7.5e-4
+# The single-sweep kernel and the tangent kernels against their plain
+# versions, every output against its largest reference value: float64, and
+# float32 kernel against float32 plain on the same inputs, ten times each
+# kernel's largest reading on the small plans and main path G's plans
+# (PERF.md).  The float32 plain version's own distance from float64 is
+# reported beside each reading: factor_jvp's dq0 at P = 13 read 1.26e-2
+# against float32 plain's own 1.17e-2, the tangent of a sum whose terms
+# cancel.
+TANGENT_F64_RTOL = 1e-10
+TANGENT_F32_RTOL = {"fused": 9.4e-5, "elements_jvp": 5.1e-4,
+                    "factor_jvp": 0.13, "jac": 1.3e-3}
 # The CUDA kernels of csrc/fused4_primal.cu, csrc/fused4_grad.cu,
 # csrc/dsfused.cu, csrc/adjoint.cu and csrc/pallas_solver.cu, by their
 # names in a profile.
@@ -147,16 +178,27 @@ PORT_KERNELS = ("elem_kernel", "elem_round", "factor_kernel", "affine_round",
                 "assemble") + tuple(k + "_kernel" for k in fused4.GRAD_KERNELS
                                     + dsfused.DS_KERNELS) + tuple(
     "adjoint_" + k + "_kernel" for k in adjoint.ADJOINT_KERNELS) + tuple(
-    "solver_" + k + "_kernel" for k in pallas_solver.SOLVER_KERNELS)
+    "solver_" + k + "_kernel" for k in pallas_solver.SOLVER_KERNELS) + tuple(
+    "fused_" + k + "_kernel" for k in ("elements", "seed", "factor",
+                                       "assemble")) + (
+    "tangent_elements_kernel", "tangent_factor_kernel") + tuple(
+    "jac_" + k + "_kernel" for k in ("elements", "seed", "factor",
+                                     "assemble"))
 SAMPLER_CHAINS = 16
+# sampler_C's warmup and sampling transitions, each (nuts_config2.py's HMC
+# settings; cut from 60 to make room for main path G, PERF.md §4).
+SAMPLER_C_TRANSITIONS = 40
 # Directions a launch swept on main path D's 16-chain plan (C = 17 at
 # config[2]).
 TAN_SWEEP = (1, 2, 4, 8, 17)
-# sampler_D's transitions and sampling tree depth, cut to keep the whole
-# script well inside its 1200 s limit: its sampling trees reach the depth
-# cap (at 8, 255 leapfrogs a transition, half the phase's ~300 s; at 6,
-# 63).  Fewer than 20 warmup transitions leave one dual-averaging update
-# after the metric is set, and 4 draws are the fewest split R-hat takes.
+# sampler_D's chains, transitions and sampling tree depth, cut to keep the
+# whole script well inside its 1200 s limit: its sampling trees reach the
+# depth cap (at 8, 255 leapfrogs a transition, half the phase's ~300 s; at
+# 6, 63), and 16 chains took ~175 s, 8 chains ~100 s, so 4 (PERF.md).
+# Fewer than 20 warmup
+# transitions leave one dual-averaging update after the metric is set, and
+# 4 draws are the fewest split R-hat takes.
+SAMPLER_D_CHAINS = 4
 SAMPLER_D_WARMUP = 20
 SAMPLER_D_SAMPLES = 4
 SAMPLER_D_DEPTH = 6
@@ -169,6 +211,9 @@ E_LANES = (64, 128, 256, 512, 1024)
 SAMPLER_E_CHAINS = 4
 SAMPLER_E_WARMUP = 30
 SAMPLER_E_SAMPLES = 4
+# sampler_E's sampling tree depth: 6, as sampler_D's and sampler_G's (the
+# example's 8 took ~35 s of sampling for 4 transitions, PERF.md §4).
+SAMPLER_E_DEPTH = 6
 # Padded widths of the three-pass kernels this script builds and holds, and
 # main path F's sweeps: the value plan's lanes a chain, the L of
 # solver="pallas" and solver="blocked", the counts in turn over rounds.
@@ -176,6 +221,24 @@ SOLVER_WIDTHS = (2, 8, 13, 16)
 F_LANES = (64, 128, 256, 512, 1024, 2048, 4096)
 F_BLOCKS = (64, 128, 256, 512, 1024, 2048)
 F_SWEEP_ROUNDS = 3
+# Padded widths of the single-sweep kernel and of the tangent kernels this
+# script builds and holds, main path G's lanes a chain swept, and
+# sampler_G's chains and transitions (config[2]'s NUTS settings cut as
+# sampler_D's are, PERF.md).
+FUSED_WIDTHS = (2, 8)
+TANGENT_WIDTHS = (2, 8, 13, 16)
+G_LANES = (32, 64, 128, 256, 512)
+SAMPLER_G_CHAINS = 4
+SAMPLER_G_WARMUP = 20
+SAMPLER_G_SAMPLES = 4
+SAMPLER_G_DEPTH = 6
+# The plan each new kernel's line in the kernels JSON is timed on: where
+# most of its launches run (main path G's value plan, sampler_G's 4-chain
+# plan, G's folded batch of E's model).
+TANGENT_ROW_PLAN = {"fused": "value_plan_B_float64",
+                    "jac": "sampler4_B_float64",
+                    "elements_jvp": "batch_E_float64",
+                    "factor_jvp": "batch_E_float64"}
 
 
 T_START = time.perf_counter()
@@ -631,6 +694,9 @@ def reset_counts():
         getattr(adjoint, name + "_cuda").launches = 0
     for name in pallas_solver.SOLVER_KERNELS:
         getattr(pallas_solver, name + "_cuda").launches = 0
+    fused.kernel_cuda.launches = 0
+    for name in tangent.TANGENT_KERNELS:
+        getattr(tangent, name + "_cuda").launches = 0
 
 
 def reference_value_and_grad(gp, plan, theta, prior):
@@ -780,7 +846,8 @@ def fold_sweep_c(t, y, yerr, cf, pr, pc, dev, chains=SAMPLER_CHAINS):
             del plan
 
 
-def sampler_c(lp, theta, dev, warmup=60, samples=60, leapfrog=8):
+def sampler_c(lp, theta, dev, warmup=SAMPLER_C_TRANSITIONS,
+              samples=SAMPLER_C_TRANSITIONS, leapfrog=8):
     """Dense-mass HMC on config[2], 16 folded chains, float64."""
     gen = torch.Generator(device=dev).manual_seed(2026)
     dim = theta.shape[0]
@@ -1915,6 +1982,429 @@ def lane_sweep_f(gpe, t, y, yerr, thetae, rounds=F_SWEEP_ROUNDS):
              rounds=m)
 
 
+# ---------------------------------------------------------------------------
+# The single-sweep value and the tangent kernels: tangent_kernels, main path
+# G, lane_sweep_G, sampler_G
+# ---------------------------------------------------------------------------
+
+TANGENT_REPLACES = {
+    "fused": "celerite_tpu/ops/fused.py:130",
+    "elements_jvp": "celerite_tpu/ops/tangent.py:71",
+    "factor_jvp": "celerite_tpu/ops/tangent.py:138",
+    "jac": "celerite_tpu/ops/tangent.py:591",
+}
+TANGENT_SOURCES = {"fused": "celerite_torch/csrc/fused.cu",
+                   "elements_jvp": "celerite_torch/csrc/tangent.cu",
+                   "factor_jvp": "celerite_torch/csrc/tangent.cu",
+                   "jac": "celerite_torch/csrc/tangent.cu"}
+TANGENT_NAMES = tuple(TANGENT_REPLACES)
+
+
+def tangent_counts():
+    out = {"fused": fused.kernel_cuda.launches}
+    for name in tangent.TANGENT_KERNELS:
+        out[name] = getattr(tangent, name + "_cuda").launches
+    return out
+
+
+def tangent_bound_ms(name, u, T, nseg=1):
+    """Least time for one call of kernel ``name`` on lane streams shaped
+    like ``u`` ``(L, P, B)`` with ``T`` tangent directions and ``nseg``
+    segments: max(bytes / rate, operations / peak).
+
+    Bytes, each input read once and each output written once: the single
+    sweep (fused) reads u, v, ph, a, y (3P + 2 words a point); with
+    tangents every stream's T tangents too ((3P + 1)(1 + T) words a point
+    for the elements, (3P + 2)(1 + T) for the factor and jac), the factor
+    the seeds (P^2 (1 + T) a lane); the elements write (A, J, C) and their
+    tangents (3 P^2 (1 + T) a lane), the factor (M, m, Qm, qv, q0, ld,
+    mind) and theirs ((2 P^2 + 2 P + 3)(1 + T) a lane), fused and jac a
+    few words a segment.  Operations, counted from csrc/tangent.cu and
+    lanes_common.cuh: a sweep's value step is ~15 P^2 a point and each
+    direction's tangent step ~41 P^2 (the value counted once, not once a
+    direction as the kernels run it); the seed scan ~12 P^3 a lane and
+    ~16 P^3 a lane and direction, the assembly ~4 P^2 and ~8 P^2.
+    """
+    L, p, b = u.shape
+    it = u.element_size()
+    pts, pp = L * b, p * p
+    sweep_v, sweep_t = 15 * pp, 41 * pp
+    scans = b * (12 * p ** 3 + 4 * pp + T * (16 * p ** 3 + 8 * pp))
+    words, ops = {
+        "fused": ((3 * p + 2) * pts + 3 * nseg,
+                  2 * sweep_v * pts + b * (12 * p ** 3 + 4 * pp)),
+        "elements_jvp": ((3 * p + 1) * (1 + T) * pts + 3 * pp * (1 + T) * b,
+                         (sweep_v + T * sweep_t) * pts),
+        "factor_jvp": ((3 * p + 2) * (1 + T) * pts
+                       + (3 * pp + 2 * p + 3) * (1 + T) * b,
+                       (sweep_v + T * sweep_t) * pts),
+        "jac": ((3 * p + 2) * (1 + T) * pts + (3 + 2 * T) * nseg,
+                2 * (sweep_v + T * sweep_t) * pts + scans),
+    }[name]
+    t_bytes = words * it / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_FLOPS[u.dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def path_tangent_streams(gp, plan, rows):
+    """Lane streams of ``plan`` for the parameter ``rows`` (one a chain;
+    the kernel's parameters, the mean 0) and their tangents along the
+    parameters' basis directions, as ``lanes.gp_log_likelihood_jac``
+    builds them."""
+    streams, tangents = lanes.lane_tangents(
+        lambda th: lane_streams(gp, plan, th), rows)
+    return (tuple(x.contiguous() for x in streams),
+            tuple(x.contiguous() for x in tangents))
+
+
+def tangent_kernel_calls(streams, tangents, seg, kernels):
+    """{name: (kernel call, plain call)} on the same inputs, for timing."""
+    s, d = streams, tangents
+    calls = {}
+    if "fused" in kernels:
+        calls["fused"] = (lambda: fused.kernel_cuda(*s, seg),
+                          lambda: fused.kernel_reference(*s, seg))
+    if "jac" in kernels:
+        calls["jac"] = (lambda: tangent.jac_cuda(*s, *d, seg=seg),
+                        lambda: tangent.jac_reference(*s, *d, seg=seg))
+    if "elements_jvp" in kernels or "factor_jvp" in kernels:
+        el = tangent.elements_jvp_cuda(*s[:4], *d[:4])
+        sh = dsfused.prefix_sh0_ds(*(torch.cat([x[None], dx]) for x, dx in
+                                     zip(el[:3], el[3:])), seg)
+        fa = (sh[0], sh[1:], *s, *d)
+        calls["elements_jvp"] = (
+            lambda: tangent.elements_jvp_cuda(*s[:4], *d[:4]),
+            lambda: tangent.elements_jvp_reference(*s[:4], *d[:4]))
+        calls["factor_jvp"] = (lambda: tangent.factor_jvp_cuda(*fa),
+                               lambda: tangent.factor_jvp_reference(*fa))
+    return {k: v for k, v in calls.items() if k in kernels}
+
+
+def _plain_outputs(streams, tangents, seg, kernels):
+    """The plain versions' outputs by name, for the float32 floor."""
+    s, d = streams, tangents
+    out = {}
+    if "fused" in kernels:
+        out.update(zip(("fused.quad", "fused.ld", "fused.mind"),
+                       fused.kernel_reference(*s, seg)))
+    if "jac" in kernels:
+        out.update(zip(("jac.quad", "jac.ld", "jac.mind", "jac.dquad",
+                        "jac.dld"), tangent.jac_reference(*s, *d, seg=seg)))
+    if "elements_jvp" in kernels or "factor_jvp" in kernels:
+        el = tangent.elements_jvp_reference(*s[:4], *d[:4])
+        out.update(zip(("elements_jvp." + k for k in
+                        ("A", "J", "C", "DA", "DJ", "DC")), el))
+        sh = dsfused.prefix_sh0_ds(*(torch.cat([x[None], dx]) for x, dx in
+                                     zip(el[:3], el[3:])), seg)
+        out.update(zip(("factor_jvp." + k for k in
+                        ("M", "m", "Qm", "qv", "q0", "ld", "mind", "DM",
+                         "Dm", "DQm", "Dqv", "Dq0", "Dld")),
+                       tangent.factor_jvp_reference(sh[0], sh[1:], *s, *d)))
+    return out
+
+
+def plain_tangent_f32_floor(streams64, tangents64, seg, kernels):
+    """Each plain version in float32 against float64 on the same inputs
+    (the float32 ones rounded from them), every output against its largest
+    float64 value: the rounding floor under a float32 kernel-vs-plain
+    reading."""
+    outs = {dt: _plain_outputs(tuple(x.to(dt) for x in streams64),
+                               tuple(x.to(dt) for x in tangents64 or ()),
+                               seg, kernels)
+            for dt in (torch.float32, torch.float64)}
+    return {k: float((x.double() - outs[torch.float64][k]).abs().max()
+                     / outs[torch.float64][k].abs().max())
+            for k, x in outs[torch.float32].items()}
+
+
+def tangent_case(errs, tag, streams, tangents, seg, kernels, floor=None,
+                 **info):
+    """One tangent_kernel_vs_plain case: every output of ``kernels`` (the
+    tangents None for the single-sweep kernel alone) against the plain
+    versions' at TANGENT_F64_RTOL or, in float32, the kernel's
+    TANGENT_F32_RTOL.  ``errs[name]`` collects each kernel's float64 max
+    abs error."""
+    got = {}
+    if "fused" in kernels:
+        got.update(compare_fused_kernel(*streams, seg=seg))
+    rest = tuple(k for k in kernels if k != "fused")
+    if rest:
+        got.update(compare_tangent_kernels(streams, tangents, seg=seg,
+                                           kernels=rest))
+    u = streams[0]
+    f64 = u.dtype == torch.float64
+    limit = {k: TANGENT_F64_RTOL if f64 else TANGENT_F32_RTOL[k]
+             for k in got}
+    emit("tangent_kernel_vs_plain", case=tag, width=u.shape[1],
+         dtype=str(u.dtype).split(".")[1], limit=limit, lanes=u.shape[-1],
+         segment=seg, steps_per_lane=u.shape[0],
+         directions=tangents[0].shape[1] if tangents else 0,
+         max_rel_err={k: e["max_rel_err"] for k, e in got.items()},
+         outputs={k: e["outputs"] for k, e in got.items()},
+         **({"plain_f32_vs_f64": floor} if floor else {}), **info)
+    for name, e in got.items():
+        if f64:
+            errs.setdefault(name, []).append(e["max_abs_err"])
+        if not e["max_rel_err"] <= limit[name]:
+            fail("{0} kernel disagrees with plain: {1} {2}".format(
+                name, tag, info))
+
+
+def time_tangent_kernels(streams, tangents, seg, kernels, plain=True):
+    """{name: {"ms", "plain_ms", "bound_ms", "bound_by"}}: each kernel by
+    CUDA events over 5 calls, its plain version once."""
+    rows = {}
+    T = tangents[0].shape[1] if tangents else 0
+    nseg = streams[0].shape[-1] // seg
+    for name, (kern, plain_fn) in tangent_kernel_calls(
+            streams, tangents, seg, kernels).items():
+        row = rows[name] = {"ms": sync_time_ms(kern, reps=5)}
+        if plain:
+            row["plain_ms"] = sync_time_ms(plain_fn, reps=1, warm=0)
+        row["bound_ms"], row["bound_by"] = tangent_bound_ms(
+            name, streams[0], T, nseg)
+    return rows
+
+
+def build_logprob_g(gpb, gpe, t, y, yerr, prior):
+    """Main path G's closures: ``build_logprob(..., fast_grad="tangent")``
+    for config[2] (B) and E's model, float32 and float64."""
+    return {(m, dt): g.build_logprob(t, y, yerr=yerr, log_prior=prior,
+                                     dtype=dt, fast_grad="tangent")
+            for m, g in (("B", gpb), ("E", gpe))
+            for dt in (torch.float32, torch.float64)}
+
+
+def check_tangent_kernels(dev, gpb, gpe, lpg, thetab, thetasb, thetae,
+                          thetase, errs):
+    """tangent_kernels: the single-sweep kernel and the three tangent
+    kernels against their plain versions.
+
+    Small plans: N = 2000 on two chains of 16 lanes, the parameters'
+    basis tangents, at padded widths 2, 8 (the single-sweep kernel, the
+    jac kernel and the split pair) and 13, 16 (the split pair), in float64
+    and float32 (tests/test_torch_kernels.py adds width 5).  Then main
+    path G's own plans (their float64 streams, cast for float32), where
+    each kernel and its plain version are timed and the bound computed: the single-sweep kernel on config[2]'s value plan
+    (float64 and float32); the jac kernel on G's 16-chain batch plan
+    (float64 and float32) and on sampler_G's 4-chain plan; the split pair
+    on E's model's folded batch plan (float64) and one-chain plan
+    (float32).  Returns ``{plan: {name: row}}``.
+    """
+    t2, y2, yerr2 = make_data(2000, seed=7, t_max=200.0)
+    for width in TANGENT_WIDTHS:
+        kernels = ("fused", "jac", "elements_jvp", "factor_jvp") \
+            if width <= 8 else ("elements_jvp", "factor_jvp")
+        s64, d64 = lane_tangent_streams(width_kernel(terms, width), t2, y2,
+                                        yerr2, 16, n_chain=2, device=dev)
+        tangent_case(errs, "small", s64, d64, 16, kernels, n=2000)
+        floor = plain_tangent_f32_floor(s64, d64, 16, kernels)
+        tangent_case(errs, "small", tuple(x.float() for x in s64),
+                     tuple(x.float() for x in d64), 16, kernels,
+                     floor=floor, n=2000)
+    rows = {}
+    planb = lpg["B", torch.float64].loglik.plan
+    s64 = lane_streams(gpb, planb, thetab)
+    b = s64[0].shape[-1]
+    for dt in (torch.float64, torch.float32):
+        key = "value_plan_B_" + str(dt).split(".")[1]
+        s = tuple(x.to(dt) for x in s64)
+        f64 = dt == torch.float64
+        floor = None if f64 else plain_tangent_f32_floor(s64, None, b,
+                                                         ("fused",))
+        tangent_case(errs, key, s, None, b, ("fused",), floor=floor,
+                     n=planb.n)
+        rows[key] = time_tangent_kernels(s, None, b, ("fused",), plain=f64)
+        emit("tangent_kernel_time_G", plan=key, n=planb.n, lanes=b,
+             steps_per_lane=s[0].shape[0], kernels=rows[key])
+    cases = [("batch16_B", gpb, lpg["B", torch.float64], thetasb,
+              ("jac",), (torch.float64, torch.float32)),
+             ("sampler4_B", gpb, lpg["B", torch.float64],
+              thetasb[:SAMPLER_G_CHAINS], ("jac",), (torch.float64,)),
+             ("batch_E", gpe, lpg["E", torch.float64], thetase,
+              ("elements_jvp", "factor_jvp"), (torch.float64,)),
+             ("one_E", gpe, lpg["E", torch.float64], thetae[None],
+              ("elements_jvp", "factor_jvp"), (torch.float32,))]
+    for key, gp, lp, rows_th, kernels, dts in cases:
+        vog = lp.loglik.value_ok_grad_batch
+        nc = min(rows_th.shape[0], vog.fold_cap)
+        plan = vog.folded_plan(nc)
+        s64, d64 = path_tangent_streams(gp, plan, rows_th[:nc])
+        seg = s64[0].shape[-1] // nc
+        for dt in dts:
+            s = tuple(x.to(dt) for x in s64)
+            d = tuple(x.to(dt) for x in d64)
+            f64 = dt == torch.float64
+            floor = None if f64 else plain_tangent_f32_floor(s64, d64, seg,
+                                                             kernels)
+            tag = key + "_" + str(dt).split(".")[1]
+            tangent_case(errs, tag, s, d, seg, kernels, floor=floor,
+                         n=plan.n, chains=nc)
+            rows[tag] = time_tangent_kernels(s, d, seg, kernels, plain=f64)
+            emit("tangent_kernel_time_G", plan=tag, n=plan.n, chains=nc,
+                 lanes=s[0].shape[-1], steps_per_lane=s[0].shape[0],
+                 directions=d[0].shape[1], kernels=rows[tag])
+            del s, d
+        del s64, d64
+        torch.cuda.empty_cache()
+    return rows
+
+
+def main_path_g(gpb, gpe, lpg, prior, thetab, thetasb, thetae, thetase, t,
+                y, yerr, dev):
+    """``build_logprob(..., fast_grad="tangent")`` at N = 1e5: config[2]
+    (B's model, P = 8, T = 7) and E's model (P = 16, T = 13), one theta's
+    value, one theta's ``value_and_grad`` and 16 thetas through
+    ``value_and_grad_batch`` (C's rows), float32 and float64.
+
+    Gates: float64 log prob within 1e-10 of the fused4 route (B) and the
+    adjoint route (E) on the same calls, gradients within 1e-8 (norm);
+    float32 within 1e-4 of float64; every kernel of the route launched;
+    ``ops.best_ll`` at P = 8 (the single-sweep kernel) within 1e-10 of
+    ``blocked``.  Returns the launch counts."""
+    rows = {"B": (thetab, thetasb), "E": (thetae, thetase)}
+    reset_counts()
+    out = {}
+    for (m, dt), lp in lpg.items():
+        th, ths = rows[m]
+        out[m, dt] = (lp(th), lp.value_and_grad(th),
+                      lp.value_and_grad_batch(ths))
+    torch.cuda.synchronize()
+    counts = tangent_counts()
+    emit("main_path_G_launches", **counts, pallas_solver=solver_counts(),
+         adjoint=adjoint_counts(),
+         fused4=dict(grad_counts(), primal=fused4.primal_cuda.launches))
+    if min(counts.values()) < 2:
+        fail("main path G did not launch every kernel of the route: "
+             "{0}".format(counts))
+    refs = {"B": gpb.build_logprob(t, y, yerr=yerr, log_prior=prior),
+            "E": gpe.build_logprob(t, y, yerr=yerr, log_prior=prior)}
+    result = {}
+    for m, ref in refs.items():
+        th, ths = rows[m]
+        v_ref, (vg_ref, g_ref), (vb_ref, gb_ref) = (
+            ref(th), ref.value_and_grad(th), ref.value_and_grad_batch(ths))
+        v64, (vg64, g64), (vb64, gb64) = out[m, torch.float64]
+        v32, (vg32, g32), (vb32, gb32) = out[m, torch.float32]
+        result[m] = dict(
+            route=lpg[m, torch.float64].loglik.route,
+            reference_route=ref.loglik.route,
+            logprob_f64=float(v64), logprob_f32=float(v32),
+            logprob_reference_f64=float(v_ref),
+            rel_err_value_f64=max(rel(v64, v_ref), rel(vg64, vg_ref)),
+            rel_err_grad_f64=grad_rel(g64, g_ref),
+            rel_err_batch_value_f64=max(rel(vb64[r], vb_ref[r])
+                                        for r in range(len(ths))),
+            rel_err_batch_grad_f64=max(grad_rel(gb64[r], gb_ref[r])
+                                       for r in range(len(ths))),
+            rel_err_value_f32_vs_f64=max(
+                [rel(v32, v64), rel(vg32, vg64)]
+                + [rel(vb32[r], vb64[r]) for r in range(len(ths))]),
+            rel_err_grad_f32_vs_f64=max(
+                [grad_rel(g32, g64)] + [grad_rel(gb32[r], gb64[r])
+                                        for r in range(len(ths))]))
+        del ref
+    del refs
+    torch.cuda.empty_cache()
+    spread = {}
+    for (m, dt), lp in lpg.items():
+        th, ths = rows[m]
+        key = "{0}_{1}".format(m, str(dt).split(".")[1])
+        spread["value_" + key] = eval_spread_ms(lp, th, batches=5,
+                                                per_batch=5)
+        spread["single_" + key] = eval_spread_ms(lp.value_and_grad, th,
+                                                 batches=5, per_batch=5)
+        spread["batch16_" + key] = eval_spread_ms(
+            lp.value_and_grad_batch, ths, batches=5 if m == "B" else 3,
+            per_batch=3 if m == "B" else 2)
+    for m in ("B", "E"):
+        vog = lpg[m, torch.float64].loglik.value_ok_grad_batch
+        plan = vog.folded_plan(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lpg[m, torch.float64].value_and_grad_batch(rows[m][1])
+        torch.cuda.synchronize()
+        result[m].update(
+            dim=rows[m][0].shape[0], n=plan.n,
+            lanes_per_chain=plan.t.shape[-1], steps_per_lane=plan.t.shape[0],
+            fold_cap=vog.fold_cap,
+            peak_mib_batch16_f64=torch.cuda.max_memory_allocated() / 2**20)
+    # ops.best_ll at P = 8, N = 1e5: the single-sweep kernel on the card.
+    t64 = torch.as_tensor(t, device=dev)
+    kern = gpb.kernel
+    ssm = lower(Coefficients(*kern.get_padded_coefficients(thetab),
+                             jitter=kern.get_jitter(thetab)), t64,
+                torch.as_tensor(yerr, device=dev) ** 2)
+    resid = torch.as_tensor(y, device=dev)
+    before = fused.kernel_cuda.launches
+    best = ops.best_ll(ssm, resid)
+    best_launches = fused.kernel_cuda.launches - before
+    e_best = rel(best, blocked.gp_log_likelihood(ssm, resid)[0])
+    emit("main_path_G", models={"B": "config[2] 2xSHO + jitter (P=8)",
+                                "E": "config[2] 4xSHO + jitter (P=16)"},
+         **result, ms_per_call=spread, best_ll_f64=float(best),
+         rel_err_best_ll_vs_blocked=e_best,
+         best_ll_fused_launches=best_launches)
+    for m, r in result.items():
+        if r["route"] != "tangent":
+            fail("main path G took the {0} route".format(r["route"]))
+        if max(r["rel_err_value_f64"], r["rel_err_batch_value_f64"]) \
+                > F64_RTOL:
+            fail("main path G ({0}): log probability off the {1} "
+                 "route".format(m, r["reference_route"]))
+        if max(r["rel_err_grad_f64"], r["rel_err_batch_grad_f64"]) \
+                > GRAD_AUTOGRAD_RTOL:
+            fail("main path G ({0}): gradient off the {1} route".format(
+                m, r["reference_route"]))
+        if r["rel_err_value_f32_vs_f64"] > F32_RTOL:
+            fail("main path G ({0}): float32 log probability off float64 "
+                 "by {1}".format(m, r["rel_err_value_f32_vs_f64"]))
+    if best_launches != 1 or e_best > F64_RTOL:
+        fail("ops.best_ll at P = 8: {0} launches, {1} off blocked".format(
+            best_launches, e_best))
+    # Profiles, float64; E's value closure is main path F's (profile_F).
+    for m, th, ths in (("B", thetab, thetasb), ("E", thetae, thetase)):
+        lp = lpg[m, torch.float64]
+        if m == "B":
+            emit("profile_G", model=m, dtype="float64", call="value",
+                 **profile_evals(lp, th, evals=3))
+        emit("profile_G", model=m, dtype="float64", call="value_and_grad",
+             **profile_evals(lp.value_and_grad, th, evals=3 if m == "B"
+                             else 2))
+        emit("profile_G", model=m, dtype="float64",
+             call="value_and_grad_batch(16)",
+             **profile_evals(lp.value_and_grad_batch, ths,
+                             evals=2 if m == "B" else 1))
+    return counts
+
+
+def lane_sweep_g(gpb, t, y, yerr, prior, thetab, thetasb, rounds=2):
+    """G's config[2] calls over lanes a chain, float64: one theta's value
+    and value-and-gradient, sampler_G's 4 folded and 16 folded.  The lane
+    counts take turns, ``rounds`` rounds of 3 calls each; each count's
+    median round is reported."""
+    lps = {nb: gpb.build_logprob(t, y, yerr=yerr, log_prior=prior,
+                                 block_size=nb, fast_grad="tangent")
+           for nb in G_LANES}
+    calls = {"value": lambda lp: lp(thetab),
+             "one": lambda lp: lp.value_and_grad(thetab),
+             "batch4": lambda lp: lp.value_and_grad_batch(
+                 thetasb[:SAMPLER_G_CHAINS]),
+             "batch16": lambda lp: lp.value_and_grad_batch(thetasb)}
+    ms = {(nb, k): [] for nb in G_LANES for k in calls}
+    for _ in range(rounds):
+        for nb, lp in lps.items():
+            for k, call in calls.items():
+                ms[nb, k].append(sync_time_ms(lambda: call(lp), reps=3,
+                                              warm=1))
+            torch.cuda.empty_cache()
+    for nb in G_LANES:
+        emit("lane_sweep_G", lanes_per_chain=nb,
+             steps_per_lane=-(-len(t) // nb),
+             **{"ms_" + k: float(np.median(ms[nb, k])) for k in calls},
+             rounds={k: ms[nb, k] for k in calls})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1937,7 +2427,8 @@ def main():
     t0 = time.perf_counter()
     widths = {"fused4_primal.cu": WIDTHS, "fused4_grad.cu": WIDTHS,
               "dsfused.cu": WIDTHS, "adjoint.cu": WIDE_WIDTHS,
-              "pallas_solver.cu": SOLVER_WIDTHS}
+              "pallas_solver.cu": SOLVER_WIDTHS, "fused.cu": FUSED_WIDTHS,
+              "tangent.cu": TANGENT_WIDTHS}
     jobs = [(src, p) for src, ps in widths.items() for p in ps]
     paths = _build.build([(src, {"CELERITE_P": p}) for src, p in jobs])
     ptxas = {}
@@ -2162,7 +2653,8 @@ def main():
                  torch.stack([packed_cf_ds(gp, th) for th in thetas]), pr, pc,
                  dev)
     grew_d = sampler_nuts("sampler_D", lpd, theta, dev, ds_counts,
-                          SAMPLER_CHAINS, SAMPLER_D_WARMUP, SAMPLER_D_SAMPLES,
+                          SAMPLER_D_CHAINS, SAMPLER_D_WARMUP,
+                          SAMPLER_D_SAMPLES,
                           seed=2027, max_tree_depth=SAMPLER_D_DEPTH)
     del lpd, lps
 
@@ -2182,13 +2674,38 @@ def main():
     lane_sweep_e(gpe, t, y, yerr, prior, thetae, thetase)
     grew_e = sampler_nuts("sampler_E", lpe[torch.float64], thetae, dev,
                           adjoint_counts, SAMPLER_E_CHAINS, SAMPLER_E_WARMUP,
-                          SAMPLER_E_SAMPLES, seed=2028)
+                          SAMPLER_E_SAMPLES, seed=2028,
+                          max_tree_depth=SAMPLER_E_DEPTH)
 
     # ---- the value of wide models: solver_kernels, main path F, sweep ----
     solver_errs = {}
     solver_rows = check_solver_kernels(dev, gpe, lpe, thetae, solver_errs)
     counts_f = main_path_f(gpe, lpe, prior, thetae, t, y, yerr)
     lane_sweep_f(gpe, t, y, yerr, thetae)
+    del lpe
+    torch.cuda.empty_cache()
+
+    # ---- fast_grad="tangent": tangent_kernels, main path G, sweep, NUTS ----
+    t_g = time.perf_counter()
+    lpg = build_logprob_g(gp, gpe, t, y, yerr, prior)
+    tangent_errs = {}
+    tangent_rows = check_tangent_kernels(dev, gp, gpe, lpg, theta, thetas,
+                                         thetae, thetase, tangent_errs)
+    emit("tangent_kernels_done", seconds=time.perf_counter() - t_g)
+    t_g = time.perf_counter()
+    counts_g = main_path_g(gp, gpe, lpg, prior, theta, thetas, thetae,
+                           thetase, t, y, yerr, dev)
+    emit("main_path_G_done", seconds=time.perf_counter() - t_g)
+    t_g = time.perf_counter()
+    lane_sweep_g(gp, t, y, yerr, prior, theta, thetas)
+    emit("lane_sweep_G_done", seconds=time.perf_counter() - t_g)
+    t_g = time.perf_counter()
+    grew_g = sampler_nuts("sampler_G", lpg["B", torch.float64], theta, dev,
+                          lambda: {"jac": tangent.jac_cuda.launches},
+                          SAMPLER_G_CHAINS, SAMPLER_G_WARMUP,
+                          SAMPLER_G_SAMPLES, seed=2029,
+                          max_tree_depth=SAMPLER_G_DEPTH)
+    emit("sampler_G_done", seconds=time.perf_counter() - t_g)
 
     kernels = [{
         "name": "fused4_primal",
@@ -2265,6 +2782,23 @@ def main():
             "replaces": SOLVER_REPLACES[name],
             "launches": counts_f[name],
             "max_abs_err": max(solver_errs[name]),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+        })
+    # The single-sweep kernel and the tangent kernels, each at the plan of
+    # most of its launches (TANGENT_ROW_PLAN).
+    for name in TANGENT_NAMES:
+        row = tangent_rows[TANGENT_ROW_PLAN[name]][name]
+        kernels.append({
+            "name": ("" if name == "fused" else "tangent_") + name,
+            "route": "cuda",
+            "source": TANGENT_SOURCES[name],
+            "replaces": TANGENT_REPLACES[name],
+            "launches": counts_g[name] + grew_g.get(name, 0),
+            "max_abs_err": max(tangent_errs[name]),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],

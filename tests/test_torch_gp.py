@@ -147,14 +147,28 @@ def test_log_likelihood_requires_compute():
 
 
 def test_non_pd_quiet_and_raise():
-    bad = tterms.ComplexTerm(log_a=0.0, log_b=1.0, log_c=-1.0, log_d=0.5,
+    """A kernel that is not positive definite: ``compute`` lowers, factors
+    and raises LinAlgError with the JAX package's message on the same
+    input; with ``_t`` and ``_diag`` set by hand (as
+    tests/test_gp.py::test_non_pd_quiet does) ``log_likelihood`` gives -inf
+    with ``quiet=True`` and raises without."""
+    def bad(T):
+        return T.ComplexTerm(log_a=0.0, log_b=1.0, log_c=-1.0, log_d=0.5,
                              quiet=True)
-    gp = GP(bad, device="cpu")
+
     t, y, _ = make_data(200, seed=2)
-    gp.compute(t, 1e-6)
-    assert gp.log_likelihood(y, quiet=True) == -np.inf
+    gp = GP(bad(tterms), device="cpu")
+    with pytest.raises(LinAlgError) as err:
+        gp.compute(t, 1e-6)
+    with pytest.raises(celerite_tpu.LinAlgError) as jerr:
+        celerite_tpu.GP(bad(jterms)).compute(t, 1e-6)
+    assert str(err.value) == str(jerr.value)
+    gp2 = GP(bad(tterms), device="cpu")
+    gp2._t = t
+    gp2._diag = np.full_like(t, 1e-12)
+    assert gp2.log_likelihood(y, quiet=True) == -np.inf
     with pytest.raises(LinAlgError):
-        gp.log_likelihood(y)
+        gp2.log_likelihood(y)
 
 
 def test_no_cuda_raises_instead_of_cpu():
@@ -164,7 +178,9 @@ def test_no_cuda_raises_instead_of_cpu():
     t, y, yerr = make_data(50)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gp.build_loglik(t, y, yerr=yerr)
-    gp.compute(t, yerr)
+    # compute factors on the GP's device.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gp.compute(t, yerr)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         gp.log_likelihood(y)
 
@@ -172,10 +188,6 @@ def test_no_cuda_raises_instead_of_cpu():
 def test_out_of_slice_options_raise():
     gp = GP(bench_kernel(tterms), device="cpu")
     t, y, yerr = make_data(50)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gp.build_loglik(t, y, yerr=yerr, fast_grad="tangent")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gp.build_logprob(t, y, yerr=yerr, fast_grad="tangent")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gp.compute(t, yerr, A=np.ones(50), U=np.ones((1, 50)),
                    V=np.ones((1, 50)))
@@ -264,9 +276,23 @@ def test_auto_above_width_16_is_blocked():
 
 @pytest.mark.parametrize("p", [2, 8])
 def test_run_kernel_raises_at_width_8_or_less(p):
-    """The JAX package's value at padded width 8 or less is its single
-    fused kernel, not ported yet: ``fused.run_kernel`` raises rather than
-    run the three-pass kernels in its place."""
-    streams = [torch.ones(4, p, 3)] * 3 + [torch.ones(4, 1, 3)] * 2
-    with pytest.raises(NotImplementedError, match="queue 2, item 7"):
-        fused.run_kernel(*streams, 12)
+    """At padded width 8 or less ``fused.run_kernel`` runs the single-sweep
+    kernel (its plain version on CPU streams) instead of raising, and
+    equals the JAX package's ``run_kernel`` (the Pallas kernel in
+    interpret mode) on the same streams at 1e-10: N = 300 on 8 lanes."""
+    from celerite_tpu.ops import fused as jfused
+    from celerite_tpu.ops.lower import Coefficients as JCoefficients
+    from celerite_tpu.ops.lower import lower as jlower
+
+    k = width_kernel(jterms, p)
+    th = jnp.asarray(k.get_parameter_vector())
+    t, y, yerr = make_data(300, seed=11, t_max=30.0)
+    ssm = jlower(JCoefficients(*k.get_padded_coefficients(th),
+                               jitter=k.get_jitter(th)), jnp.asarray(t),
+                 jnp.asarray(yerr**2))
+    streams = jfused._to_lanes(ssm, jnp.asarray(y), 8)[:5]
+    ll_j, ok_j = jfused.run_kernel(*streams, 300, interpret=True)
+    ll, ok = fused.run_kernel(*(torch.tensor(np.asarray(x))
+                                for x in streams), 300)
+    assert bool(ok) and bool(ok_j)
+    np.testing.assert_allclose(float(ll), float(ll_j), rtol=1e-10)

@@ -16,8 +16,11 @@ import torch
 from celerite_torch.ops import fused4, lanes4
 from celerite_torch.testing import (CASES, blocked_streams,
                                     compare_adjoint_kernels,
+                                    compare_fused_kernel,
                                     compare_grad_kernels,
-                                    compare_solver_kernels, make_data,
+                                    compare_solver_kernels,
+                                    compare_tangent_kernels,
+                                    lane_tangent_streams, make_data,
                                     pack_values, width_kernel)
 
 # The float32 gradient kernels against their float32 plain versions on the
@@ -27,6 +30,12 @@ GRAD_F32_RTOL = 4e-5
 ADJ_F32_RTOL = 7e-4
 # The same for the three-pass kernels on chip_smoke.py's small plans.
 SOLVER_F32_RTOL = 1.05e-3
+# The same for the single-sweep kernel and the tangent kernels, per kernel
+# (factor_jvp's dq0 at P = 13 read 1.26e-2, float32 plain itself 1.17e-2
+# from float64 there).
+FUSED_F32_RTOL = 9.4e-5
+TANGENT_F32_RTOL = {"elements_jvp": 5.1e-4, "factor_jvp": 0.13,
+                    "jac": 1.3e-3}
 
 
 @pytest.fixture
@@ -416,3 +425,119 @@ def test_solver_routes_on_the_card(cuda_device):
         want = out["cpu", solver]
         np.testing.assert_allclose(out["cuda", solver], want, rtol=1e-8,
                                    atol=1e-8 * float(np.abs(want).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_kernel_matches_plain(width, dtype, cuda_device):
+    """The single-sweep kernel equals its plain version on the same
+    streams, quad, ld and mind: 1e-10 in float64, FUSED_F32_RTOL in
+    float32.  N = 4099 in blocks of 96 steps (43 lanes, a padded tail),
+    one segment; and 4 segments of 16 lanes of N = 2048 points."""
+    from celerite_torch import terms
+    from celerite_torch.ops import fused
+
+    rtol = 1e-10 if dtype == torch.float64 else FUSED_F32_RTOL
+    t, y, yerr = make_data(4099, seed=7, t_max=400.0)
+    streams = blocked_streams(width_kernel(terms, width), t, y, yerr, 96,
+                              dtype=dtype, device=cuda_device)
+    before = fused.kernel_cuda.launches
+    errs = compare_fused_kernel(*streams)["fused"]
+    assert fused.kernel_cuda.launches == before + 1
+    assert errs["max_rel_err"] <= rtol, errs
+    t, y, yerr = make_data(2048, seed=8, t_max=200.0)
+    streams = blocked_streams(width_kernel(terms, width), t, y, yerr, 32,
+                              dtype=dtype, device=cuda_device)
+    assert streams[0].shape[-1] == 64
+    errs = compare_fused_kernel(*streams, seg=16)["fused"]
+    assert errs["max_rel_err"] <= rtol, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 8, 13, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tangent_split_kernels_match_plain(width, dtype, cuda_device):
+    """The split pair with tangents (elements and factor) equals its plain
+    versions on the same streams and basis tangents, every output: 1e-10
+    in float64, TANGENT_F32_RTOL in float32.  Two chains of N = 2000
+    folded onto 2 x 16 lanes."""
+    from celerite_torch import terms
+
+    t, y, yerr = make_data(2000, seed=7, t_max=200.0)
+    s, d = lane_tangent_streams(width_kernel(terms, width), t, y, yerr, 16,
+                                n_chain=2, dtype=dtype, device=cuda_device)
+    errs = compare_tangent_kernels(s, d, seg=16,
+                                   kernels=("elements_jvp", "factor_jvp"))
+    f64 = dtype == torch.float64
+    bad = {k: e["outputs"] for k, e in errs.items() if e["max_rel_err"]
+           > (1e-10 if f64 else TANGENT_F32_RTOL[k])}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 5, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tangent_jac_kernel_matches_plain(width, dtype, cuda_device):
+    """The single-sweep kernel with tangents equals its plain version
+    (the jvp of the single-sweep value) per segment: quad, ld, mind and
+    the tangents of quad and ld, 1e-10 in float64, TANGENT_F32_RTOL in
+    float32.  Two chains of N = 2000 folded onto 2 x 16 lanes."""
+    from celerite_torch import terms
+    from celerite_torch.ops import tangent
+
+    t, y, yerr = make_data(2000, seed=7, t_max=200.0)
+    s, d = lane_tangent_streams(width_kernel(terms, width), t, y, yerr, 16,
+                                n_chain=2, dtype=dtype, device=cuda_device)
+    before = tangent.jac_cuda.launches
+    errs = compare_tangent_kernels(s, d, seg=16, kernels=("jac",))
+    assert tangent.jac_cuda.launches == before + 1
+    rtol = 1e-10 if dtype == torch.float64 else TANGENT_F32_RTOL["jac"]
+    assert errs["jac"]["max_rel_err"] <= rtol, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 16])
+def test_tangent_route_on_the_card(width, cuda_device):
+    """``fast_grad="tangent"`` on the card (the kernels) equals the same
+    entries on the CPU (the plain versions), with an active mean, at N =
+    3000 on 64 lanes a chain: the value, its autograd gradient,
+    ``value_and_grad_batch`` over 3 rows; ``compute`` factors on the card
+    and the kernels of the width launched."""
+    from celerite_torch import GP, terms
+    from celerite_torch.ops import fused, pallas_solver, tangent
+
+    t, y, yerr = make_data(3000, seed=9, t_max=300.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gp = GP(width_kernel(terms, width), mean=0.1, fit_mean=True,
+                device=dev)
+        gp.compute(t, yerr)
+        lp = gp.build_logprob(t, y, yerr=yerr, solver="fused",
+                              block_size=64, fast_grad="tangent")
+        assert lp.loglik.route == "tangent"
+        theta = torch.tensor(gp.get_parameter_vector(), device=dev,
+                             requires_grad=True)
+        rows = theta.detach()[None] + 0.01 * torch.arange(
+            3, device=dev, dtype=theta.dtype)[:, None]
+        counts = [fused.kernel_cuda.launches, tangent.jac_cuda.launches,
+                  tangent.elements_jvp_cuda.launches,
+                  tangent.factor_jvp_cuda.launches,
+                  pallas_solver.elements_cuda.launches]
+        ll, ok = lp.loglik(theta)
+        (grad,) = torch.autograd.grad(ll, theta)
+        vals, grads = lp.value_and_grad_batch(rows)
+        counts = [c1 - c0 for c0, c1 in zip(counts, [
+            fused.kernel_cuda.launches, tangent.jac_cuda.launches,
+            tangent.elements_jvp_cuda.launches,
+            tangent.factor_jvp_cuda.launches,
+            pallas_solver.elements_cuda.launches])]
+        if dev == "cuda":
+            assert counts == ([1, 2, 0, 0, 0] if width <= 8
+                              else [0, 0, 2, 2, 1]), counts
+        assert bool(ok)
+        out[dev] = np.concatenate([[float(ll.detach())], grad.cpu().numpy(),
+                                   vals.cpu().numpy(),
+                                   grads.cpu().numpy().ravel()])
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-8,
+                               atol=1e-8 * float(np.abs(out["cpu"]).max()))
