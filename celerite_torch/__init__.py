@@ -9,20 +9,23 @@ imports neither JAX nor ``celerite_tpu``.
 Entry points compute on ``cuda`` unless given ``device="cpu"``.
 """
 
-from . import modeling, ops, terms
-from .gp import GP, LinAlgError
+from . import modeling, ops, solver, terms
+from .gp import GP
+from .solver import CholeskySolver, LinAlgError
 from .modeling import ConstantModel, Model, ModelSet
 
 __version__ = "0.1.0"
 
 __all__ = [
     "GP",
+    "CholeskySolver",
     "LinAlgError",
     "Model",
     "ModelSet",
     "ConstantModel",
     "modeling",
     "ops",
+    "solver",
     "terms",
     "__version__",
 ]

@@ -33,8 +33,8 @@ FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Extra flags per source.  The gradient, adjoint, three-pass, single-sweep
-# and tangent kernels are compiled without fma contraction so that they
+# Extra flags per source.  The gradient, adjoint, three-pass, single-sweep,
+# tangent and one-pass kernels are compiled without fma contraction so that they
 # round as their plain versions do, which keep every multiply and add
 # separate (and so that the compensated sums hold); the primal keeps the
 # default.
@@ -42,7 +42,8 @@ SOURCE_FLAGS = {"fused4_grad.cu": ("-fmad=false",),
                 "adjoint.cu": ("-fmad=false",),
                 "pallas_solver.cu": ("-fmad=false",),
                 "fused.cu": ("-fmad=false",),
-                "tangent.cu": ("-fmad=false",)}
+                "tangent.cu": ("-fmad=false",),
+                "onepass.cu": ("-fmad=false",)}
 
 _loaded: dict = {}
 

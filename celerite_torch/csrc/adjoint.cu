@@ -32,8 +32,10 @@
 // per-group tile in shared memory, since a register array indexed by
 // another thread's row would spill.  Every thread reads the step's stream
 // vectors (u, ph) whole; they are (L, P, B), lane fastest.  The group
-// helpers and the elements sweep are in lanes_common.cuh, shared with
-// pallas_solver.cu.
+// helpers and the elements and factor sweeps are in lanes_common.cuh,
+// shared with pallas_solver.cu, fused.cu and onepass.cu; the tile, the
+// Riccati step's transpose and the factor sweep's transpose in
+// adjoint_common.cuh, shared with onepass.cu.
 //
 // Saves, (L, B, NSV): step s of lane l holds NSV consecutive words, each
 // saved matrix column-major (word j * P + i is entry (i, j)) and then the
@@ -55,86 +57,7 @@
 //
 // Compiled once per padded width: nvcc -DCELERITE_P=<P> (1 <= P <= 16).
 
-#include "lanes_common.cuh"
-
-// Lane groups of a block, and a group's tile.
-constexpr int LANES = BLOCK / G;
-constexpr int TS = P + 1;          // row stride of a group's tile
-
-// Row r of a column-major saved matrix at `base`; zeros for r >= P.
-template <typename T>
-__device__ __forceinline__ void load_row(const T* __restrict__ base, int r, T (&x)[P]) {
-#pragma unroll
-    for (int j = 0; j < P; ++j) x[j] = r < P ? base[j * P + r] : T(0);
-}
-
-// Row r of x^T (column r of x) through the group's tile; zeros for r >= P.
-template <typename T>
-__device__ __forceinline__ void transpose_row(T* tile, int r, const T (&x)[P], T (&xt)[P]) {
-    if (r < P) {
-#pragma unroll
-        for (int j = 0; j < P; ++j) tile[r * TS + j] = x[j];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < P; ++j) xt[j] = r < P ? tile[j * TS + r] : T(0);
-    __syncwarp();
-}
-
-// Steps 5-1 of both backward sweeps (F5-F1 = E5-E1, fused4._riccati_adjoint),
-// row r: the transposes of Sh_out = S + d w w^T, w = (v - su)/d, d = a -
-// u.su, su = S u and S = Phi Shin Phi.  hSh comes in as the output's
-// cotangent and leaves as Shin's; hw, hd, hu, hph come in with the step's
-// other contributions; writes hv and ha.
-template <typename T>
-__device__ __forceinline__ void riccati_adjoint_row(T* tile, int r, const T (&Shin)[P],
-                                                    const T (&S)[P], T su, T d, T wr,
-                                                    const T (&w)[P], const T (&u)[P],
-                                                    const T (&ph)[P], T (&hSh)[P], T hw, T hd,
-                                                    T& hu, T& hph, T& hv, T& ha) {
-    const T ur = pick(u, r), phr = pick(ph, r);
-    T tmp[P];
-    // F5: Sh_out = S + d w w^T
-    T q = T(0);
-#pragma unroll
-    for (int j = 0; j < P; ++j) q += hSh[j] * wr * w[j];
-    hd = hd + group_sum(q);
-    transpose_row(tile, r, hSh, tmp);
-    T t = T(0);
-#pragma unroll
-    for (int j = 0; j < P; ++j) t += (hSh[j] + tmp[j]) * w[j];
-    hw = hw + d * t;
-    // F4: w = (v - su)/d
-    hv = hw / d;
-    T hsu = -hw / d;
-    hd = hd - group_sum(hw * wr) / d;
-    // F3: d = a - u.su
-    ha = hd;
-    hu = hu - hd * su;
-    hsu = hsu - hd * ur;
-    // F2: su = S u (hu gains column r of S against hsu)
-    transpose_row(tile, r, S, tmp);
-    T hsuv[P];
-    gather(hsu, hsuv);
-    T c = T(0);
-#pragma unroll
-    for (int i = 0; i < P; ++i) c += tmp[i] * hsuv[i];
-    hu = hu + c;
-#pragma unroll
-    for (int j = 0; j < P; ++j) hSh[j] = hSh[j] + hsu * u[j];  // hS
-    // F1: S = Phi Shin Phi
-    T X[P];
-#pragma unroll
-    for (int j = 0; j < P; ++j) X[j] = hSh[j] * Shin[j];
-    transpose_row(tile, r, X, tmp);
-    T e = T(0);
-#pragma unroll
-    for (int j = 0; j < P; ++j) e += (X[j] + tmp[j]) * ph[j];
-    hph = hph + e;
-#pragma unroll
-    for (int j = 0; j < P; ++j) hSh[j] = phr * hSh[j] * ph[j];
-}
-
+#include "adjoint_common.cuh"
 // ---------------------------------------------------------------------------
 // elements_fwd: each lane's Riccati element (A, J, C) with saves.
 // ---------------------------------------------------------------------------
@@ -263,102 +186,8 @@ adjoint_factor_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
                           T* __restrict__ ha_out, T* __restrict__ hy_out,
                           T* __restrict__ hsh0_out) {
     __shared__ T tiles[LANES * P * TS];
-    const Lane ln = lane_of(B);
-    const int l = ln.l, r = ln.r;
-    T* tile = tiles + (threadIdx.x / G) * P * TS;
-    // The statistics' cotangents are constant; hQm enters symmetrised too.
-    T hM[P], hQm[P], hQs[P], hSh[P];
-    get_mat(hM0, r, B, l, hM);
-    get_mat(hQm0, r, B, l, hQm);
-    transpose_row(tile, r, hQm, hQs);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-        hQs[j] = hQm[j] + hQs[j];
-        hSh[j] = T(0);
-    }
-    T hm = r < P ? hm0[(size_t)r * B + l] : T(0);
-    const T hqv = r < P ? hqv0[(size_t)r * B + l] : T(0);
-    const T hq0 = hq00[l], hld = hld0[l];
-
-    for (int s = L - 1; s >= 0; --s) {
-        const T* svs = sv + ((size_t)s * B + l) * NSV1;
-        T Shin[P], Mprev[P], uv[P], pv[P], S[P], w[P], g[P], hg[P], su, wr;
-        load_row(svs, r, Shin);
-        load_row(svs + PP, r, Mprev);
-        const T mprev = r < P ? svs[2 * PP + r] : T(0);
-        load_vec(u, s, B, l, uv);
-        load_vec(ph, s, B, l, pv);
-        const size_t o = ((size_t)s * P + r) * B + l, o1 = (size_t)s * B + l;
-        const T vr = r < P ? v[o] : T(0);
-        const T d = front_row(Shin, uv, pv, vr, a[o1], r, S, su, wr, w);
-        const T phr = pick(pv, r), ur = pick(uv, r);
-#pragma unroll
-        for (int j = 0; j < P; ++j) g[j] = group_sum(phr * Mprev[j] * ur);  // (Phi Mprev)^T u
-        const T gr = pick(g, r);
-        const T mh = phr * mprev;
-        const T z0 = y[o1] - group_sum(ur * mh);
-
-        // E12: the statistics (constant cotangents, one term a step).
-        const T hqv_g = group_sum(hqv * gr);
-        T q = T(0), t = T(0);
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            q += hQm[j] * gr * g[j];
-            t += hQs[j] * g[j];
-        }
-        const T gQg = group_sum(q);
-        T hz0 = hq0 * (T(2) * z0 / d) + hqv_g / d;
-        T hd = -hq0 * z0 * z0 / (d * d) + hld / d - hqv_g * z0 / (d * d) - gQg / (d * d);
-        const T hgr = hqv * (z0 / d) + t / d;
-        // E11: m_out = mh + w z0
-        T hw = hm * z0;
-        hz0 = hz0 + group_sum(hm * wr);
-        // E10: z0 = y - u . mh
-        const T hy = hz0;
-        T hu = -hz0 * mh;
-        const T hmh = hm - hz0 * ur;
-        // E9: mh = ph * mprev
-        T hph = hmh * mprev;
-        hm = hmh * phr;
-        // E8: M_out = PhM - w g^T
-        t = T(0);
-#pragma unroll
-        for (int j = 0; j < P; ++j) t += hM[j] * g[j];
-        hw = hw - t;
-        gather(hgr, hg);
-#pragma unroll
-        for (int k = 0; k < P; ++k) hg[k] = hg[k] - group_sum(hM[k] * wr);
-        // E7: g = PhM^T u
-        t = T(0);
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            t += phr * Mprev[j] * hg[j];
-            hM[j] = hM[j] + ur * hg[j];  // hPhM
-        }
-        hu = hu + t;
-        // E6: PhM = Phi Mprev (row scale)
-        t = T(0);
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            t += hM[j] * Mprev[j];
-            hM[j] = phr * hM[j];
-        }
-        hph = hph + t;
-        // E5-E1: the Riccati step.
-        T hv, ha;
-        riccati_adjoint_row(tile, r, Shin, S, su, d, wr, w, uv, pv, hSh, hw, hd, hu, hph, hv,
-                            ha);
-        if (ln.live && r < P) {
-            hu_out[o] = hu;
-            hv_out[o] = hv;
-            hph_out[o] = hph;
-            if (r == 0) {
-                ha_out[o1] = ha;
-                hy_out[o1] = hy;
-            }
-        }
-    }
-    if (ln.live && r < P) put_mat(hsh0_out, r, B, l, hSh);
+    factor_bwd_sweep(tiles, u, v, ph, a, y, sv, static_cast<const T*>(nullptr), hM0, hm0, hQm0,
+                     hqv0, hq00, hld0, L, B, hu_out, hv_out, hph_out, ha_out, hy_out, hsh0_out);
 }
 
 // ---------------------------------------------------------------------------

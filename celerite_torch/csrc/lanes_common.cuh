@@ -1,5 +1,6 @@
 // Shared device code of the kernels on pre-lowered (L, P, B) streams
-// (adjoint.cu, pallas_solver.cu, fused.cu, tangent.cu), padded widths 1..16.
+// (adjoint.cu, pallas_solver.cu, fused.cu, tangent.cu, onepass.cu), padded
+// widths 1..16.
 //
 // A group of G threads (the power of two at or above P; fused4_common.cuh)
 // owns one lane, thread r row r of every P x P state, so a thread holds a
@@ -11,7 +12,8 @@
 // Also the elements sweep these sources run: each lane's Riccati element
 // (A, J, C) from a zero seed, with per-step saves in adjoint.cu and
 // without in pallas_solver.cu and fused.cu; and the seeded factor sweep,
-// with saves in adjoint.cu and without in fused.cu.
+// with saves in adjoint.cu and without in fused.cu, and from a zero seed
+// with its end state in onepass.cu.
 
 #pragma once
 
@@ -142,7 +144,9 @@ __device__ __forceinline__ void elements_sweep(const T* __restrict__ u, const T*
 // statistics (Qm, qv, Kahan-summed q0 and log-det, min pivot): the Pallas
 // factor kernels adjoint.py:188 (with SAVE, each step's input [Sh, M, m]
 // to the save stream sv, NSV1 words a lane and step) and, without saves,
-// the phase 1 of fused.py:130 (fused.cu).
+// the phase 1 of fused.py:130 (fused.cu).  A null sh0 is the zero seed and
+// a non-null C_out takes the end state Sh (P, P, B): the one-pass sweeps
+// onepass.py:111 and :162 (onepass.cu).
 template <bool SAVE, typename T>
 __device__ __forceinline__ void factor_sweep(const T* __restrict__ u, const T* __restrict__ v,
                                              const T* __restrict__ ph,
@@ -153,15 +157,17 @@ __device__ __forceinline__ void factor_sweep(const T* __restrict__ u, const T* _
                                              T* __restrict__ Qm_out, T* __restrict__ qv_out,
                                              double* __restrict__ q0_out,
                                              double* __restrict__ ld_out,
-                                             T* __restrict__ mind_out, T* __restrict__ sv) {
+                                             T* __restrict__ mind_out, T* __restrict__ sv,
+                                             T* __restrict__ C_out = nullptr) {
     const Lane ln = lane_of(B);
     const int l = ln.l, r = ln.r;
     // Row r of Sh, M, Qm, entry r of m and qv; the scalar statistics are
     // kept alike in every thread of the group.
     T Sh[P], M[P], Qm[P];
-    get_mat(sh0, r, B, l, Sh);
+    if (sh0 != nullptr) get_mat(sh0, r, B, l, Sh);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
+        if (sh0 == nullptr) Sh[j] = T(0);
         M[j] = j == r ? T(1) : T(0);
         Qm[j] = T(0);
     }
@@ -213,6 +219,7 @@ __device__ __forceinline__ void factor_sweep(const T* __restrict__ u, const T* _
     if (!ln.live || r >= P) return;
     put_mat(M_out, r, B, l, M);
     put_mat(Qm_out, r, B, l, Qm);
+    if (C_out != nullptr) put_mat(C_out, r, B, l, Sh);
     m_out[(size_t)r * B + l] = mr;
     qv_out[(size_t)r * B + l] = qvr;
     if (r == 0) {

@@ -1,10 +1,14 @@
 """GP orchestration API of the port.
 
-Port of ``celerite_tpu/gp.py:34-277, 279-810, 1160-1219``: a ModelSet of
+Port of ``celerite_tpu/gp.py:34-277, 279-810, 1160-1412``: a ModelSet of
 ``kernel`` and ``mean`` submodels with ``compute`` / ``log_likelihood`` /
-``grad_log_likelihood``, and the pure closures the fits and samplers call,
+``grad_log_likelihood``, the pure closures the fits and samplers call,
 ``build_loglik`` (``theta_active -> (ll, ok)``) and ``build_logprob``
-(``theta_active -> ll + log prior``).
+(``theta_active -> ll + log prior``), and the solver surface: ``compute``
+factors through :class:`solver.CholeskySolver` (the ``solver`` property;
+``dirty`` / ``computed`` refactor after a parameter change), and
+``apply_inverse``, ``dot``, ``predict`` (the mean and ``return_cov``),
+``get_matrix``, ``sample`` and ``sample_conditional`` run on it.
 
 Routing of ``solver="auto"``: on the CPU the sequential solver below
 N = 4096 points (the JAX package's CPU route) and the plain fused primal
@@ -69,11 +73,11 @@ import math
 import numpy as np
 import torch
 
-from . import ops
 from .modeling import ConstantModel, ModelSet
-from .ops import (adjoint, blocked, dsfused, fused, fused4, lanes, lanes4,
-                  pallas_solver, seq, tangent)
+from .ops import (adjoint, blocked, dense, dsfused, fused, fused4, lanes,
+                  lanes4, pallas_solver, seq, tangent)
 from .ops.lower import Coefficients, lower
+from .solver import CholeskySolver, LinAlgError, _not_in_slice
 
 __all__ = ["GP", "LinAlgError"]
 
@@ -90,16 +94,6 @@ _FOLD_CPU_BYTES = 1 << 30
 # lanes of about _DS_CPU_STEPS steps.
 _DS_CUDA_LANES = 128
 _DS_CPU_STEPS = 8
-
-
-class LinAlgError(Exception):
-    """The covariance matrix failed to factor (not positive definite)."""
-
-
-def _not_in_slice(what, item):
-    return NotImplementedError(
-        "{0}: not ported yet (ROADMAP {1})".format(what, item)
-    )
 
 
 def _fold_cap(n, p, dtype, device):
@@ -314,7 +308,10 @@ class GP(ModelSet):
 
     def __init__(self, kernel, mean=0.0, fit_mean=False, device=None):
         self.device = device
+        self._solver = None
+        self._computed = False
         self._t = None
+        self._yerr = None
         self._diag = None
         try:
             mean = ConstantModel(float(mean))
@@ -333,11 +330,32 @@ class GP(ModelSet):
     def mean(self):
         return self.models["mean"]
 
+    @property
+    def solver(self):
+        """The GP's :class:`solver.CholeskySolver` on its device."""
+        if self._solver is None:
+            self._solver = CholeskySolver(device=self.device)
+        return self._solver
+
+    @property
+    def dirty(self):
+        return ModelSet.dirty.fget(self) or not self._computed
+
+    @dirty.setter
+    def dirty(self, value):
+        self._computed = not value
+        ModelSet.dirty.fset(self, value)
+
+    @property
+    def computed(self):
+        return (self._solver is not None and self._solver.computed()
+                and not self.dirty)
+
     # -- compute / log_likelihood ------------------------------------------
     def compute(self, t, yerr=1.123e-12, check_sorted=True, A=None, U=None,
                 V=None):
         """Store the coordinates and per-point variances, lower the kernel
-        at the current parameters on the GP's device and factor it
+        at the current parameters and factor it through :attr:`solver`
         (celerite_tpu/gp.py:134-171).
 
         Raises ValueError for unsorted input and LinAlgError when the
@@ -352,30 +370,33 @@ class GP(ModelSet):
         if check_sorted and t.ndim > 1:
             raise ValueError("dimension mismatch")
         self._t = t
-        self._diag = np.broadcast_to(np.asarray(yerr, float) ** 2, t.shape)
-        self._factor()
+        self._yerr = np.empty_like(t)
+        self._yerr[:] = yerr
+        self._diag = self._yerr ** 2
+        self._refactor()
 
-    def _factor(self):
-        """Factor the covariance matrix at the current parameters in
-        float64: ``ops.best_ll`` (the sequential solver below 4096 points;
-        above, on the card, the single-sweep kernel at padded width 8 or
-        less and the three-pass kernels up to 16) on a zero residual.
-        Raises LinAlgError when a pivot is not positive."""
-        device = lanes4.resolve_device(self.device)
+    def _refactor(self):
+        """Lower and factor with the stored inputs at the current
+        parameters (the padded lowering, float64)."""
         kp = torch.as_tensor(self.parameter_vector)[:self.kernel.full_size]
-        coeffs = Coefficients(*self.kernel.get_padded_coefficients(kp),
-                              jitter=self.kernel.get_jitter(kp))
-        t = torch.as_tensor(self._t, dtype=torch.float64, device=device)
-        diag = torch.as_tensor(np.array(self._diag), dtype=torch.float64,
-                               device=device)
-        ssm = lower(Coefficients(*(torch.as_tensor(c).to(t) for c in coeffs)),
-                    t, diag)
-        if ssm.U.shape[1] == 0:
-            ll, _ = seq.gp_log_likelihood(ssm, torch.zeros_like(t))
-        else:
-            ll = ops.best_ll(ssm, torch.zeros_like(t))
-        if not bool(torch.isfinite(ll)):
-            raise LinAlgError("failed to factorize or solve matrix")
+        coeffs = [c.detach().cpu().numpy()
+                  for c in self.kernel.get_padded_coefficients(kp)]
+        self.solver.compute(float(self.kernel.get_jitter(kp)), *coeffs,
+                            t=self._t, diag=self._diag)
+        self.dirty = False
+
+    def _recompute(self):
+        if not self.computed:
+            if self._t is None:
+                raise RuntimeError("you must call 'compute' first")
+            self._refactor()
+
+    def _process_input(self, y):
+        if self._t is None:
+            raise RuntimeError("you must call 'compute' first")
+        if len(self._t) != len(y):
+            raise ValueError("dimension mismatch")
+        return np.ascontiguousarray(y, dtype=float)
 
     def log_likelihood(self, y, quiet=False):
         """Marginal GP log-likelihood of ``y`` (requires compute first).
@@ -425,6 +446,126 @@ class GP(ModelSet):
         if grad is None:
             (grad,) = torch.autograd.grad(ll, theta)
         return float(ll.detach()), grad.detach().cpu().numpy()
+
+    # -- linear algebra (celerite_tpu/gp.py:1222-1412) ------------------------
+    def apply_inverse(self, y):
+        """K^-1 y (with yerr and jitter on the diagonal); y is (N,) or (N,
+        K)."""
+        self._recompute()
+        return self.solver.solve(self._process_input(y))
+
+    def dot(self, y, t=None, A=None, U=None, V=None, kernel=None,
+            check_sorted=True):
+        """K y without the yerr diagonal (reference celerite.py:330-397), at
+        the computed coordinates or at ``t``."""
+        if kernel is None:
+            kernel = self.kernel
+        if t is not None:
+            t = np.atleast_1d(np.asarray(t, dtype=float))
+            if check_sorted and np.any(np.diff(t) < 0.0):
+                raise ValueError("the input coordinates must be sorted")
+            if check_sorted and t.ndim > 1:
+                raise ValueError("dimension mismatch")
+        else:
+            if not self.computed:
+                raise RuntimeError("you must call 'compute' first")
+            t = self._t
+        return self.solver.dot(kernel.jitter, *kernel.coefficients, A, U, V,
+                               t, np.ascontiguousarray(y, dtype=float))
+
+    def predict(self, y, t=None, return_cov=True, return_var=False):
+        """Conditional predictive distribution at coordinates ``t``: ``mu``
+        or ``(mu, cov)``.  The mean is O(N) (the lag-state recursions, in
+        parallel on the blocked route), the covariance dense O(N M)
+        (reference celerite.py:399-474).  ``return_var=True`` takes the
+        JAX package's Kalman/RTS smoother (ops/smoother.py), not ported
+        (ROADMAP queue 1, item 11)."""
+        if return_var:
+            raise _not_in_slice("predict(return_var=True)",
+                                "queue 1, item 11")
+        y = self._process_input(y)
+        if y.ndim > 1:
+            raise ValueError("dimension mismatch")
+        if t is None:
+            xs = self._t
+        else:
+            xs = np.ascontiguousarray(t, dtype=float)
+            if xs.ndim > 1:
+                raise ValueError("dimension mismatch")
+        self._recompute()
+        resid = y - self.mean.get_value(self._t)
+        if t is None:
+            alpha = self.solver.solve(resid).reshape(-1)
+            alpha = resid - (self._yerr ** 2 + self.kernel.jitter) * alpha
+        else:
+            alpha = self.solver.predict(resid, xs)
+        mu = self.mean.get_value(xs) + alpha
+        if not return_cov:
+            return mu
+        Kxs = self.get_matrix(xs, self._t)
+        cov = self.get_matrix(xs, xs)
+        cov -= Kxs @ self.apply_inverse(np.ascontiguousarray(Kxs.T))
+        return mu, cov
+
+    def get_matrix(self, x1=None, x2=None, include_diagonal=None,
+                   include_general=None):
+        """Dense covariance matrix (reference celerite.py:476-516) on the
+        GP's device, as numpy: ``K(t, t)`` with the diagonal and jitter at
+        the computed coordinates, or the kernel's ``K(x1, x2)`` (jitter on
+        the diagonal of ``K(x1, x1)`` with ``include_diagonal``)."""
+        device = lanes4.resolve_device(self.device)
+        coeffs = Coefficients(*(torch.as_tensor(c, device=device)
+                                for c in self.kernel.coefficients),
+                              jitter=torch.tensor(self.kernel.jitter,
+                                                  dtype=torch.float64,
+                                                  device=device))
+
+        def dev(x):
+            return torch.as_tensor(np.ascontiguousarray(x, dtype=float),
+                                   device=device)
+
+        if x1 is None and x2 is None:
+            if self._t is None or not self.computed:
+                raise RuntimeError("you must call 'compute' first")
+            use_diag = include_diagonal is None or include_diagonal
+            K = dense.build_matrix(
+                coeffs, dev(self._t),
+                diag=dev(self._yerr ** 2) if use_diag else None,
+                include_jitter=use_diag)
+            return K.cpu().numpy()
+        incl = False
+        if x2 is None:
+            x2 = x1
+            incl = include_diagonal is not None and include_diagonal
+        K = dense.build_matrix(coeffs, dev(x1), t2=dev(x2)).cpu().numpy()
+        if incl:
+            K[np.diag_indices_from(K)] += self.kernel.jitter
+        return K
+
+    def sample(self, size=None, seed=None):
+        """Sample from the GP prior at the computed coordinates.  With a
+        ``seed`` the normal draws are ``np.random.default_rng(seed)``'s, as
+        the JAX package's (gp.py:1388-1405), so a seeded sample agrees with
+        it to float64 rounding."""
+        self._recompute()
+        n = len(self._t)
+        if seed is not None:
+            rng = np.random.default_rng(seed)
+            z = rng.standard_normal(n if size is None else (n, size))
+        else:
+            z = (np.random.randn(n) if size is None
+                 else np.random.randn(n, size))
+        z = self.solver.dot_L(z)
+        if size is None:
+            return self.mean.get_value(self._t) + z[:, 0]
+        return self.mean.get_value(self._t)[None, :] + z.T
+
+    def sample_conditional(self, y, t=None, size=None, regularize=None):
+        """Sample from the predictive distribution (O(M^3) in len(t))."""
+        mu, cov = self.predict(y, t, return_cov=True)
+        if regularize is not None:
+            cov[np.diag_indices_from(cov)] += regularize
+        return np.random.multivariate_normal(mu, cov, size=size)
 
     # -- pure closures --------------------------------------------------------
     def build_loglik(self, t, y, yerr=1.123e-12, diag=None, solver="auto",

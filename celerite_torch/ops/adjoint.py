@@ -160,19 +160,23 @@ def elements_bwd_reference(u, v, ph, a, saves, hA0, hJ0, hC0):
     return hu_out, hv_out, hph_out, ha_out
 
 
-def factor_fwd_reference(sh0, u, v, ph, a, y, keep_saves=True):
+def factor_fwd_reference(sh0, u, v, ph, a, y, keep_saves=True,
+                         end_state=False):
     """Seeded factor, affine map and statistics with saves.
 
-    ``sh0`` is each lane's seed ``(P, P, B)``.  Returns ``(M, m, Qm, qv,
-    q0, ld, mind, saves)``: ``(P, P, B)``, ``(P, B)``, ``(P, P, B)``,
-    ``(P, B)``, float64 ``(B,)`` twice, ``(B,)`` and ``(L, B, 2 P^2 + P)``
-    (``[Shin, Mprev, mprev]`` of every step).  With ``keep_saves=False``
-    the saves are neither kept nor returned: the phase 1 of the single-sweep
-    value (``fused.kernel_reference``) and, in forward mode, of the
-    tangent kernels (``tangent.factor_jvp_reference``).
+    ``sh0`` is each lane's seed ``(P, P, B)``, ``None`` for the zero seed.
+    Returns ``(M, m, Qm, qv, q0, ld, mind, saves)``: ``(P, P, B)``, ``(P,
+    B)``, ``(P, P, B)``, ``(P, B)``, float64 ``(B,)`` twice, ``(B,)`` and
+    ``(L, B, 2 P^2 + P)`` (``[Shin, Mprev, mprev]`` of every step).  With
+    ``keep_saves=False`` the saves are neither kept nor returned: the phase
+    1 of the single-sweep value (``fused.kernel_reference``) and, in
+    forward mode, of the tangent kernels (``tangent.factor_jvp_reference``).
+    With ``end_state`` the end state ``Sh (P, P, B)`` follows ``mind``:
+    the one-pass sweep (``onepass.sweep_reference``).
     """
     L, p, b = u.shape
-    Sh = sh0.to(u.dtype)
+    Sh = (torch.zeros(p, p, b, dtype=u.dtype, device=u.device)
+          if sh0 is None else sh0.to(u.dtype))
     M = _eye(p, b, u)
     m = torch.zeros_like(u[0])
     Qm = torch.zeros_like(Sh)
@@ -204,20 +208,23 @@ def factor_fwd_reference(sh0, u, v, ph, a, y, keep_saves=True):
         Qm = Qm + _bi(g) * _bj(g / d)
         mind = torch.minimum(mind, d)
     out = (M, m, Qm, qv, q0.double() + cq0.double(),
-           ld.double() + cld.double(), mind)
+           ld.double() + cld.double(), mind) + ((Sh,) if end_state else ())
     return (*out, torch.stack(saves)) if keep_saves else out
 
 
 def factor_bwd_reference(u, v, ph, a, y, saves, hM0, hm0, hQm, hqv, hq0,
-                         hld):
+                         hld, hC=None):
     """The transpose of :func:`factor_fwd_reference`, streamed in reverse:
     ``(hu, hv, hph)`` each ``(L, P, B)``, ``ha`` and ``hy`` each ``(L, 1,
-    B)``, and the seed cotangent ``hsh0 (P, P, B)``."""
+    B)``, and the seed cotangent ``hsh0 (P, P, B)``.  ``hC (P, P, B)`` is
+    the end state's cotangent, where the end state is an output (the
+    one-pass sweep, ``onepass.sweep_bwd_reference``): the carried S-hat
+    cotangent starts from it instead of zero."""
     L, p, b = u.shape
     hM, hm, hQm, hqv, hq0, hld = (x.to(u.dtype) for x in
                                   (hM0, hm0, hQm, hqv, hq0, hld))
     hQs = hQm + _tr(hQm)  # the statistics' cotangents are constant
-    hSh = torch.zeros_like(hM)
+    hSh = torch.zeros_like(hM) if hC is None else hC.to(u.dtype)
     hu_out, hv_out, hph_out = (torch.empty_like(u) for _ in range(3))
     ha_out, hy_out = torch.empty_like(a), torch.empty_like(y)
     for i in range(L - 1, -1, -1):

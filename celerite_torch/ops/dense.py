@@ -1,7 +1,8 @@
 """Dense O(N^3) oracle solver (tests only).
 
 Port of ``celerite_tpu/ops/dense.py`` (the reference's ``DirectSolver``
-analog): used to validate the O(N) solvers, never on a hot path.
+analog): validates the O(N) solvers, and builds ``GP.get_matrix`` and
+``GP.predict``'s covariance, never on a hot path.
 """
 
 from __future__ import annotations
@@ -15,9 +16,17 @@ from .kernels import kernel_value
 __all__ = ["build_matrix", "log_likelihood"]
 
 
-def build_matrix(coeffs, t, diag=None, include_jitter=True):
-    """Dense covariance matrix K(t, t) with diag and jitter."""
+def build_matrix(coeffs, t, diag=None, include_jitter=True, t2=None):
+    """Dense covariance matrix K(t, t) with diag and jitter.
+
+    With ``t2`` the rectangular cross-covariance ``K(t, t2)``: kernel
+    values only, the diagonal and jitter belong to the square case
+    (dense.py:21-69).
+    """
     a_real, c_real, a_comp, b_comp, c_comp, d_comp, jitter = coeffs
+    if t2 is not None:
+        return kernel_value(a_real, c_real, a_comp, b_comp, c_comp, d_comp,
+                            t[:, None] - t2[None, :])
     tau = t[:, None] - t[None, :]
     k = kernel_value(a_real, c_real, a_comp, b_comp, c_comp, d_comp, tau)
     n = t.shape[0]

@@ -403,6 +403,67 @@ def _compare(runs):
     return out
 
 
+def onepass_cotangents(u, seed=0):
+    """Float64 cotangents of the one-pass sweep's seven differentiable
+    outputs (C, M0, m0, Qm, qv, q0, ld0) for streams shaped like ``u``,
+    from a seeded generator on ``u``'s device."""
+    p, b = u.shape[1:]
+    gen = torch.Generator(device=u.device).manual_seed(seed)
+    return [torch.randn(s, generator=gen, dtype=torch.float64,
+                        device=u.device)
+            for s in ((p, p, b), (p, p, b), (p, b), (p, p, b), (p, b), (b,),
+                      (b,))]
+
+
+def onepass_plain_outputs(u, v, ph, a, y, cots):
+    """The plain versions of rows 19-21 on the same streams: ``{kernel:
+    outputs}``; row 21 takes row 20's saves and ``cots``."""
+    from .ops import onepass
+
+    fwd = onepass.sweep_fwd_reference(u, v, ph, a, y)
+    return {"sweep": fwd[:8], "sweep_fwd": fwd,
+            "sweep_bwd": onepass.sweep_bwd_reference(u, v, ph, a, y, fwd[8],
+                                                     *cots)}
+
+
+ONEPASS_OUTPUTS = {
+    "sweep": ("C", "M0", "m0", "Qm", "qv", "q0", "ld0", "mind0"),
+    "sweep_fwd": ("C", "M0", "m0", "Qm", "qv", "q0", "ld0", "mind0",
+                  "saves"),
+    "sweep_bwd": ("hu", "hv", "hph", "ha", "hy"),
+}
+
+
+def compare_onepass_kernels(u, v, ph, a, y):
+    """The three one-pass kernels against their plain versions on the same
+    streams (on the card; the plain versions run there too): the bwd
+    kernel takes the plain fwd saves and float64 cotangents from a seeded
+    generator.  Every output is compared against its largest reference
+    value.  Returns ``{kernel: {"max_abs_err", "max_rel_err", "outputs":
+    {name: rel}}}``."""
+    from .ops import onepass
+
+    cots = onepass_cotangents(u)
+    want = onepass_plain_outputs(u, v, ph, a, y, cots)
+    got = {"sweep": onepass.sweep_cuda(u, v, ph, a, y),
+           "sweep_fwd": onepass.sweep_fwd_cuda(u, v, ph, a, y),
+           "sweep_bwd": onepass.sweep_bwd_cuda(
+               u, v, ph, a, y, want["sweep_fwd"][8], *cots)}
+    return _compare({k: (ONEPASS_OUTPUTS[k], got[k], want[k]) for k in got})
+
+
+def onepass_f32_floor(streams64):
+    """Each one-pass kernel's plain version in float32 against float64 on
+    the same float64-lowered streams, the largest distance of its outputs
+    relative to each output's largest float64 value (the saves left out):
+    the rounding floor under a float32 kernel-vs-plain reading."""
+    cots = onepass_cotangents(streams64[0])
+    want = onepass_plain_outputs(*streams64, cots)
+    got = onepass_plain_outputs(*(x.float() for x in streams64), cots)
+    return {k: max(_errors(g, w)[1] for g, w in zip(got[k][:8], want[k]))
+            for k in want}
+
+
 def compare_fused_kernel(u, v, ph, a, y, seg=None):
     """The single-sweep kernel against its plain version on the same
     streams (on the card; the plain version runs there too), per segment

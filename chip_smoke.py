@@ -10,8 +10,9 @@ four gradient kernels (celerite_torch/csrc/fused4_grad.cu), the two
 exact-mode kernels (celerite_torch/csrc/dsfused.cu), the four adjoint
 kernels (celerite_torch/csrc/adjoint.cu), the three three-pass kernels
 (celerite_torch/csrc/pallas_solver.cu), the single-sweep kernel
-(celerite_torch/csrc/fused.cu) and the three tangent kernels
-(celerite_torch/csrc/tangent.cu) with nvcc for every padded width it
+(celerite_torch/csrc/fused.cu), the three tangent kernels
+(celerite_torch/csrc/tangent.cu) and the three one-pass kernels
+(celerite_torch/csrc/onepass.cu) with nvcc for every padded width it
 uses, one nvcc process per library, all at once; holds each kernel against
 its plain PyTorch version on the card; then drives the port's main paths
 through the entry points a user calls:
@@ -78,7 +79,18 @@ through the entry points a user calls:
 - lane_sweep_G: the tangent route's lanes a chain;
 - sampler_G: dense-mass NUTS on config[2] through the tangent route over
   SAMPLER_G_CHAINS folded chains, SAMPLER_G_WARMUP warmup and
-  SAMPLER_G_SAMPLES sampling transitions, tree depth SAMPLER_G_DEPTH.
+  SAMPLER_G_SAMPLES sampling transitions, tree depth SAMPLER_G_DEPTH;
+- onepass_kernels: the three one-pass kernels against their plain
+  versions at padded widths 2, 8 and 16 on small plans and on main path
+  H's own plans, timed there;
+- H: the one-pass solver, ``ops.onepass.gp_log_likelihood`` in float64:
+  config[2] (P = 8) and E's model (P = 16) on B's data at N = 1e5, value
+  and autograd gradient, held against the fused4 and adjoint routes;
+  bench.py's model at N = 1e6, the value; float32 printed, not gated;
+- I: the GP facade on the card (``GP.compute``, ``apply_inverse``, ``dot``,
+  ``dot_L``, ``sample``, ``predict``, ``get_matrix``; the factor on the
+  three-pass kernels) for config[2] at N = 1e5, held against the CPU
+  float64 route and, on a 4096-point prefix, the sequential solver.
 
 Each main path resets every kernel's launch counter just before it runs and
 reads the counters just after; a kernel of the path that did not launch
@@ -105,15 +117,18 @@ import celerite_torch
 from celerite_torch import _build, inference, ops, terms
 from celerite_torch.inference import adaptation, diagnostics
 from celerite_torch.ops import (adjoint, blocked, dsfused, fused, fused4,
-                                lanes, lanes4, pallas_solver, tangent)
+                                lanes, lanes4, onepass, pallas_solver,
+                                tangent)
 from celerite_torch.ops.lower import Coefficients, lower
 from celerite_torch.testing import (CASES, bench_kernel, blocked_streams,
                                     compare_adjoint_kernels,
                                     compare_ds_kernels, compare_fused_kernel,
                                     compare_grad_kernels,
+                                    compare_onepass_kernels,
                                     compare_solver_kernels,
                                     compare_tangent_kernels, config2_kernel,
                                     lane_tangent_streams, make_data,
+                                    onepass_cotangents, onepass_f32_floor,
                                     pack_values, pack_values_ds, wide_kernel,
                                     width_kernel)
 
@@ -171,9 +186,7 @@ SOLVER_F32_PATH_RTOL = 7.5e-4
 TANGENT_F64_RTOL = 1e-10
 TANGENT_F32_RTOL = {"fused": 9.4e-5, "elements_jvp": 5.1e-4,
                     "factor_jvp": 0.13, "jac": 1.3e-3}
-# The CUDA kernels of csrc/fused4_primal.cu, csrc/fused4_grad.cu,
-# csrc/dsfused.cu, csrc/adjoint.cu and csrc/pallas_solver.cu, by their
-# names in a profile.
+# The CUDA kernels of csrc/*.cu, by their names in a profile.
 PORT_KERNELS = ("elem_kernel", "elem_round", "factor_kernel", "affine_round",
                 "assemble") + tuple(k + "_kernel" for k in fused4.GRAD_KERNELS
                                     + dsfused.DS_KERNELS) + tuple(
@@ -183,7 +196,8 @@ PORT_KERNELS = ("elem_kernel", "elem_round", "factor_kernel", "affine_round",
                                        "assemble")) + (
     "tangent_elements_kernel", "tangent_factor_kernel") + tuple(
     "jac_" + k + "_kernel" for k in ("elements", "seed", "factor",
-                                     "assemble"))
+                                     "assemble")) + (
+    "onepass_sweep_kernel", "onepass_fwd_kernel", "onepass_bwd_kernel")
 SAMPLER_CHAINS = 16
 # sampler_C's warmup and sampling transitions, each (nuts_config2.py's HMC
 # settings; cut from 60 to make room for main path G, PERF.md §4).
@@ -697,6 +711,8 @@ def reset_counts():
     fused.kernel_cuda.launches = 0
     for name in tangent.TANGENT_KERNELS:
         getattr(tangent, name + "_cuda").launches = 0
+    for name in onepass.ONEPASS_KERNELS:
+        getattr(onepass, name + "_cuda").launches = 0
 
 
 def reference_value_and_grad(gp, plan, theta, prior):
@@ -2405,6 +2421,393 @@ def lane_sweep_g(gpb, t, y, yerr, prior, thetab, thetasb, rounds=2):
              rounds={k: ms[nb, k] for k in calls})
 
 
+ONEPASS_REPLACES = {
+    "sweep": "celerite_tpu/ops/onepass.py:111",
+    "sweep_fwd": "celerite_tpu/ops/onepass.py:162",
+    "sweep_bwd": "celerite_tpu/ops/onepass.py:219",
+}
+# Padded widths of the one-pass kernels this script builds and holds.
+ONEPASS_WIDTHS = (2, 8, 16)
+# Main path H against the existing routes in float64: the value within
+# 1e-9 and the gradient within 1e-6 (norm), tests/test_onepass.py's own
+# tolerances (the closed-form seed correction amplifies rounding by
+# 1/det(I - S Qm), onepass.py:36-49).  Main path I's facade ops within
+# 1e-10 of the CPU float64 route and of the sequential solver.
+H_VALUE_RTOL = 1e-9
+H_GRAD_RTOL = 1e-6
+I_RTOL = 1e-10
+
+
+def onepass_counts():
+    return {name: getattr(onepass, name + "_cuda").launches
+            for name in onepass.ONEPASS_KERNELS}
+
+
+def onepass_bound_ms(name, u):
+    """Least time for one launch of one-pass kernel ``name`` on streams
+    shaped like ``u`` ``(L, P, B)``: max(bytes / rate, operations / peak).
+
+    Bytes, each input read once and each output written once: the streams
+    (u, v, ph, a, y: 3P + 2 words a point); sweep and sweep_fwd write the
+    summaries (C, M0, Qm, m0, qv, mind: 3P^2 + 2P + 1 words a lane, and
+    q0, ld0 in float64), sweep_fwd the saves too (2P^2 + P words a point);
+    sweep_bwd reads the saves and the summaries' cotangents (3P^2 + 2P + 2
+    a lane) and writes the stream cotangents (3P + 2 a point).  Operations
+    per point, counted from the code: the Riccati step's intermediates
+    (S, su, d, w) and the factor step (adjoint_bound_ms's factor_fwd), or
+    its transpose (factor_bwd).
+    """
+    L, p, b = u.shape
+    it = u.element_size()
+    pts, pp = L * b, p * p
+    front = 4 * pp + 4 * p + 1
+    adjoint_step = 16 * pp + 10 * p + 4
+    summaries = (3 * pp + 2 * p + 1) * b
+    words, per_point = {
+        "sweep": ((3 * p + 2) * pts + summaries,
+                  front + 11 * pp + 12 * p + 14),
+        "sweep_fwd": ((3 * p + 2 + 2 * pp + p) * pts + summaries,
+                      front + 11 * pp + 12 * p + 14),
+        "sweep_bwd": ((3 * p + 2 + 2 * pp + p + 3 * p + 2) * pts
+                      + (3 * pp + 2 * p + 2) * b,
+                      front + 17 * pp + 12 * p + 30 + adjoint_step),
+    }[name]
+    t_bytes = (words * it + (2 * b * 8 if name != "sweep_bwd" else 0)) \
+        / PEAK_BYTES_S * 1e3
+    t_ops = per_point * pts / PEAK_FLOPS[u.dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def onepass_kernel_calls(streams):
+    """{name: (kernel call, plain call)} on the same inputs, for timing."""
+    saves = onepass.sweep_fwd_cuda(*streams)[8]
+    cots = onepass_cotangents(streams[0])
+    return {
+        "sweep": (lambda: onepass.sweep_cuda(*streams),
+                  lambda: onepass.sweep_reference(*streams)),
+        "sweep_fwd": (lambda: onepass.sweep_fwd_cuda(*streams),
+                      lambda: onepass.sweep_fwd_reference(*streams)),
+        "sweep_bwd": (
+            lambda: onepass.sweep_bwd_cuda(*streams, saves, *cots),
+            lambda: onepass.sweep_bwd_reference(*streams, saves, *cots)),
+    }
+
+
+def onepass_case(errs, tag, streams, limit, **info):
+    """One onepass_kernel_vs_plain case: every output of the three kernels
+    against the plain versions' at ``limit`` (a number, or one a kernel).
+    ``errs[name]`` collects each kernel's float64 max abs error."""
+    got = compare_onepass_kernels(*streams)
+    u = streams[0]
+    f64 = u.dtype == torch.float64
+    if not isinstance(limit, dict):
+        limit = {k: limit for k in got}
+    emit("onepass_kernel_vs_plain", case=tag, width=u.shape[1],
+         dtype=str(u.dtype).split(".")[1], limit=limit, lanes=u.shape[-1],
+         steps_per_lane=u.shape[0],
+         max_rel_err={k: e["max_rel_err"] for k, e in got.items()},
+         outputs={k: e["outputs"] for k, e in got.items()}, **info)
+    for name, e in got.items():
+        if f64:
+            errs.setdefault(name, []).append(e["max_abs_err"])
+        if not e["max_rel_err"] <= limit[name]:
+            fail("onepass {0} kernel disagrees with plain: {1} {2}".format(
+                name, tag, info))
+
+
+def onepass_f32_case(errs, tag, streams64, **info):
+    """The float32 case on the float32 rounding of ``streams64``: each
+    kernel's limit is ten times its float32 plain version's distance from
+    float64 on these streams (the sweep is ill-conditioned in float32 by
+    design, onepass.py:36-49)."""
+    floor = onepass_f32_floor(streams64)
+    onepass_case(errs, tag, tuple(x.float() for x in streams64),
+                 {k: 10 * f for k, f in floor.items()},
+                 plain_f32_vs_f64=floor, **info)
+
+
+def theta_ssm(gp, t, yerr, dev):
+    """``theta -> lower(...)`` of a GP's kernel at its active parameters,
+    float64 on ``dev`` (the mean is frozen at 0), differentiable."""
+    kern, nk = gp.kernel, gp.kernel.full_size
+    fixed = torch.as_tensor(gp.parameter_vector, device=dev)
+    idx = torch.as_tensor(np.flatnonzero(gp.unfrozen_mask), device=dev)
+    t64 = torch.as_tensor(t, device=dev)
+    diag = torch.as_tensor(yerr, device=dev) ** 2
+
+    def ssm_of(theta):
+        kp = fixed.index_put((idx,), theta)[:nk]
+        return lower(Coefficients(*kern.get_padded_coefficients(kp),
+                                  jitter=kern.get_jitter(kp)), t64, diag)
+
+    return ssm_of
+
+
+def h_streams(gp, t, y, yerr, dev):
+    """The lane streams main path H's value runs on (float64)."""
+    theta = torch.as_tensor(gp.get_parameter_vector(), device=dev)
+    ssm = theta_ssm(gp, t, yerr, dev)(theta)
+    b = fused.default_num_blocks(len(t), dev)
+    return fused._to_lanes(ssm, torch.as_tensor(y, device=dev), b)[:5]
+
+
+def check_onepass_kernels(dev, models, errs):
+    """onepass_kernels: the three kernels against their plain versions.
+
+    Widths 2, 8 and 16 on a small plan (N = 1000 in blocks of 96 steps: 11
+    lanes and a padded tail), then on main path H's own plans (``models``:
+    tag -> (gp, t, y, yerr)), float64 at 1e-10 and float32 at ten times
+    the float32 plain version's distance from float64.  Each kernel and
+    its plain version are timed on H's plans (float64, and the kernel in
+    float32), beside its bound.  Returns ``{tag: {name: row}}``."""
+    ts, ys, yerrs = make_data(1000, seed=1, t_max=50.0)
+    for width in ONEPASS_WIDTHS:
+        s64 = blocked_streams(width_kernel(terms, width), ts, ys, yerrs, 96,
+                              device=dev)
+        onepass_case(errs, "small", s64, F64_RTOL, n=1000)
+        onepass_f32_case(errs, "small", s64, n=1000)
+    rows = {}
+    for tag, (g, t, y, yerr) in models.items():
+        s64 = h_streams(g, t, y, yerr, dev)
+        info = dict(model=tag, n=len(t))
+        onepass_case(errs, "main_path_H", s64, F64_RTOL, **info)
+        onepass_f32_case(errs, "main_path_H", s64, **info)
+        for dt in (torch.float64, torch.float32):
+            streams = tuple(x.to(dt) for x in s64)
+            key = str(dt).split(".")[1]
+            for name, (kern, plain) in onepass_kernel_calls(
+                    streams).items():
+                row = rows.setdefault(tag, {}).setdefault(name, {})
+                row["ms_" + key] = sync_time_ms(kern, reps=10)
+                if dt == torch.float64:  # one run: no yardstick
+                    row["plain_ms"] = sync_time_ms(plain, reps=1, warm=0)
+                row["bound_ms_" + key], row["bound_by_" + key] = \
+                    onepass_bound_ms(name, streams[0])
+            del streams
+        emit("onepass_kernel_time_H", model=tag, n=len(t),
+             lanes=s64[0].shape[-1], steps_per_lane=s64[0].shape[0],
+             kernels=rows[tag])
+        del s64
+        torch.cuda.empty_cache()
+    return rows
+
+
+def main_path_h(models, refs, dev):
+    """``onepass.gp_log_likelihood`` in float64 at N = 1e5 on B's data:
+    config[2] (P = 8) and E's model (P = 16), the value and its autograd
+    gradient with respect to theta (the lowering under autograd, rows 20
+    and 21); bench.py's model (P = 2) at N = 1e6, the value (row 19).
+    ``refs``: tag -> the model's ``build_loglik`` closure (the fused4 and
+    adjoint routes), whose ``value_ok_grad`` holds the value within
+    H_VALUE_RTOL and the gradient within H_GRAD_RTOL; the value is also
+    held against ``fused.gp_log_likelihood`` (bench.py's model against it
+    alone).  Float32 (the float64 lowering rounded) is printed, not gated.
+    Returns the launch counts."""
+    fns, thetas = {}, {}
+    for tag, (g, t, y, yerr) in models.items():
+        ssm_of = theta_ssm(g, t, yerr, dev)
+        y64 = torch.as_tensor(y, device=dev)
+
+        def value(theta, ssm_of=ssm_of, y64=y64):
+            return onepass.gp_log_likelihood(ssm_of(theta), y64)
+
+        def value_f32(theta, ssm_of=ssm_of, y64=y64):
+            ssm = ssm_of(theta)
+            return onepass.gp_log_likelihood(
+                type(ssm)(*(x.float() for x in ssm)), y64.float())
+
+        fns[tag] = (value, value_f32)
+        thetas[tag] = torch.as_tensor(g.get_parameter_vector(), device=dev)
+    reset_counts()
+    out = {}
+    for tag, (value, value_f32) in fns.items():
+        th = thetas[tag]
+        with torch.no_grad():
+            v = value(th)
+        vag = (autograd_value_and_grad(value, th) if tag in refs else None)
+        with torch.no_grad():
+            v32 = value_f32(th)
+        out[tag] = (v, vag, v32)
+    torch.cuda.synchronize()
+    counts = onepass_counts()
+    emit("main_path_H_launches", **counts)
+    if min(counts.values()) < 1:
+        fail("main path H did not launch every one-pass kernel: "
+             "{0}".format(counts))
+    result = {}
+    for tag, (v, vag, v32) in out.items():
+        g, t, y, yerr = models[tag]
+        th = thetas[tag]
+        ssm = theta_ssm(g, t, yerr, dev)(th)
+        ll_fused, _ = fused.gp_log_likelihood(ssm, torch.as_tensor(
+            y, device=dev))
+        r = dict(n=len(t), width=ssm.U.shape[1], ll_f64=float(v[0]),
+                 ok_f64=bool(v[1]), ll_fused_f64=float(ll_fused),
+                 rel_err_value_vs_fused=rel(v[0], ll_fused),
+                 ll_f32=float(v32[0]), ok_f32=bool(v32[1]),
+                 rel_err_f32_vs_f64=(rel(v32[0], v[0])
+                                     if bool(v32[1]) else None))
+        if vag is not None:
+            ll_r, ok_r, g_r = refs[tag].value_ok_grad(th)
+            r.update(reference_route=refs[tag].route,
+                     ll_reference_f64=float(ll_r),
+                     rel_err_value_vs_route=rel(vag[0], ll_r),
+                     rel_err_grad_vs_route=grad_rel(vag[2], g_r))
+        result[tag] = r
+    spread = {}
+    for tag, (value, _) in fns.items():
+        th = thetas[tag]
+
+        def value_nograd(theta, value=value):
+            with torch.no_grad():
+                return value(theta)
+
+        spread["value_" + tag] = eval_spread_ms(value_nograd, th, batches=5,
+                                                per_batch=5)
+        if tag in refs:
+            spread["value_and_grad_" + tag] = eval_spread_ms(
+                lambda theta, value=value: autograd_value_and_grad(
+                    value, theta), th, batches=5, per_batch=3)
+    emit("main_path_H", models={"B": "config[2] 2xSHO + jitter (P=8)",
+                                "E": "config[2] 4xSHO + jitter (P=16)",
+                                "A": "bench.py ComplexTerm (P=2)"},
+         **result, ms_per_call=spread)
+    for tag, r in result.items():
+        if not r["ok_f64"] or r["rel_err_value_vs_fused"] > H_VALUE_RTOL:
+            fail("main path H ({0}): float64 value off fused: {1}".format(
+                tag, r))
+        if "rel_err_grad_vs_route" in r and (
+                r["rel_err_value_vs_route"] > H_VALUE_RTOL
+                or r["rel_err_grad_vs_route"] > H_GRAD_RTOL):
+            fail("main path H ({0}): off the {1} route: {2}".format(
+                tag, r["reference_route"], r))
+    for tag in refs:
+        value = fns[tag][0]
+
+        def value_nograd(theta, value=value):
+            with torch.no_grad():
+                return value(theta)
+
+        emit("profile_H", model=tag, dtype="float64", call="value",
+             **profile_evals(value_nograd, thetas[tag], evals=3))
+        emit("profile_H", model=tag, dtype="float64", call="value_and_grad",
+             **profile_evals(lambda theta, value=value:
+                             autograd_value_and_grad(value, theta),
+                             thetas[tag], evals=2))
+    return counts
+
+
+def facade_coefficients(gp):
+    """The GP's padded coefficients and jitter, as its solver takes them."""
+    kp = torch.as_tensor(gp.parameter_vector)[:gp.kernel.full_size]
+    return (float(gp.kernel.get_jitter(kp)),
+            [c.detach().numpy() for c in gp.kernel.get_padded_coefficients(
+                kp)])
+
+
+def main_path_i(t, y, yerr, dev):
+    """The GP facade on the card (``solver.CholeskySolver``, ``blocked``:
+    the factor on the three-pass kernels' elements and factor, the solves
+    and products as torch): config[2] on B's data, N = 1e5, float64.
+    ``compute``; ``apply_inverse``, held by its residual ||K x - y|| / ||y||
+    with K x from ``GP.dot`` plus the diagonal; ``apply_inverse`` on 64
+    right-hand sides; ``dot_L`` on 4 and ``sample(seed=7, size=16)``;
+    ``predict``'s mean at 1000 points and its covariance at 100;
+    ``get_matrix`` on a 2048-point prefix.  Each op is held within I_RTOL
+    of the CPU float64 route (``GP(device="cpu")``: ``blocked`` in plain
+    torch) and, on a 4096-point prefix, of the sequential solver (``scan``
+    on the CPU); each op's ms.  Returns the launch counts."""
+    n = len(t)
+    rng = np.random.default_rng(11)
+    Y = rng.standard_normal((n, 64))
+    Z = rng.standard_normal((n, 4))
+    xs = np.sort(rng.uniform(0.0, t[-1], 1000))
+    ops_ = {
+        "apply_inverse": lambda g: g.apply_inverse(y),
+        "solve_64": lambda g: g.apply_inverse(Y),
+        "dot_L_4": lambda g: g.solver.dot_L(Z),
+        "sample_16": lambda g: g.sample(size=16, seed=7),
+        "dot": lambda g: g.dot(y),
+        "predict_mean_1000": lambda g: g.predict(y, xs, return_cov=False),
+        "predict_cov_100": lambda g: np.concatenate(
+            [m.ravel() for m in g.predict(y, xs[:100])]),
+    }
+    reset_counts()
+    gp = celerite_torch.GP(config2_kernel(terms))
+    ms = {}
+    t0 = time.perf_counter()
+    gp.compute(t, yerr)
+    ms["compute_first"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    gp.compute(t, yerr)
+    ms["compute"] = (time.perf_counter() - t0) * 1e3
+    got = {}
+    for name, op in ops_.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[name] = op(gp)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    gp_m = celerite_torch.GP(config2_kernel(terms))
+    gp_m.compute(t[:2048], yerr[:2048])
+    t0 = time.perf_counter()
+    got["get_matrix_2048"] = gp_m.get_matrix()
+    ms["get_matrix_2048"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    counts = solver_counts()
+    emit("main_path_I_launches", route=gp.solver._route, **counts)
+    if gp.solver._route != "blocked" or min(
+            counts["elements"], counts["factor"]) < 1:
+        fail("main path I did not factor on the three-pass kernels: "
+             "{0} {1}".format(gp.solver._route, counts))
+    x = got["apply_inverse"]
+    residual = float(np.linalg.norm(gp.dot(x) + yerr**2 * x - y)
+                     / np.linalg.norm(y))
+    # The CPU float64 route on the same inputs.
+    cpu = celerite_torch.GP(config2_kernel(terms), device="cpu")
+    cpu.compute(t, yerr)
+    cpu_m = celerite_torch.GP(config2_kernel(terms), device="cpu")
+    cpu_m.compute(t[:2048], yerr[:2048])
+    want = {name: op(cpu) for name, op in ops_.items()}
+    want["get_matrix_2048"] = cpu_m.get_matrix()
+    errs = {name: float(np.abs(got[name] - w).max() / np.abs(w).max())
+            for name, w in want.items()}
+    errs["log_determinant"] = rel(gp.solver.log_determinant(),
+                                  cpu.solver.log_determinant())
+    # The sequential solver on a 4096-point prefix, against the card.
+    m = 4096
+    gp4 = celerite_torch.GP(config2_kernel(terms))
+    gp4.compute(t[:m], yerr[:m])
+    seq4 = celerite_torch.CholeskySolver("scan", device="cpu")
+    jitter, coeffs = facade_coefficients(gp4)
+    seq4.compute(jitter, *coeffs, t=t[:m], diag=yerr[:m] ** 2)
+    x4 = xs[xs < t[m - 1]]
+    pairs = {
+        "solve": (gp4.apply_inverse(Y[:m, :8]), seq4.solve(Y[:m, :8])),
+        "dot_L": (gp4.solver.dot_L(Z[:m]), seq4.dot_L(Z[:m])),
+        "predict": (gp4.predict(y[:m], x4, return_cov=False),
+                    seq4.predict(y[:m], x4)),
+        "dot": (gp4.dot(Y[:m, 0]), seq4.dot(jitter, *coeffs, None, None,
+                                             None, t[:m], Y[:m, 0])),
+    }
+    errs_seq = {k: float(np.abs(a - b).max() / np.abs(b).max())
+                for k, (a, b) in pairs.items()}
+    errs_seq["log_determinant"] = rel(gp4.solver.log_determinant(),
+                                      seq4.log_determinant())
+    emit("main_path_I", model="config[2] 2xSHO + jitter (P=8)", n=n,
+         route=gp.solver._route, ms=ms,
+         residual_apply_inverse=residual, rel_err_vs_cpu=errs,
+         rel_err_prefix_vs_seq=errs_seq, prefix=m,
+         sample_shape=list(got["sample_16"].shape))
+    if residual > I_RTOL:
+        fail("main path I: apply_inverse residual {0}".format(residual))
+    bad = {k: e for k, e in {**errs, **{"seq_" + k: e for k, e in
+                                         errs_seq.items()}}.items()
+           if not e <= I_RTOL}
+    if bad:
+        fail("main path I: facade ops off the references: {0}".format(bad))
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2428,7 +2831,7 @@ def main():
     widths = {"fused4_primal.cu": WIDTHS, "fused4_grad.cu": WIDTHS,
               "dsfused.cu": WIDTHS, "adjoint.cu": WIDE_WIDTHS,
               "pallas_solver.cu": SOLVER_WIDTHS, "fused.cu": FUSED_WIDTHS,
-              "tangent.cu": TANGENT_WIDTHS}
+              "tangent.cu": TANGENT_WIDTHS, "onepass.cu": ONEPASS_WIDTHS}
     jobs = [(src, p) for src, ps in widths.items() for p in ps]
     paths = _build.build([(src, {"CELERITE_P": p}) for src, p in jobs])
     ptxas = {}
@@ -2707,6 +3110,27 @@ def main():
                           max_tree_depth=SAMPLER_G_DEPTH)
     emit("sampler_G_done", seconds=time.perf_counter() - t_g)
 
+    # ---- the one-pass solver: onepass_kernels, main path H ----
+    t_h = time.perf_counter()
+    ta, ya, yerra = bench_data()
+    models = {"B": (gp, t, y, yerr), "E": (gpe, t, y, yerr),
+              "A": (celerite_torch.GP(bench_kernel(terms)), ta, ya, yerra)}
+    onepass_errs = {}
+    onepass_rows = check_onepass_kernels(dev, models, onepass_errs)
+    emit("onepass_kernels_done", seconds=time.perf_counter() - t_h)
+    t_h = time.perf_counter()
+    refs = {"B": gp.build_loglik(t, y, yerr=yerr),
+            "E": gpe.build_loglik(t, y, yerr=yerr)}
+    counts_h = main_path_h(models, refs, dev)
+    del refs, models
+    torch.cuda.empty_cache()
+    emit("main_path_H_done", seconds=time.perf_counter() - t_h)
+
+    # ---- main path I: the GP facade on the card ----
+    t_h = time.perf_counter()
+    counts_i = main_path_i(t, y, yerr, dev)
+    emit("main_path_I_done", seconds=time.perf_counter() - t_h)
+
     kernels = [{
         "name": "fused4_primal",
         "route": "cuda",
@@ -2780,7 +3204,7 @@ def main():
             "route": "cuda",
             "source": "celerite_torch/csrc/pallas_solver.cu",
             "replaces": SOLVER_REPLACES[name],
-            "launches": counts_f[name],
+            "launches": counts_f[name] + counts_i[name],
             "max_abs_err": max(solver_errs[name]),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -2803,6 +3227,22 @@ def main():
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
+            "library_ms": None,
+        })
+    # The one-pass kernels at main path H's config[2] plan, float64.
+    for name in onepass.ONEPASS_KERNELS:
+        row = onepass_rows["B"][name]
+        kernels.append({
+            "name": "onepass_" + name,
+            "route": "cuda",
+            "source": "celerite_torch/csrc/onepass.cu",
+            "replaces": ONEPASS_REPLACES[name],
+            "launches": counts_h[name],
+            "max_abs_err": max(onepass_errs[name]),
+            "ms": row["ms_float64"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms_float64"],
+            "bound_by": row["bound_by_float64"],
             "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -541,3 +541,112 @@ def test_tangent_route_on_the_card(width, cuda_device):
                                    grads.cpu().numpy().ravel()])
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-8,
                                atol=1e-8 * float(np.abs(out["cpu"]).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_onepass_kernels_match_plain(width, dtype, cuda_device):
+    """Each of the three one-pass kernels equals its plain version on the
+    same streams, every output: 1e-10 in float64; in float32 ten times the
+    float32 plain version's own distance from float64 on these streams
+    (the sweep is ill-conditioned in float32 by design).  N = 1000 in
+    blocks of 96 steps: 11 lanes (odd) and a padded tail."""
+    from celerite_torch import terms
+    from celerite_torch.testing import (compare_onepass_kernels,
+                                        onepass_f32_floor)
+
+    t, y, yerr = make_data(1000, seed=1, t_max=50.0)
+    kern = width_kernel(terms, width)
+    streams = blocked_streams(kern, t, y, yerr, 96, dtype=dtype,
+                              device=cuda_device)
+    errs = compare_onepass_kernels(*streams)
+    if dtype == torch.float64:
+        limit = {k: 1e-10 for k in errs}
+    else:
+        floor = onepass_f32_floor(blocked_streams(
+            kern, t, y, yerr, 96, device=cuda_device))
+        limit = {k: 10 * f for k, f in floor.items()}
+    bad = {k: (e["outputs"], limit[k]) for k, e in errs.items()
+           if e["max_rel_err"] > limit[k]}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 16])
+def test_onepass_on_the_card(width, cuda_device):
+    """``onepass.gp_log_likelihood`` on the card (rows 19-21) equals the
+    same call on the CPU (the plain versions), value and autograd gradient
+    with respect to the coefficients, at N = 3000 on 32 lanes; the value
+    alone launches row 19 once, the gradient rows 20 and 21 once each."""
+    from celerite_torch import terms
+    from celerite_torch.ops import onepass
+    from celerite_torch.ops.lower import Coefficients, lower
+
+    t, y, yerr = make_data(3000, seed=9, t_max=300.0)
+    kern = width_kernel(terms, width)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        th = torch.tensor(kern.get_parameter_vector(), device=dev,
+                          requires_grad=True)
+        ssm = lower(Coefficients(*kern.get_padded_coefficients(th),
+                                 jitter=kern.get_jitter(th)),
+                    torch.as_tensor(t, device=dev),
+                    torch.as_tensor(yerr**2, device=dev))
+        yt = torch.as_tensor(y, device=dev)
+        counts = [getattr(onepass, k + "_cuda").launches
+                  for k in onepass.ONEPASS_KERNELS]
+        with torch.no_grad():
+            value, _ = onepass.gp_log_likelihood(ssm, yt, 32)
+        ll, ok = onepass.gp_log_likelihood(ssm, yt, 32)
+        (grad,) = torch.autograd.grad(ll, th)
+        launched = [getattr(onepass, k + "_cuda").launches - c
+                    for k, c in zip(onepass.ONEPASS_KERNELS, counts)]
+        assert bool(ok)
+        assert launched == ([1, 1, 1] if dev == "cuda" else [0, 0, 0])
+        out[dev] = np.concatenate([[float(value), float(ll.detach())],
+                                   grad.cpu().numpy()])
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-9,
+                               atol=1e-9 * float(np.abs(out["cpu"]).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 8, 16, 20])
+def test_blocked_factor_on_the_card(width, cuda_device):
+    """``blocked.factor`` on the card (the three-pass kernels' elements and
+    factor at width 16 or less, the plain passes above) equals the plain
+    factor on the CPU, D and W; and the GP facade's ``apply_inverse``,
+    ``predict`` and ``sample`` on the card (``blocked``) equal the CPU's
+    (the native core, or ``scan`` without g++)."""
+    from celerite_torch import GP, terms
+    from celerite_torch.ops import blocked, pallas_solver
+    from celerite_torch.ops.lower import Coefficients, lower
+
+    t, y, yerr = make_data(3000, seed=9, t_max=300.0)
+    kern = width_kernel(terms, width)
+    th = torch.as_tensor(kern.get_parameter_vector())
+    coeffs = Coefficients(*kern.get_padded_coefficients(th),
+                          jitter=kern.get_jitter(th))
+    facts = {}
+    for dev in ("cpu", "cuda"):
+        ssm = lower(coeffs, torch.as_tensor(t, device=dev),
+                    torch.as_tensor(yerr**2, device=dev))
+        before = pallas_solver.factor_cuda.launches
+        facts[dev] = blocked.factor(ssm, 64)
+        launched = pallas_solver.factor_cuda.launches - before
+        assert launched == (1 if dev == "cuda" and width <= 16 else 0)
+    for got, want in zip(facts["cuda"][:2], facts["cpu"][:2]):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-10,
+                                   atol=1e-10 * float(want.abs().max()))
+    x = np.linspace(-5.0, 305.0, 50)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gp = GP(kern, device=dev)
+        gp.compute(t, yerr)
+        assert dev == "cpu" or gp.solver._route == "blocked"
+        out[dev] = np.concatenate([gp.apply_inverse(y),
+                                   gp.predict(y, x, return_cov=False),
+                                   gp.sample(seed=3)])
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-10,
+                               atol=1e-10 * float(np.abs(out["cpu"]).max()))
