@@ -1,16 +1,16 @@
 // Shared device code of the fused4 kernels (fused4_primal.cu, fused4_grad.cu),
-// the exact-mode kernels (dsfused.cu) and the adjoint kernels (adjoint.cu,
-// which take only the scalar helpers and the row-parallel reductions).
+// the exact-mode kernels (dsfused.cu) and, through lanes_common.cuh, the
+// lane-stream kernels (which take the scalar helpers and the row-parallel
+// reductions).
 //
 // The scalar helpers (fma, exp, log, sincos overloaded on float / double,
 // the exact two_sum / two_prod and the double-single angle reduction), the
 // per-lane coefficient load, the in-kernel lowering of one step
 // (fused4._lower_step) and the Riccati step both phases share; for the
-// exact-mode kernels also the raw-jitter coefficient load, the lowering's
-// tangent along one seed and the Riccati step in row-parallel form, with
-// its tangent.  In the fused4 kernels one thread owns one lane, THREADS
-// lanes a block; in dsfused.cu a group of G threads owns one lane and one
-// tangent direction, a row of the state each.
+// exact-mode kernels also the raw-jitter coefficient load and the decoding
+// of a tangent's seed.  In the fused4 kernels one thread owns one lane,
+// THREADS lanes a block; in the row-parallel kernels a group of G threads
+// owns one lane, a row of the state each.
 //
 // Numerics.  No --use_fast_math.  two_prod takes its exact error from one
 // fma.  In float32, exp and sincos are evaluated in float64 and rounded
@@ -205,46 +205,6 @@ __device__ __forceinline__ Seed decode_seed(int kk, int jr) {
     return s;
 }
 
-// Tangent of lower_step along one seed, from the step's own value streams:
-// a complex pair's (cos, sin) * m are its columns of v and its decay is ph,
-// so d(phi)/d(c) = -dt phi and d(angle)/d(d) = t + t_lo (dsfused.py:320-328).
-// Pads (m = 0) get zero tangents.
-template <typename T>
-__device__ __forceinline__ void lower_tangent(const Coeffs<T>& k, int jr, Seed sd, T t, T tl,
-                                              T dt, T m, const T (&v)[P], const T (&ph)[P],
-                                              T (&du)[P], T (&dv)[P], T (&dph)[P], T& da) {
-#pragma unroll
-    for (int col = 0; col < P; ++col) du[col] = dv[col] = dph[col] = T(0);
-    da = (sd.kind == 0 || sd.kind == 2 || sd.kind == 6) ? m : T(0);
-#pragma unroll
-    for (int col = 0; col < P; ++col) {
-        if (sd.col != col) continue;
-        if (col < jr) {
-            if (sd.kind == 0) du[col] = m;
-            if (sd.kind == 1) dph[col] = -dt * ph[col];
-        } else if (((col - jr) & 1) == 0 && col + 1 < P) {
-            const T cm = v[col], sm = v[col + 1];
-            if (sd.kind == 2) {
-                du[col] = cm;
-                du[col + 1] = sm;
-            } else if (sd.kind == 3) {
-                du[col] = sm;
-                du[col + 1] = -cm;
-            } else if (sd.kind == 4) {
-                dph[col] = -dt * ph[col];
-                dph[col + 1] = -dt * ph[col];
-            } else if (sd.kind == 5) {
-                const T ang = t + tl;
-                const T dcm = -sm * ang, dsm = cm * ang;
-                du[col] = k.c0[col] * dcm + k.c1[col] * dsm;
-                du[col + 1] = k.c0[col] * dsm - k.c1[col] * dcm;
-                dv[col] = dcm;
-                dv[col + 1] = dsm;
-            }
-        }
-    }
-}
-
 // One Riccati step shared by both phases: Sh <- phi Sh phi + d w w^T.
 // Returns d; leaves w.
 template <typename T>
@@ -276,7 +236,7 @@ __device__ __forceinline__ T riccati_step(T (&Sh)[P][P], const T (&u)[P], const 
 }
 
 // ---------------------------------------------------------------------------
-// Row-parallel form (dsfused.cu): a group of G threads (a power of two >= P)
+// Row-parallel form: a group of G threads (a power of two >= P)
 // shares one lane, thread r owning row r of every P x P state; rows r >= P
 // are padding and hold zeros.  Sums over rows are xor-shuffle reductions
 // within the group, which every thread of the group receives.
@@ -305,41 +265,4 @@ template <typename T>
 __device__ __forceinline__ void gather(T wr, T (&w)[P]) {
 #pragma unroll
     for (int j = 0; j < P; ++j) w[j] = __shfl_sync(0xffffffffu, wr, j, G);
-}
-
-// Row r of riccati_step, Sh <- Phi Sh Phi + d w w^T, with the stream
-// vectors known to every thread.  With TAN also its tangent along one
-// direction: dSh carries the row's tangent, (du, dv, dph, da) those of the
-// step's streams (not read without TAN).  Returns d; leaves w_r and every
-// w_j, and with TAN dw_r, every dw_j and dd.
-template <bool TAN, typename T>
-__device__ __forceinline__ T riccati_row(T (&Sh)[P], T (&dSh)[P], int r, const T (&u)[P],
-                                         const T (&du)[P], const T (&v)[P], const T (&dv)[P],
-                                         const T (&ph)[P], const T (&dph)[P], T a, T da,
-                                         T& wr, T (&w)[P], T& dwr, T (&dw)[P], T& dd) {
-    const T phr = pick(ph, r), ur = pick(u, r);
-    T su = T(0), dsu = T(0);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-        // S = Phi Sh Phi and its tangent, from the step's input.
-        if constexpr (TAN)
-            dSh[j] = pick(dph, r) * Sh[j] * ph[j] + phr * dSh[j] * ph[j] + phr * Sh[j] * dph[j];
-        Sh[j] = phr * Sh[j] * ph[j];
-        su += Sh[j] * u[j];
-        if constexpr (TAN) dsu += dSh[j] * u[j] + Sh[j] * du[j];
-    }
-    const T d = a - group_sum(ur * su);
-    wr = r < P ? (pick(v, r) - su) / d : T(0);
-    gather(wr, w);
-    if constexpr (TAN) {
-        dd = da - group_sum(pick(du, r) * su + ur * dsu);
-        dwr = r < P ? ((pick(dv, r) - dsu) - wr * dd) / d : T(0);
-        gather(dwr, dw);
-#pragma unroll
-        for (int j = 0; j < P; ++j)
-            dSh[j] = dSh[j] + dd * wr * w[j] + d * (dwr * w[j] + wr * dw[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < P; ++j) Sh[j] = Sh[j] + d * wr * w[j];
-    return d;
 }

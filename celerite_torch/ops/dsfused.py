@@ -33,9 +33,10 @@ plain version: ``torch.func.jvp`` of the plain fused4 forward sweeps
 (``fused4.elem_fwd_reference``, ``factor_fwd_reference``) with the
 re-summed diagonal, vmapped over the unit seeds.  The dispatchers
 ``elem_ds`` / ``factor_ds`` take the kernel for a CUDA plan and the plain
-version for a CPU plan.  A kernel launch covers ``T`` directions, a group
-of threads per (lane, direction); the directions of a call go ``tan_chunk``
-to a launch.
+version for a CPU plan.  A kernel launch covers ``T`` directions: a block
+holds a few lanes, lowers each step once in shared memory, carries the
+value once in one warp and each direction in a warp of its own; the
+directions of a call go ``tan_chunk`` to a launch.
 
 Outputs carry a leading word axis: word 0 is the value, word ``1 + j`` the
 tangent along coefficient ``toff + j``.

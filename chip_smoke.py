@@ -31,8 +31,9 @@ through the entry points a user calls:
   averaging, dense inverse mass from the second half) and as many
   sampling transitions;
 - ds_kernels: the exact-mode kernels against their plain versions at every
-  width and on main path D's own plans, timed there, and the sweep of the
-  directions a launch (tan_chunk);
+  width and on the plans of main path D and sampler_D (1, 4 and 16
+  chains), timed there, and the sweep of the directions a launch
+  (tan_chunk);
 - D: exact mode, ``build_logprob(..., precision="ds")`` for config[2] at
   N = 1e5: ``value_and_grad`` (one theta) and ``value_and_grad_batch``
   (16 thetas folded), held against the float64 fused4 route;
@@ -992,10 +993,16 @@ def ds_bound_ms(name, plan, jr, jc, T, rows=1):
 
     Bytes: the (L, B) streams the kernel reads (five, six with y), its
     coefficient rows, the factor's 1 + T seed words, and the (1 + T)
-    output words a lane written once.  Operations per point: the value
-    step once (lowering, Riccati step, element update or factor
-    statistics) and the tangent step once a direction (the lowering's
-    tangent, the Riccati step's and the update's), counted from the code.
+    output words a lane written once.  Operations per point (an fma two),
+    what the function needs, not what the kernel does: the value step once
+    and the tangent step once a direction.  The value: the lowering, the
+    Riccati step (Phi Sh Phi 2p^2, S u 2p^2, d w w^T 2p^2) and the element
+    update (uA 2p^2, A 3p^2, J 2p^2) or the factor's (g 2p^2, M 3p^2,
+    Qm 2p^2).  A tangent, along a unit seed that moves one or two columns:
+    Phi dSh Phi 2p^2, dS u 2p^2, the tangent of d w w^T as x w^T + w y^T
+    4p^2, then elem's duA 2p^2, dA 5p^2 and dJ 4p^2 or the factor's dg
+    2p^2, dM 5p^2 and dQm 4p^2; every term of the seed (the lowering's
+    tangent, S or A or M on the seed's rows or columns) is O(p).
     """
     L, b = plan.t.shape
     p = jr + 2 * jc
@@ -1003,17 +1010,17 @@ def ds_bound_ms(name, plan, jr, jc, T, rows=1):
     pts = L * b
     w = 1 + T
     lower = jr * 4 + jc * 40 + 3
-    step = 7 * p * p + 4 * p + 1
-    tan_step = 10 + 21 * p * p + 8 * p + 1
+    step = 6 * p * p + 4 * p + 1
+    tan_step = 10 + 8 * p * p + 25 * p
     if name == "elem_ds":
         words = 5 * pts + c * rows + 3 * w * p * p * b
-        per_point = lower + step + 8 * p * p + 2 * p \
-            + T * (tan_step + 20 * p * p + 3 * p)
+        per_point = lower + step + 7 * p * p + 2 * p \
+            + T * (tan_step + 11 * p * p + 11 * p)
     else:
         words = 6 * pts + c * rows + w * p * p * b \
             + (w * (2 * p * p + 2 * p + 2) + 1) * b
-        per_point = lower + step + 8 * p * p + 7 * p + 12 \
-            + T * (tan_step + 19 * p * p + 15 * p + 12)
+        per_point = lower + step + 7 * p * p + 7 * p + 12 \
+            + T * (tan_step + 11 * p * p + 24 * p + 18)
     t_bytes = words * 8 / PEAK_BYTES_S * 1e3
     t_ops = per_point * pts / PEAK_FLOPS[torch.float64] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1053,10 +1060,10 @@ def check_ds_kernels(dev, gp, lpd, theta, thetas, ds_errs):
 
     At every width (CASES, N = 4099, 256 lanes) over all directions, one
     direction and none (the value launch); a chain-folded (4, C) batch;
-    then on the plans main path D runs them on (``folded_plan(1)`` and
-    ``(16)``), where each kernel and its plain version are timed and the
-    bound computed; then the tan_chunk sweep at 16 chains.  Returns
-    ``{nc: {name: row}}``.
+    then on the plans main path D and sampler_D run them on
+    (``folded_plan(1)``, ``(4)`` and ``(16)``), where each kernel and its
+    plain version are timed and the bound computed; then the tan_chunk
+    sweep at 16 chains.  Returns ``{nc: {name: row}}``.
     """
     run = functools.partial(ds_case, ds_errs)
     t, y, yerr = make_data(4099, seed=7, t_max=400.0)
@@ -1077,7 +1084,8 @@ def check_ds_kernels(dev, gp, lpd, theta, thetas, ds_errs):
     c = dsfused.cf_len(pr, pc)
     cfs = torch.stack([packed_cf_ds(gp, th) for th in thetas])
     rows = {}
-    for nc in (1, SAMPLER_CHAINS):
+    for nc in (1, SAMPLER_D_CHAINS, SAMPLER_CHAINS):
+        t_nc = time.perf_counter()
         plan = lpd.loglik.value_ok_grad_batch.folded_plan(nc)
         cf = packed_cf_ds(gp, theta) if nc == 1 else cfs[:nc]
         lanes, steps = plan.t.shape[1], plan.t.shape[0]
@@ -1090,7 +1098,8 @@ def check_ds_kernels(dev, gp, lpd, theta, thetas, ds_errs):
             row["bound_ms"], row["bound_by"] = ds_bound_ms(name, plan, pr, pc,
                                                            c, rows=nc)
         emit("ds_kernel_time_D", n=plan.n, n_chain=nc, lanes=lanes,
-             steps_per_lane=steps, directions=c, kernels=rows[nc])
+             steps_per_lane=steps, directions=c, kernels=rows[nc],
+             seconds=time.perf_counter() - t_nc)
 
     # Directions a launch: the whole value-and-gradient and its kernels.
     plan = lpd.loglik.value_ok_grad_batch.folded_plan(SAMPLER_CHAINS)

@@ -224,19 +224,38 @@ def test_grad_kernels_chain_folded_and_segments(dtype, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("jr,jc,vals", CASES)
-@pytest.mark.parametrize("T", [1, 4])
-def test_ds_kernels_match_plain(jr, jc, vals, T, cuda_device):
+@pytest.mark.parametrize("case", ["T1", "T4", "all", "value", "last",
+                                  "folded", "narrow"])
+def test_ds_kernels_match_plain(jr, jc, vals, case, cuda_device):
     """Both exact-mode kernels equal their plain versions on the same
-    inputs, every output word (value and each tangent) to 1e-10, over T
-    directions from coefficient 1 (clipped to the C coefficients)."""
+    inputs, every output word (value and each tangent) to 1e-10.
+
+    T1 / T4: one or four directions from coefficient 1 (clipped to the C
+    coefficients); all: every direction in one launch (one block holds them
+    all, T = 17 at P = 8); value: T = 0, the value warp alone; last: the
+    last coefficient alone (toff = C - 1, the jitter).  The plan's lanes
+    take 17 steps, two tiles of K = 8 steps and one step more.  folded:
+    four chains with a coefficient row each (seg = 64 lanes), 65 steps a
+    lane, every direction.  narrow: 8 lanes of 513 steps, every direction;
+    at widths 1 and 2 a block holds 32 or 16 lanes, so most of its lanes
+    lie past the plan's and are never written."""
     from celerite_torch.ops import dsfused
     from celerite_torch.testing import compare_ds_kernels, pack_values_ds
 
     t, y, yerr = make_data(4099, seed=7, t_max=400.0)
-    plan = dsfused.make_plan_ds(t, y, yerr**2, 256, device=cuda_device)
     cf = torch.as_tensor(pack_values_ds(vals), device=cuda_device)
-    T = min(T, dsfused.cf_len(jr, jc) - 1)
-    errs = compare_ds_kernels(cf, plan, jr, jc, toff=1, T=T)
+    c = dsfused.cf_len(jr, jc)
+    if case == "folded":
+        plan = dsfused.make_plan_ds(t, y, yerr**2, 64, n_chain=4,
+                                    device=cuda_device)
+        cf = torch.stack([cf * s for s in (1.0, 0.9, 1.1, 1.2)])
+    else:
+        lanes = 8 if case == "narrow" else 256
+        plan = dsfused.make_plan_ds(t, y, yerr**2, lanes, device=cuda_device)
+    toff, T = {"T1": (1, 1), "T4": (1, min(4, c - 1)), "all": (0, None),
+               "value": (0, 0), "last": (c - 1, 1),
+               "folded": (0, None), "narrow": (0, None)}[case]
+    errs = compare_ds_kernels(cf, plan, jr, jc, toff=toff, T=T)
     bad = {k: e["outputs"] for k, e in errs.items() if e["max_rel_err"] > 1e-10}
     assert not bad, bad
 
