@@ -20,9 +20,8 @@
 //
 // Design.  The state is the problem at P = 16: a lane carries three P x P
 // matrices forward (Sh, A, J or Sh, M, Qm) and, backward, three adjoints
-// beside the recomputed S and the loaded saves, 768 and more doubles.  One
-// thread a lane cannot hold that (fused4_grad.cu's factor_bwd spills 14,452
-// bytes a thread at P = 8).  As in dsfused.cu, a group of G threads (the
+// beside the recomputed S and the loaded saves, 768 and more doubles, which
+// one thread a lane cannot hold.  As in dsfused.cu, a group of G threads (the
 // power of two at or above P; 16 for P = 13..16) owns one lane, thread r
 // row r of every P x P state, so a thread holds a few P-vectors; rows r >=
 // P are padding that holds zeros.  Row sums are thread-local; sums over
@@ -33,9 +32,9 @@
 // another thread's row would spill.  Every thread reads the step's stream
 // vectors (u, ph) whole; they are (L, P, B), lane fastest.  The group
 // helpers and the elements and factor sweeps are in lanes_common.cuh,
-// shared with pallas_solver.cu, fused.cu and onepass.cu; the tile, the
-// Riccati step's transpose and the factor sweep's transpose in
-// adjoint_common.cuh, shared with onepass.cu.
+// shared with pallas_solver.cu, fused.cu, tangent.cu and onepass.cu; the
+// tile, the Riccati step's transpose and the factor sweep's transposed
+// step in adjoint_common.cuh, shared with onepass.cu and fused4_grad.cu.
 //
 // Saves, (L, B, NSV): step s of lane l holds NSV consecutive words, each
 // saved matrix column-major (word j * P + i is entry (i, j)) and then the
@@ -185,7 +184,7 @@ adjoint_factor_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
                           T* __restrict__ hu_out, T* __restrict__ hv_out, T* __restrict__ hph_out,
                           T* __restrict__ ha_out, T* __restrict__ hy_out,
                           T* __restrict__ hsh0_out) {
-    __shared__ T tiles[LANES * P * TS];
+    __shared__ T tiles[FACTOR_BWD_TILES];
     factor_bwd_sweep(tiles, u, v, ph, a, y, sv, static_cast<const T*>(nullptr), hM0, hm0, hQm0,
                      hqv0, hq00, hld0, L, B, hu_out, hv_out, hph_out, ha_out, hy_out, hsh0_out);
 }

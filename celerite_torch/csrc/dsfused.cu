@@ -122,22 +122,8 @@ constexpr size_t smem_bytes(int T) { return sizeof(R) * (off_kb(T > 0) + (1 + T)
 extern __shared__ __align__(16) R ds_smem[];
 
 // ---------------------------------------------------------------------------
-// Copies, barriers and the block's layout
+// The block's layout (copies and barriers: fused4_common.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async8(R* dst, const R* src) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// The tile hand-off: every warp of the block, from either role's code.
-__device__ __forceinline__ void tile_barrier() { asm volatile("bar.sync 1;\n" ::: "memory"); }
 
 // threadIdx.x read anew at each call: what derives from it is recomputed
 // after the sweep instead of held in a register through it.
@@ -316,8 +302,8 @@ __device__ __forceinline__ void prefetch_tile(const Ctx& c, const R* t, const R*
         for (int i = lane; i < K * LB; i += 32) {
             const int s = s0 + i / LB;
             if (s < c.L)
-                cp_async8(sb + k * K * LB + i,
-                          st[k] + (size_t)s * c.B + min(c.l0 + i % LB, c.B - 1));
+                cp_async(sb + k * K * LB + i,
+                         st[k] + (size_t)s * c.B + min(c.l0 + i % LB, c.B - 1));
         }
     }
     cp_async_commit();
@@ -353,12 +339,8 @@ __device__ __forceinline__ void lower_tile(const Ctx& c, int tile, bool with_y) 
             o[(FPH + kc) * LB] = dexp(-k.c1[kc] * dts);
         } else {
             const int col = jr + 2 * (kc - jr);
-            R r_hi, r_lo, sh, ch;
-            reduced_angle(k.c3[col], in(0, i), in(1, i), r_hi, r_lo);
-            dsincos(r_hi, &sh, &ch);
-            const R cm = (ch - r_lo * sh) * m;
-            const R sm = (sh + r_lo * ch) * m;
-            const R p = dexp(-k.c2[col] * dts);
+            R cm, sm, p;
+            pair_rot(k.c2[col], k.c3[col], in(0, i), in(1, i), dts, m, cm, sm, p);
             o[(FU + col) * LB] = k.c0[col] * cm + k.c1[col] * sm;
             o[(FV + col) * LB] = cm;
             o[(FPH + col) * LB] = p;

@@ -8,9 +8,10 @@
 // per-lane coefficient load, the in-kernel lowering of one step
 // (fused4._lower_step) and the Riccati step both phases share; for the
 // exact-mode kernels also the raw-jitter coefficient load and the decoding
-// of a tangent's seed.  In the fused4 kernels one thread owns one lane,
-// THREADS lanes a block; in the row-parallel kernels a group of G threads
-// owns one lane, a row of the state each.
+// of a tangent's seed.  In fused4's primal, elem_fwd, factor_fwd and
+// elem_bwd one thread owns one lane, THREADS lanes a block; in the
+// row-parallel kernels (fused4's factor_bwd among them) a group of G
+// threads owns one lane, a row of the state each.
 //
 // Numerics.  No --use_fast_math.  two_prod takes its exact error from one
 // fma.  In float32, exp and sincos are evaluated in float64 and rounded
@@ -32,8 +33,9 @@ constexpr int P = CELERITE_P;
 // The fused4 and exact-mode sources take P <= 12; adjoint.cu P <= 16.
 static_assert(P >= 1 && P <= 16, "padded width must be in [1, 16]");
 constexpr int PP = P * P;
-// Threads a block, one lane a thread.  Few heavy lanes at P = 8 run faster
-// spread over many SMs; at P = 2 the block size does not matter (PERF.md).
+// Threads a block of the kernels that give a lane one thread.  Few heavy
+// lanes at P = 8 run faster spread over many SMs; at P = 2 the block size
+// does not matter (PERF.md).
 constexpr int THREADS = 32;
 
 // ---------------------------------------------------------------------------
@@ -100,6 +102,30 @@ __device__ __forceinline__ void reduced_angle(T d, T t_hi, T t_lo, T& r_hi, T& r
 }
 
 // ---------------------------------------------------------------------------
+// Copies and barriers of the warp-specialised kernels (dsfused.cu and
+// tangent.cu's jac sweeps): a value warp and direction warps hand tiles of
+// steps over through shared memory.
+// ---------------------------------------------------------------------------
+
+// One word from device memory into shared memory, asynchronously.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+                 "n"((int)sizeof(T))
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// The tile hand-off: every warp of the block, from either role's code.
+__device__ __forceinline__ void tile_barrier() { asm volatile("bar.sync 1;\n" ::: "memory"); }
+
+// ---------------------------------------------------------------------------
 // Per-lane coefficients and in-kernel lowering (fused4._lower_step)
 // ---------------------------------------------------------------------------
 
@@ -132,6 +158,18 @@ __device__ __forceinline__ void load_coeffs(const T* __restrict__ cf, int jr, Co
     k.total = cf[2 * jr + 4 * jc];
 }
 
+// A complex pair's (cos, sin) of its angle d t, times m, the angle reduced
+// in double-single (t + tl), and its decay exp(-c dt).
+template <typename T>
+__device__ __forceinline__ void pair_rot(T c, T d, T t, T tl, T dt, T m, T& cm, T& sm, T& p) {
+    T r_hi, r_lo, sh, ch;
+    reduced_angle(d, t, tl, r_hi, r_lo);
+    dsincos(r_hi, &sh, &ch);
+    cm = (ch - r_lo * sh) * m;
+    sm = (sh + r_lo * ch) * m;
+    p = dexp(-c * dt);
+}
+
 template <typename T>
 __device__ __forceinline__ void lower_step(const Coeffs<T>& k, int jr, T t, T tl, T dt, T dg,
                                            T m, T (&u)[P], T (&v)[P], T (&ph)[P], T& a) {
@@ -143,12 +181,8 @@ __device__ __forceinline__ void lower_step(const Coeffs<T>& k, int jr, T t, T tl
             ph[col] = dexp(-k.c1[col] * dt);
         } else if (((col - jr) & 1) == 0) {
             // First column of a complex pair; its partner is col + 1.
-            T r_hi, r_lo, sh, ch;
-            reduced_angle(k.c3[col], t, tl, r_hi, r_lo);
-            dsincos(r_hi, &sh, &ch);
-            const T cm = (ch - r_lo * sh) * m;
-            const T sm = (sh + r_lo * ch) * m;
-            const T p = dexp(-k.c2[col] * dt);
+            T cm, sm, p;
+            pair_rot(k.c2[col], k.c3[col], t, tl, dt, m, cm, sm, p);
             u[col] = k.c0[col] * cm + k.c1[col] * sm;
             v[col] = cm;
             ph[col] = p;

@@ -17,35 +17,42 @@
 // torch glue (celerite_torch/ops/fused4.py); cotangents and seeds that come
 // from the glue arrive in float64 and are rounded to T here on load.
 //
-// Design.  As in the primal: one thread owns one lane and loops over its L
-// steps with the P x P state in registers (it spills at P = 8 in float64:
-// a backward sweep carries three P x P adjoints beside the two saved
-// matrices; registers and spills are in PERF.md); THREADS lanes a block;
-// one coefficient row per segment of `seg` lanes.  The streams and saves
-// are stored with the lane fastest, step s of lane l at s * B + l and save
-// word q at (s * NSV + q) * B + l, so a warp reads and writes 32
-// neighbouring words.  The coefficient cotangent is accumulated per column
-// of the padded model (CoefGrad, the layout of Coeffs), so every register
-// index is known at compile time, and scattered into the packed layout
-// once at the end.
+// Design.  elem_fwd, factor_fwd and elem_bwd: as in the primal, one
+// thread owns one lane and loops over its L steps with the P x P state in
+// registers, THREADS lanes a block (elem_bwd spills at P = 8 in float64;
+// registers and spills are in PERF.md).  factor_bwd carries three P x P
+// adjoints beside two saved matrices, more than one thread's registers
+// hold, so it gives a lane a group of G threads (the power of two at or
+// above P; 16 at P = 9..12), thread r owning row r of every P x P state,
+// BLOCK threads a block, as the adjoint and one-pass transposes do (no
+// spills at P <= 9 in float64); its step is theirs, factor_bwd_step
+// (adjoint_common.cuh).  Thread r lowers its own
+// column of each step (u_r, v_r, phi_r; the two rows of a complex pair
+// compute their shared exp and sincos each) and the group gathers u and
+// phi by shuffles; its coefficients and its share of the coefficient
+// cotangent are its column's only, in shared memory (Col), and a pair's two
+// rows are added at the end.  One coefficient row per segment of `seg`
+// lanes.  The streams and saves are stored with the lane fastest, step s
+// of lane l at s * B + l and save word q at (s * NSV + q) * B + l, so a
+// warp reads and writes neighbouring words.  The one-thread kernels
+// accumulate the coefficient cotangent per column of the padded model
+// (CoefGrad, the layout of Coeffs), so every register index is known at
+// compile time, and scatter it into the packed layout once at the end.
 //
 // Bound.  Bytes: the saves, 2P^2 + (2P^2 + P) words a point, are written
 // once and read once; at config[2] (N = 1e5, P = 8, float64) that is 211 MB
 // a chain, ~0.13 ms at 3.35 TB/s, well above the streams' 6-7 words a
 // point.  Operations: a few thousand a point for P = 8 (each sweep
 // recomputes the step and its O(P^2) products).  In practice the kernels
-// are bound by the latency of the per-lane dependent recursion and by
-// local-memory spills.
+// are bound by the latency of the per-lane dependent recursion (factor_bwd:
+// of its shuffle reductions) and, where they spill, by local memory.
 //
 // Numerics: fused4_common.cuh.  Compiled once per padded width:
 // nvcc -DCELERITE_P=<P> (1 <= P <= 12).
 
-#include "fused4_common.cuh"
+#include "adjoint_common.cuh"
 
 static_assert(P <= 12, "padded width must be in [1, 12]");
-
-constexpr int NSV0 = 2 * PP;      // elem saves a step: Sh, A
-constexpr int NSV1 = 2 * PP + P;  // factor saves a step: Sh, M, m
 
 // Cotangent of the packed coefficients, per column of the padded model
 // (the layout of Coeffs): real columns k < jr carry (a, c); the first
@@ -390,14 +397,124 @@ factor_fwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
 }
 
 // ---------------------------------------------------------------------------
-// factor_bwd: reversed phase 1.  Cotangents of the outputs (float64):
-// hM0, hm0 seed the sweep; hQm, hqv, hq0, hld are constant through it.
-// Writes the per-lane coefficient rows hcf (C, B), the data cotangent hy
-// (L, B) and the seed cotangent hsh0 (P, P, B).
+// factor_bwd: reversed phase 1, a group of G threads a lane.  Cotangents of
+// the outputs (float64): hM0, hm0 seed the sweep; hQm, hqv, hq0, hld are
+// constant through it.  Writes the per-lane coefficient rows hcf (C, B),
+// the data cotangent hy (L, B) and the seed cotangent hsh0 (P, P, B).
 // ---------------------------------------------------------------------------
 
+// Column r's words: its coefficients (a column of Coeffs: a real column's
+// a, c; a complex pair's a, b, c, d on both of its columns) and the total,
+// then row r's share of the coefficient cotangent (a real column's; a
+// pair's row's terms, which the pair's first row adds up at the end; the
+// total's, alike in every thread).  They wait in shared memory, a word of
+// each a thread at [f * BLOCK + threadIdx.x], out of the sweep's registers.
+enum { CA, CB, CC, CD, CT, GA, GB, GC, GD, GT, NCOL };
+
+// kind: 0 a real column, 1 a pair's first column, 2 its second, -1 a
+// padding row.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+struct Col {
+    T* w;
+    int kind;
+    __device__ __forceinline__ T& operator[](int f) const { return w[f * BLOCK]; }
+};
+
+template <typename T>
+__device__ __forceinline__ Col<T> load_col(T* cols, const T* __restrict__ cf, int jr, int r) {
+    const int jc = (P - jr) / 2;
+    Col<T> k{cols + threadIdx.x, -1};
+#pragma unroll
+    for (int f = 0; f < NCOL; ++f) k[f] = T(0);
+    if (r < jr) {
+        k[CA] = cf[r];
+        k[CB] = cf[jr + r];
+        k.kind = 0;
+    } else if (r < P) {
+        const int j = (r - jr) >> 1;
+        k[CA] = cf[2 * jr + j];
+        k[CB] = cf[2 * jr + jc + j];
+        k[CC] = cf[2 * jr + 2 * jc + j];
+        k[CD] = cf[2 * jr + 3 * jc + j];
+        k.kind = 1 + ((r - jr) & 1);
+    }
+    k[CT] = cf[2 * jr + 4 * jc];
+    return k;
+}
+
+// Row r of lower_step: u_r, v_r, phi_r, and a pair's (cos, sin) * m (cm,
+// sm), which its coefficient chain takes; zeros on a padding row.
+template <typename T>
+__device__ __forceinline__ void lower_row(const Col<T>& k, T t, T tl, T dt, T m, T& u, T& v,
+                                          T& ph, T& cm, T& sm) {
+    cm = sm = T(0);
+    if (k.kind == 0) {
+        u = k[CA] * m;
+        v = m;
+        ph = dexp(-k[CB] * dt);
+    } else if (k.kind > 0) {
+        pair_rot(k[CC], k[CD], t, tl, dt, m, cm, sm, ph);
+        u = k.kind == 1 ? k[CA] * cm + k[CB] * sm : k[CA] * sm - k[CB] * cm;
+        v = k.kind == 1 ? cm : sm;
+    } else {
+        u = v = ph = T(0);
+    }
+}
+
+// Row r of chain_step: the step's stream cotangents (hu_r, hv_r, hph_r,
+// ha) onto the coefficients.  A pair's cm, sm are its columns of v and its
+// decay is phi, so d(phi)/d(c) = -dt phi and d(angle)/d(d) = t + t_lo.
+template <typename T>
+__device__ __forceinline__ void chain_row(const Col<T>& k, T hu, T hv, T hph, T ha, T ph, T cm,
+                                          T sm, T t, T tl, T dt, T m) {
+    if (k.kind == 0) {
+        k[GA] += hu * m;
+        k[GB] += hph * ph * (-dt);
+    } else if (k.kind > 0) {
+        // u = (a cm + b sm, a sm - b cm), v = (cm, sm) on the pair's rows;
+        // d cm / d ang = -sm, d sm / d ang = cm.
+        const T ang = t + tl, a = k[CA], b = k[CB];
+        k[GC] += hph * ph * (-dt);
+        if (k.kind == 1) {
+            k[GA] += hu * cm;
+            k[GB] += hu * sm;
+            k[GD] += (b * hu * cm - (a * hu + hv) * sm) * ang;
+        } else {
+            k[GA] += hu * sm;
+            k[GB] -= hu * cm;
+            k[GD] += ((a * hu + hv) * cm + b * hu * sm) * ang;
+        }
+    }
+    k[GT] += ha * m;
+}
+
+// The packed layout of load_coeffs, hcf[k * B + l]: a pair's second row
+// hands its terms to the first.  Every thread of the warp calls it.
+template <typename T>
+__device__ __forceinline__ void store_col_grad(const Col<T>& k, int jr, int r, int B, int l,
+                                               bool live, T* __restrict__ hcf) {
+    const int mate = k.kind == 1 ? r + 1 : (k.kind == 2 ? r - 1 : r);
+    T g[4], m[4];
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+        g[f] = k[GA + f];
+        m[f] = __shfl_sync(0xffffffffu, g[f], mate, G);
+    }
+    if (!live) return;
+    const int jc = (P - jr) / 2;
+    if (k.kind == 0) {
+        hcf[(size_t)r * B + l] = g[0];
+        hcf[(size_t)(jr + r) * B + l] = g[1];
+    } else if (k.kind == 1) {
+        const int j = (r - jr) >> 1;
+#pragma unroll
+        for (int f = 0; f < 4; ++f) hcf[(size_t)(2 * jr + f * jc + j) * B + l] = g[f] + m[f];
+    }
+    if (r == 0) hcf[(size_t)(2 * jr + 4 * jc) * B + l] = k[GT];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BLOCK)
 factor_bwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
                   const T* __restrict__ tl, const T* __restrict__ dt, const T* __restrict__ dg,
                   const T* __restrict__ msk, const T* __restrict__ y, int L, int B, int jr,
@@ -406,134 +523,51 @@ factor_bwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
                   const double* __restrict__ hqv0, const double* __restrict__ hq0_,
                   const double* __restrict__ hld_, T* __restrict__ hcf, T* __restrict__ hy_out,
                   T* __restrict__ hsh0) {
-    const int l = blockIdx.x * blockDim.x + threadIdx.x;
-    if (l >= B) return;
-    Coeffs<T> k;
-    load_coeffs(cf + (size_t)(l / seg) * (2 * P + 1), jr, k);
+    __shared__ T tiles[FACTOR_BWD_TILES];
+    __shared__ T cols[NCOL * BLOCK];
+    const Lane ln = lane_of(B);
+    const int l = ln.l, r = ln.r;
+    T* tile = tiles + (threadIdx.x / G) * 2 * P * TS;
+    T* hq = tile + P * TS;
+    const Col<T> k = load_col(cols, cf + (size_t)(l / seg) * (2 * P + 1), jr, r);
 
-    T hSh[P][P], hM[P][P], hQs[P][P], hm[P], hqv[P];
-    load_sq64(hM0 + l, B, hM);
-    load_sq64(hQm0 + l, B, hQs);
-    // hQm enters only symmetrised: hQs = hQm + hQm^T.
+    // The cotangents, rounded to T; hQm waits in the group's tile.
+    T hM[P], hSh[P];
+    get_mat(hQm0, r, B, l, hSh);
+    put_tile_row(hq, r, hSh);
+    __syncwarp();
+    get_mat(hM0, r, B, l, hM);
 #pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-        for (int j = i; j < P; ++j) {
-            const T s = hQs[i][j] + hQs[j][i];
-            hQs[i][j] = s;
-            hQs[j][i] = s;
-        }
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-#pragma unroll
-        for (int j = 0; j < P; ++j) hSh[i][j] = T(0);
-        hm[i] = static_cast<T>(hm0[(size_t)i * B + l]);
-        hqv[i] = static_cast<T>(hqv0[(size_t)i * B + l]);
-    }
+    for (int j = 0; j < P; ++j) hSh[j] = T(0);
+    T hm = r < P ? static_cast<T>(hm0[(size_t)r * B + l]) : T(0);
+    const T hqv = r < P ? static_cast<T>(hqv0[(size_t)r * B + l]) : T(0);
     const T hq0 = static_cast<T>(hq0_[l]), hld = static_cast<T>(hld_[l]);
-    CoefGrad<T> gr;
-    zero_grad(gr);
 
     for (int s = L - 1; s >= 0; --s) {
         const size_t o = (size_t)s * B + l;
-        const T* sp = sv + (size_t)s * NSV1 * B + l;
-        T u[P], v[P], ph[P], a;
         const T ts = t[o], tls = tl[o], dts = dt[o], ms = msk[o];
-        lower_step(k, jr, ts, tls, dts, dg[o], ms, u, v, ph, a);
-        T Shin[P][P], Mprev[P][P], mprev[P];
-        load_sq(sp, B, Shin);
-        load_sq(sp + (size_t)PP * B, B, Mprev);
-#pragma unroll
-        for (int i = 0; i < P; ++i) mprev[i] = sp[(size_t)(2 * PP + i) * B];
-
-        T su[P], w[P], g[P];
-        const T d = riccati_front(Shin, u, v, ph, a, su, w);
-        // g = PhM^T u with PhM = Phi Mprev; z0 = y - u.(ph * mprev).
+        T ur, vr, phr, cm, sm, uv[P], pv[P];
+        lower_row(k, ts, tls, dts, ms, ur, vr, phr, cm, sm);
+        gather(ur, uv);
+        gather(phr, pv);
+        const T a = ms * (dg[o] + k[CT]) + (T(1) - ms);
+        // Row r of the step's saves [Shin, Mprev, mprev].
+        const T* sp = sv + (size_t)s * NSV1 * B + l;
+        T Shin[P], Mprev[P];
 #pragma unroll
         for (int j = 0; j < P; ++j) {
-            T acc = T(0);
-#pragma unroll
-            for (int i = 0; i < P; ++i) acc += ph[i] * Mprev[i][j] * u[i];
-            g[j] = acc;
+            Shin[j] = r < P ? sp[(size_t)(r * P + j) * B] : T(0);
+            Mprev[j] = r < P ? sp[(size_t)(PP + r * P + j) * B] : T(0);
         }
-        T um = T(0);
-#pragma unroll
-        for (int i = 0; i < P; ++i) um += u[i] * (ph[i] * mprev[i]);
-        const T z0 = y[o] - um;
-
-        // E12: the statistics (constant cotangents, one term a step).
-        T hqv_g = T(0), gQg = T(0), hg[P];
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-            T acc = T(0);
-#pragma unroll
-            for (int j = 0; j < P; ++j) acc += hQs[i][j] * g[j];
-            hqv_g += hqv[i] * g[i];
-            gQg += g[i] * acc;
-            hg[i] = acc;
-        }
-        gQg = T(0.5) * gQg;  // g^T hQm g
-        const T dd = d * d;
-        T hz0 = hq0 * (T(2) * z0 / d) + hqv_g / d;
-        T hd = -hq0 * z0 * z0 / dd + hld / d - hqv_g * z0 / dd - gQg / dd;
-#pragma unroll
-        for (int i = 0; i < P; ++i) hg[i] = hqv[i] * (z0 / d) + hg[i] / d;
-
-        // E11: m_out = mh + w z0
-        T hw[P], hu[P], hph[P];
-        T hmw = T(0);
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-            hw[i] = hm[i] * z0;
-            hmw += hm[i] * w[i];
-        }
-        hz0 += hmw;
-        // E10: z0 = y - u.mh
-        hy_out[o] = hz0;
-        // E9: mh = ph * mprev, with hmh = hm - hz0 u
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-            const T hmh = hm[i] - hz0 * u[i];
-            hu[i] = -hz0 * (ph[i] * mprev[i]);
-            hph[i] = hmh * mprev[i];
-            hm[i] = hmh * ph[i];
-        }
-        // E8: M_out = PhM - w g^T
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-            T acc = T(0);
-#pragma unroll
-            for (int j = 0; j < P; ++j) acc += hM[i][j] * g[j];
-            hw[i] -= acc;
-        }
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            T acc = T(0);
-#pragma unroll
-            for (int i = 0; i < P; ++i) acc += hM[i][j] * w[i];
-            hg[j] -= acc;
-        }
-        // E7: g = PhM^T u, hPhM = hM + u hg^T;  E6: PhM = Phi Mprev
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-            T acc = T(0), accm = T(0);
-#pragma unroll
-            for (int j = 0; j < P; ++j) {
-                acc += ph[i] * Mprev[i][j] * hg[j];
-                const T hPhM = hM[i][j] + u[i] * hg[j];
-                accm += hPhM * Mprev[i][j];
-                hM[i][j] = ph[i] * hPhM;
-            }
-            hu[i] += acc;
-            hph[i] += accm;
-        }
-        // E5-E1: the Riccati step.
-        T hv[P], ha;
-        riccati_adjoint(Shin, u, ph, su, d, w, hSh, hw, hd, hu, hph, hv, ha);
-        chain_step(k, jr, hu, hv, hph, ha, v, ph, ts, tls, dts, ms, gr);
+        const T mprev = r < P ? sp[(size_t)(2 * PP + r) * B] : T(0);
+        T hu, hv, hph, ha, hy;
+        factor_bwd_step(tile, hq, r, uv, pv, vr, a, y[o], Shin, Mprev, mprev, hqv, hq0, hld, hM,
+                        hm, hSh, hu, hv, hph, ha, hy);
+        if (ln.live && r == 0) hy_out[o] = hy;
+        chain_row(k, hu, hv, hph, ha, phr, cm, sm, ts, tls, dts, ms);
     }
-    store_grad(gr, jr, B, l, hcf);
-    store_sq(hsh0 + l, B, hSh);
+    store_col_grad(k, jr, r, B, l, ln.live, hcf);
+    if (ln.live && r < P) put_mat(hsh0, r, B, l, hSh);
 }
 
 // ---------------------------------------------------------------------------
@@ -682,7 +716,7 @@ static inline dim3 grid_for(int B) { return dim3((B + THREADS - 1) / THREADS); }
         const void* m, const void* y, const void* sv, const void* hM, const void* hm,            \
         const void* hQm, const void* hqv, const void* hq0, const void* hld, void* hcf,           \
         void* hy, void* hsh0, int L, int B, int jr, int seg, void* stream) {                     \
-        factor_bwd_kernel<T><<<grid_for(B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(  \
+        factor_bwd_kernel<T><<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(  \
             static_cast<const T*>(cf), seg, static_cast<const T*>(t),                            \
             static_cast<const T*>(tl), static_cast<const T*>(dt), static_cast<const T*>(dg),     \
             static_cast<const T*>(m), static_cast<const T*>(y), L, B, jr,                        \

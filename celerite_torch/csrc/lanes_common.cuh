@@ -1,6 +1,7 @@
 // Shared device code of the kernels on pre-lowered (L, P, B) streams
-// (adjoint.cu, pallas_solver.cu, fused.cu, tangent.cu, onepass.cu), padded
-// widths 1..16.
+// (adjoint.cu, pallas_solver.cu, fused.cu, tangent.cu, onepass.cu; and
+// fused4_grad.cu's factor_bwd, which lowers in the kernel), padded widths
+// 1..16.
 //
 // A group of G threads (the power of two at or above P; fused4_common.cuh)
 // owns one lane, thread r row r of every P x P state, so a thread holds a
@@ -13,7 +14,9 @@
 // (A, J, C) from a zero seed, with per-step saves in adjoint.cu and
 // without in pallas_solver.cu and fused.cu; and the seeded factor sweep,
 // with saves in adjoint.cu and without in fused.cu, and from a zero seed
-// with its end state in onepass.cu.
+// with its end state in onepass.cu.  Each sweep's step is a value step
+// (elem_value_step, factor_value_step), which tangent.cu's sweeps with
+// tangents also take, there filling the record their tangent steps read.
 
 #pragma once
 
@@ -66,11 +69,14 @@ __device__ __forceinline__ void put_mat(T* __restrict__ out, int r, int B, int l
     for (int j = 0; j < P; ++j) out[((size_t)r * P + j) * B + l] = x[j];
 }
 
-template <typename T>
-__device__ __forceinline__ void get_mat(const T* __restrict__ in, int r, int B, int l,
+// Row r of a (P, P, B) per-lane matrix (of float64 glue operands too,
+// rounded to T); zeros for r >= P.
+template <typename T, typename U>
+__device__ __forceinline__ void get_mat(const U* __restrict__ in, int r, int B, int l,
                                         T (&x)[P]) {
 #pragma unroll
-    for (int j = 0; j < P; ++j) x[j] = r < P ? in[((size_t)r * P + j) * B + l] : T(0);
+    for (int j = 0; j < P; ++j)
+        x[j] = r < P ? static_cast<T>(in[((size_t)r * P + j) * B + l]) : T(0);
 }
 
 // The step's intermediates, row r: S = Phi Shin Phi, su = S u, d = a -
@@ -89,6 +95,143 @@ __device__ __forceinline__ T front_row(const T (&Shin)[P], const T (&u)[P], cons
     wr = r < P ? (vr - su) / d : T(0);
     gather(wr, w);
     return d;
+}
+
+// A value step's record: what the forward-mode tangent steps of that step
+// read of the value (tangent.cu), field f at rec[f * S].  d, 1 / d and z0;
+// rows r of su, w, u, phi and of uA (elements) or g (factor) after the
+// step; at the step's start m_r (factor) and the rows of Sh and of A or M,
+// a column's rows together (entry (r, j) at QS + j * P + r).
+constexpr int QD = 0, QRD = 1, QZ = 2, QSU = 3, QW = QSU + P, QU = QW + P, QPH = QU + P,
+              QG = QPH + P, QM = QG + P, QS = QM + P, QA = QS + PP, NQ = QA + PP;
+
+template <typename T, int S>
+struct Rec {
+    T* p;
+    __device__ __forceinline__ T& operator[](int f) const { return p[f * S]; }
+};
+
+// A record that is not kept (the sweeps without tangents).
+template <typename T>
+__device__ __forceinline__ Rec<T, 0> no_rec() {
+    return Rec<T, 0>{nullptr};
+}
+
+// A Kahan-compensated sum.
+template <typename T>
+struct Kahan {
+    T s, c;
+    __device__ __forceinline__ void add(T x) {
+        const T y = x - c;
+        const T t = s + y;
+        c = (t - s) - y;
+        s = t;
+    }
+    __device__ __forceinline__ double total() const { return (double)s + (double)c; }
+};
+
+// The elements sweep's value step, row r, from the step's streams (u, ph
+// whole, v_r, a): Sh <- Phi Sh Phi + d w w^T, A <- Phi A - w uA^T and
+// J <- J - uA uA^T / d with uA = A^T Phi u.  With PUB it fills the step's
+// record.
+template <bool PUB, typename T, int S>
+__device__ __forceinline__ void elem_value_step(const T (&uv)[P], const T (&pv)[P], T vr, T a,
+                                                int r, T (&Sh)[P], T (&A)[P], T (&J)[P],
+                                                Rec<T, S> rec) {
+    if (PUB && r < P) {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+            rec[QS + j * P + r] = Sh[j];
+            rec[QA + j * P + r] = A[j];
+        }
+    }
+    T w[P], uA[P], su, wr;
+    const T d = front_row(Sh, uv, pv, vr, a, r, Sh, su, wr, w);
+#pragma unroll
+    for (int j = 0; j < P; ++j) Sh[j] = Sh[j] + d * wr * w[j];
+    // uAc = A^T (Phi u): a sum over rows for every column.
+    const T phr = pick(pv, r), utr = phr * pick(uv, r);
+#pragma unroll
+    for (int j = 0; j < P; ++j) uA[j] = group_sum(A[j] * utr);
+    // uA_j / d from thread j: one division a thread, the same words as
+    // dividing every column (a butterfly's sum is alike in every thread).
+    const T uAr = pick(uA, r), qr = uAr / d;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        A[j] = phr * A[j] - wr * uA[j];
+        J[j] = J[j] - uAr * __shfl_sync(0xffffffffu, qr, j, G);
+    }
+    if (!PUB) return;
+    if (r == 0) {
+        rec[QD] = d;
+        rec[QRD] = T(1) / d;
+    }
+    if (r < P) {
+        rec[QSU + r] = su;
+        rec[QW + r] = wr;
+        rec[QU + r] = pick(uv, r);
+        rec[QPH + r] = phr;
+        rec[QG + r] = uAr;
+    }
+}
+
+// The factor sweep's value step, row r, from the step's streams (u, ph
+// whole, v_r, a, y): the Riccati step, M <- Phi M - w g^T with g = (Phi
+// M)^T u, m <- Phi m + w z0 with z0 = y - u . Phi m, and the statistics
+// Qm, qv, the Kahan-summed quad and log-det, the minimum pivot.  With PUB
+// it fills the step's record.
+template <bool PUB, typename T, int S>
+__device__ __forceinline__ void factor_value_step(const T (&uv)[P], const T (&pv)[P], T vr, T a,
+                                                  T y, int r, T (&Sh)[P], T (&M)[P], T (&Qm)[P],
+                                                  T& mr, T& qvr, Kahan<T>& q0, Kahan<T>& ld,
+                                                  T& mind, Rec<T, S> rec) {
+    if (PUB && r < P) {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+            rec[QS + j * P + r] = Sh[j];
+            rec[QA + j * P + r] = M[j];
+        }
+        rec[QM + r] = mr;
+    }
+    T w[P], g[P], su, wr;
+    const T d = front_row(Sh, uv, pv, vr, a, r, Sh, su, wr, w);
+#pragma unroll
+    for (int j = 0; j < P; ++j) Sh[j] = Sh[j] + d * wr * w[j];
+    // M <- Phi M - w g^T with g = (Phi M)^T u.
+    const T phr = pick(pv, r), ur = pick(uv, r);
+#pragma unroll
+    for (int j = 0; j < P; ++j) M[j] = phr * M[j];
+#pragma unroll
+    for (int j = 0; j < P; ++j) g[j] = group_sum(M[j] * ur);
+    const T gr = pick(g, r);
+#pragma unroll
+    for (int j = 0; j < P; ++j) M[j] = M[j] - wr * g[j];
+    // m <- Phi m + w z0 with z0 = y - u . Phi m.
+    const T mh = phr * mr;
+    const T z0 = y - group_sum(ur * mh);
+    mr = mh + wr * z0;
+    // Kahan-compensated quad and log-det.
+    q0.add(z0 * z0 / d);
+    ld.add(dlog(d));
+    qvr = qvr + (z0 / d) * gr;
+    const T qr = gr / d;  // g_j / d from thread j, as uA_j / d above
+#pragma unroll
+    for (int j = 0; j < P; ++j) Qm[j] = Qm[j] + gr * __shfl_sync(0xffffffffu, qr, j, G);
+    // NaN-propagating min, like torch.minimum.
+    mind = (d < mind || d != d) ? d : mind;
+    if (!PUB) return;
+    if (r == 0) {
+        rec[QD] = d;
+        rec[QRD] = T(1) / d;
+        rec[QZ] = z0;
+    }
+    if (r < P) {
+        rec[QSU + r] = su;
+        rec[QW + r] = wr;
+        rec[QU + r] = ur;
+        rec[QPH + r] = phr;
+        rec[QG + r] = gr;
+    }
 }
 
 // Each lane's Riccati element (A, J, C) from a zero seed (the Pallas
@@ -116,23 +259,11 @@ __device__ __forceinline__ void elements_sweep(const T* __restrict__ u, const T*
             save_row(svs, r, Sh);
             save_row(svs + PP, r, A);
         }
-        T uv[P], pv[P], w[P], uA[P], su, wr;
+        T uv[P], pv[P];
         load_vec(u, s, B, l, uv);
         load_vec(ph, s, B, l, pv);
         const T vr = r < P ? v[((size_t)s * P + r) * B + l] : T(0);
-        const T d = front_row(Sh, uv, pv, vr, a[(size_t)s * B + l], r, Sh, su, wr, w);
-#pragma unroll
-        for (int j = 0; j < P; ++j) Sh[j] = Sh[j] + d * wr * w[j];
-        // uAc = A^T (Phi u): a sum over rows for every column.
-        const T phr = pick(pv, r), utr = phr * pick(uv, r);
-#pragma unroll
-        for (int j = 0; j < P; ++j) uA[j] = group_sum(A[j] * utr);
-        const T uAr = pick(uA, r);
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            A[j] = phr * A[j] - wr * uA[j];
-            J[j] = J[j] - uAr * (uA[j] / d);
-        }
+        elem_value_step<false>(uv, pv, vr, a[(size_t)s * B + l], r, Sh, A, J, no_rec<T>());
     }
     if (!ln.live || r >= P) return;
     put_mat(A_out, r, B, l, A);
@@ -171,8 +302,8 @@ __device__ __forceinline__ void factor_sweep(const T* __restrict__ u, const T* _
         M[j] = j == r ? T(1) : T(0);
         Qm[j] = T(0);
     }
-    T mr = T(0), qvr = T(0), q0 = T(0), cq0 = T(0), ld = T(0), cld = T(0);
-    T mind = T(INFINITY);
+    T mr = T(0), qvr = T(0), mind = T(INFINITY);
+    Kahan<T> q0{T(0), T(0)}, ld{T(0), T(0)};
     for (int s = 0; s < L; ++s) {
         if (SAVE && ln.live) {
             T* svs = sv + ((size_t)s * B + l) * NSV1;
@@ -180,41 +311,13 @@ __device__ __forceinline__ void factor_sweep(const T* __restrict__ u, const T* _
             save_row(svs + PP, r, M);
             if (r < P) svs[2 * PP + r] = mr;
         }
-        T uv[P], pv[P], w[P], g[P], su, wr;
+        T uv[P], pv[P];
         load_vec(u, s, B, l, uv);
         load_vec(ph, s, B, l, pv);
         const T vr = r < P ? v[((size_t)s * P + r) * B + l] : T(0);
         const size_t o = (size_t)s * B + l;
-        const T d = front_row(Sh, uv, pv, vr, a[o], r, Sh, su, wr, w);
-#pragma unroll
-        for (int j = 0; j < P; ++j) Sh[j] = Sh[j] + d * wr * w[j];
-        // M <- Phi M - w g^T with g = (Phi M)^T u.
-        const T phr = pick(pv, r), ur = pick(uv, r);
-#pragma unroll
-        for (int j = 0; j < P; ++j) M[j] = phr * M[j];
-#pragma unroll
-        for (int j = 0; j < P; ++j) g[j] = group_sum(M[j] * ur);
-        const T gr = pick(g, r);
-#pragma unroll
-        for (int j = 0; j < P; ++j) M[j] = M[j] - wr * g[j];
-        // m <- Phi m + w z0 with z0 = y - u . Phi m.
-        const T mh = phr * mr;
-        const T z0 = y[o] - group_sum(ur * mh);
-        mr = mh + wr * z0;
-        // Kahan-compensated quad and log-det.
-        const T x1 = z0 * z0 / d - cq0;
-        const T t1 = q0 + x1;
-        cq0 = (t1 - q0) - x1;
-        q0 = t1;
-        const T x2 = dlog(d) - cld;
-        const T t2 = ld + x2;
-        cld = (t2 - ld) - x2;
-        ld = t2;
-        qvr = qvr + (z0 / d) * gr;
-#pragma unroll
-        for (int j = 0; j < P; ++j) Qm[j] = Qm[j] + gr * (g[j] / d);
-        // NaN-propagating min, like torch.minimum.
-        mind = (d < mind || d != d) ? d : mind;
+        factor_value_step<false>(uv, pv, vr, a[o], y[o], r, Sh, M, Qm, mr, qvr, q0, ld, mind,
+                                 no_rec<T>());
     }
     if (!ln.live || r >= P) return;
     put_mat(M_out, r, B, l, M);
@@ -223,8 +326,8 @@ __device__ __forceinline__ void factor_sweep(const T* __restrict__ u, const T* _
     m_out[(size_t)r * B + l] = mr;
     qv_out[(size_t)r * B + l] = qvr;
     if (r == 0) {
-        q0_out[l] = (double)q0 + (double)cq0;
-        ld_out[l] = (double)ld + (double)cld;
+        q0_out[l] = q0.total();
+        ld_out[l] = ld.total();
         mind_out[l] = mind;
     }
 }

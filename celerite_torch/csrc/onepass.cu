@@ -73,7 +73,7 @@ onepass_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __
                    const T* __restrict__ hld0, int L, int B, T* __restrict__ hu_out,
                    T* __restrict__ hv_out, T* __restrict__ hph_out, T* __restrict__ ha_out,
                    T* __restrict__ hy_out) {
-    __shared__ T tiles[LANES * P * TS];
+    __shared__ T tiles[FACTOR_BWD_TILES];
     factor_bwd_sweep(tiles, u, v, ph, a, y, sv, hC0, hM0, hm0, hQm0, hqv0, hq00, hld0, L, B,
                      hu_out, hv_out, hph_out, ha_out, hy_out, static_cast<T*>(nullptr));
 }

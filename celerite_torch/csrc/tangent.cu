@@ -18,40 +18,58 @@
 // Tangent streams are (L, T, P, B) and (L, T, 1, B), the direction axis
 // ahead of the small dims, as in the Pallas kernels.
 //
-// Design.  A group of G threads (the power of two at or above P) runs one
-// (lane, direction) item, as in dsfused.cu: item i of a launch is lane
-// i % B along direction i / B, thread r owns row r of every P x P state
-// (value and tangent), so a thread holds 6 P values of state whatever T
-// is; the direction chunk is therefore not bounded by registers or shared
-// memory, and a launch takes all T directions (ops/tangent.py).  Each item
-// recomputes its lane's value recursion beside its tangent, as each
-// direction chunk of the JAX pipeline reruns the value: carrying the value
-// once a lane would hold T tangent copies of three P x P states in one
-// group (3 T P^2 words, 80 KB at P = 16, T = 13 in float64) and barrier
-// the directions at every step, while the recursion is a chain of
-// dependent steps whose latency the value's repeat does not lengthen.  The
-// item of direction 0 also writes the value.  The scans give a
-// (segment, direction) pair one block (prefix_common.cuh), which redoes
-// the segment's value scan beside its tangent for the same reason.
+// Design.  A group of G threads (the power of two at or above P) steps a
+// lane, thread r owning row r of every P x P state.  A step is two device
+// functions: the value step (elem_value_step, factor_value_step in
+// lanes_common.cuh, the sweeps without tangents take them too) fills a
+// record of what the tangents read of it (the step's start rows of Sh and
+// of A or M, d, z0, and rows of su, w, u, phi, uA or g); a direction's
+// tangent step (elem_tan_step, factor_tan_step below) reads that record and
+// its own tangent streams.  The two layouts differ in who runs the value:
 //
-// Bound.  Bytes: the value streams once an item a sweep would be (3P + 1)
-// words a point and direction; counted once, each input read once (the
-// value streams and the T tangent streams, (3P + 1)(1 + T) words a point
-// for the elements, (3P + 2)(1 + T) for the factor) and each output
-// written once.  At config[2] (P = 8, T = 7) over 16 chains of N = 1e5 in
-// float64 that is ~2.6 GB a sweep, ~0.8 ms at 3.35 TB/s.  Operations: the
-// value step once and the tangent step T times a point (~15 P^2 + 41 T P^2
-// flops a point and sweep; chip_smoke.tangent_bound_ms counts them from
-// the code), ~3 x 10^10 a sweep there, ~0.9 ms at 34 TFLOP/s float64; with
-// the scans the jac launches are bound by operations (1.8 ms).  The
-// kernels also redo the value step T times (not counted in the bound) and
-// are a chain of dependent steps a lane.
+// - The jac sweeps (jac_elements_kernel, jac_factor_kernel) carry the
+//   value once a lane.  A block holds LB = 32 / G lanes (4 at P = 8):
+//   warp 0 is the value warp, warp 1 + j direction j of the block's chunk
+//   of at most TCH = 7 directions (more directions take more chunks,
+//   blockIdx.y, each redoing the value once).  Steps go by tiles of KT =
+//   4: each warp copies its streams of a tile (the value's u, v, phi, a,
+//   y; a direction's tangents of them) into its own ring with cp.async two
+//   tiles ahead; the value warp sweeps tile k and writes its records into
+//   the record ring, which a named barrier hands to the direction warps,
+//   which sweep tile k while the value warp goes on with k + 1.  Each
+//   output is written once, the value's by the value warp of chunk 0, a
+//   direction's by its warp.  A sweep's lanes are chains of dependent
+//   steps, each bound by its latency (the value warp's: a tangent warp's
+//   step reads the value's record and needs no division), so two blocks
+//   share an SM: 128 registers a thread (the launch bound) and ~99 KiB of
+//   shared memory a block at P = 8 in float64, for which the value warp's
+//   factor rows of Qm, only accumulated, wait in shared memory.
+// - The split pair (tangent_elements_kernel, tangent_factor_kernel; padded
+//   width 9-16, T = 13 on the models that take it) keeps a group of G
+//   threads a (lane, direction) item, BLOCK threads a block: each item
+//   steps its lane's value into its group's record in shared memory, then
+//   its direction's tangent from it, so the value runs once a direction.
+//   At P = 16 a block of the jac layout would hold 2 lanes and 14 warps,
+//   with ~0.3 MB of rings at KT = 8.
 //
-// Rounding: -fmad=false (_build.SOURCE_FLAGS), so that float32 rounds as
+// Bound.  Bytes: each input read once (the value streams and the T tangent
+// streams, (3P + 1)(1 + T) words a point for the elements, (3P + 2)(1 + T)
+// for the factor) and each output written once.  At config[2] (P = 8,
+// T = 7) over 16 chains of N = 1e5 in float64 that is ~2.6 GB a sweep,
+// ~0.8 ms at 3.35 TB/s.  Operations: the value step once and the tangent
+// step T times a point (~15 P^2 + 41 T P^2 flops a point and sweep;
+// chip_smoke.tangent_bound_ms counts them from the code), ~3 x 10^10 a
+// sweep there, ~0.9 ms at 34 TFLOP/s float64; with the scans the jac
+// launches are bound by operations (1.8 ms).  Each lane's steps are a chain
+// of dependent steps, each with a few dozen shuffle reductions, so a sweep
+// of few lanes is bound by a step's latency instead.
+//
+// Rounding: -fmad=false (_build.SOURCE_FLAGS), so that the value rounds as
 // the plain versions (torch.func.jvp of ops/pallas_solver's and
-// ops/adjoint's plain sweeps), which keep every multiply and add separate.
-// The tangents of the Kahan sums are Kahan sums, as the jvp of the plain
-// version's compensated sums is; the Pallas kernels sum them plainly.
+// ops/adjoint's plain sweeps), which keep every multiply and add separate;
+// the tangent steps multiply by 1 / d where those divide.  The tangents of
+// the Kahan sums are Kahan sums, as the jvp of the plain version's
+// compensated sums is; the Pallas kernels sum them plainly.
 //
 // Compiled once per padded width: nvcc -DCELERITE_P=<P> (1 <= P <= 16).
 
@@ -74,15 +92,6 @@ __device__ __forceinline__ Item item_of(int B, int nT) {
     it.k = (int)(gi / B);
     it.r = (int)(threadIdx.x % G);
     return it;
-}
-
-// x[s, k, :, l] of an (L, T, P, B) tangent stream, whole.
-template <typename T>
-__device__ __forceinline__ void load_tvec(const T* __restrict__ x, int s, int k, int nT, int B,
-                                          int l, T (&out)[P]) {
-    const T* p = x + ((size_t)s * nT + k) * P * B + l;
-#pragma unroll
-    for (int j = 0; j < P; ++j) out[j] = p[(size_t)j * B];
 }
 
 // Entry r of x[s, k, :, l] (0 for r >= P), and x[s, k, 0, l] of an
@@ -113,51 +122,162 @@ __device__ __forceinline__ void get_tmat(const T* __restrict__ in, int k, int r,
     for (int j = 0; j < P; ++j) x[j] = r < P ? in[tan_at(k, r * P + j, B, l)] : T(0);
 }
 
-// Row r of the Riccati step Sh <- Phi Sh Phi + d w w^T and its tangent,
-// from the step's value and tangent streams (u, ph whole, v and dv at row
-// r).  Returns d; leaves w_r, every w_j, dw_r, every dw_j and dd.
-template <typename T>
-__device__ __forceinline__ T riccati_tan_row(T (&Sh)[P], T (&dSh)[P], int r, const T (&u)[P],
-                                             const T (&du)[P], const T (&ph)[P],
-                                             const T (&dph)[P], T vr, T dvr, T a, T da, T& wr,
-                                             T (&w)[P], T& dwr, T (&dw)[P], T& dd) {
-    const T phr = pick(ph, r), dphr = pick(dph, r), ur = pick(u, r), dur = pick(du, r);
-    T su = T(0), dsu = T(0);
+// ---------------------------------------------------------------------------
+// A direction's tangent step, row r, from the value's record of the step
+// (Rec, lanes_common.cuh) and the direction's streams of the step in
+// shared memory (`in`, field f at in[f * S]: du, dv, dph, da, dy), read
+// where they are used rather than held in registers.
+// ---------------------------------------------------------------------------
+
+// A step's stream fields: u (or du), v, phi (P each), a, y.
+constexpr int FU = 0, FV = P, FPH = 2 * P, FA = 3 * P, FY = 3 * P + 1, NF = 3 * P + 2;
+
+// The tangent of the Riccati step Sh <- Phi Sh Phi + d w w^T.  Returns dd;
+// leaves d, 1 / d, w_r and dw_r.  The tangent steps multiply by the value's
+// 1 / d where the plain versions divide by d (a few ulp, far inside the
+// float64 bar): divisions were most of a tangent step's instructions.
+template <typename T, int S, int SI>
+__device__ __forceinline__ T riccati_tangent_row(Rec<T, S> rec, Rec<T, SI> in, int r,
+                                                 T (&dSh)[P], T& d, T& rd, T& wr, T& dwr) {
+    const bool row = r < P;
+    const T phr = row ? rec[QPH + r] : T(0), ur = row ? rec[QU + r] : T(0);
+    const T dphr = row ? in[FPH + r] : T(0), dur = row ? in[FU + r] : T(0);
+    const T dvr = row ? in[FV + r] : T(0);
+    T dsu = T(0);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-        dSh[j] = dphr * Sh[j] * ph[j] + phr * dSh[j] * ph[j] + phr * Sh[j] * dph[j];
-        Sh[j] = phr * Sh[j] * ph[j];
-        su += Sh[j] * u[j];
-        dsu += dSh[j] * u[j] + Sh[j] * du[j];
+        const T shj = row ? rec[QS + j * P + r] : T(0);
+        const T phj = rec[QPH + j];
+        dSh[j] = dphr * shj * phj + phr * dSh[j] * phj + phr * shj * in[FPH + j];
+        dsu += dSh[j] * rec[QU + j] + phr * shj * phj * in[FU + j];
     }
-    const T d = a - group_sum(ur * su);
-    dd = da - group_sum(dur * su + ur * dsu);
-    wr = r < P ? (vr - su) / d : T(0);
-    dwr = r < P ? ((dvr - dsu) - wr * dd) / d : T(0);
-    gather(wr, w);
-    gather(dwr, dw);
+    const T su = row ? rec[QSU + r] : T(0);
+    d = rec[QD];
+    rd = rec[QRD];
+    const T dd = in[FA] - group_sum(dur * su + ur * dsu);
+    wr = row ? rec[QW + r] : T(0);
+    dwr = row ? ((dvr - dsu) - wr * dd) * rd : T(0);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-        dSh[j] = dSh[j] + dd * wr * w[j] + d * (dwr * w[j] + wr * dw[j]);
-        Sh[j] = Sh[j] + d * wr * w[j];
+        const T wj = rec[QW + j];
+        const T dwj = __shfl_sync(0xffffffffu, dwr, j, G);
+        dSh[j] = dSh[j] + dd * wr * wj + d * (dwr * wj + wr * dwj);
     }
-    return d;
+    return dd;
+}
+
+// The elements sweep's tangent step: (dSh, dA, dJ).
+template <typename T, int S, int SI>
+__device__ __forceinline__ void elem_tan_step(Rec<T, S> rec, Rec<T, SI> in, int r, T (&dSh)[P],
+                                              T (&dA)[P], T (&dJ)[P]) {
+    T d, rd, wr, dwr, duA[P];
+    const T dd = riccati_tangent_row(rec, in, r, dSh, d, rd, wr, dwr);
+    const bool row = r < P;
+    const T phr = row ? rec[QPH + r] : T(0), ur = row ? rec[QU + r] : T(0);
+    const T dphr = row ? in[FPH + r] : T(0), dur = row ? in[FU + r] : T(0);
+    // uA = A^T (Phi u) and its tangent, sums over rows for every column.
+    const T utr = phr * ur, dutr = dphr * ur + phr * dur;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        const T aj = row ? rec[QA + j * P + r] : T(0);
+        duA[j] = group_sum(dA[j] * utr + aj * dutr);
+    }
+    const T uAr = row ? rec[QG + r] : T(0), duAr = pick(duA, r);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        const T aj = row ? rec[QA + j * P + r] : T(0);
+        const T uAj = rec[QG + j];
+        dA[j] = dphr * aj + phr * dA[j] - dwr * uAj - wr * duA[j];
+        dJ[j] = dJ[j] - (duAr * (uAj * rd) + uAr * (duA[j] * rd - uAj * dd * (rd * rd)));
+    }
+}
+
+// The factor sweep's tangent step: (dSh, dM, dm) carried, dQm, dqv and
+// the Kahan-summed tangents of the quad and the log-det accumulated.
+template <typename T, int S, int SI>
+__device__ __forceinline__ void factor_tan_step(Rec<T, S> rec, Rec<T, SI> in, int r,
+                                                T (&dSh)[P], T (&dM)[P], T (&dQm)[P], T& dmr,
+                                                T& dqvr, Kahan<T>& dq0, Kahan<T>& dld) {
+    T d, rd, wr, dwr, dg[P];
+    const T dd = riccati_tangent_row(rec, in, r, dSh, d, rd, wr, dwr);
+    const bool row = r < P;
+    const T phr = row ? rec[QPH + r] : T(0), ur = row ? rec[QU + r] : T(0);
+    const T dphr = row ? in[FPH + r] : T(0), dur = row ? in[FU + r] : T(0);
+    // M <- Phi M - w g^T with g = (Phi M)^T u: the tangents of Phi M and g.
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        const T mj = row ? rec[QA + j * P + r] : T(0);
+        dM[j] = dphr * mj + phr * dM[j];
+        dg[j] = group_sum(dM[j] * ur + phr * mj * dur);
+    }
+    const T gr = row ? rec[QG + r] : T(0), dgr = pick(dg, r);
+#pragma unroll
+    for (int j = 0; j < P; ++j) dM[j] = dM[j] - dwr * rec[QG + j] - wr * dg[j];
+    // m <- Phi m + w z0 with z0 = y - u . Phi m.
+    const T mr = row ? rec[QM + r] : T(0);
+    const T mh = phr * mr, dmh = dphr * mr + phr * dmr;
+    const T z0 = rec[QZ];
+    const T dz0 = in[FY] - group_sum(dur * mh + ur * dmh);
+    dmr = dmh + dwr * z0 + wr * dz0;
+    // The tangents of the Kahan-compensated quad and log-det, qv and Qm.
+    const T zd = z0 * rd, dzd = (dz0 - zd * dd) * rd;
+    dq0.add(dz0 * zd + z0 * dzd);
+    dld.add(dd * rd);
+    dqvr = dqvr + dzd * gr + zd * dgr;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        const T gj = rec[QG + j];
+        dQm[j] = dQm[j] + (dgr * (gj * rd) + gr * (dg[j] * rd - gj * dd * (rd * rd)));
+    }
 }
 
 // ---------------------------------------------------------------------------
-// The elements sweep with tangents: each lane's (A, J, C) from a zero seed
-// and direction k's (dA, dJ, dC).
+// The split pair's layout: a group of G threads a (lane, direction) item,
+// the value stepped into the group's record, then the direction's tangent.
 // ---------------------------------------------------------------------------
 
+constexpr int ITEM_GROUPS = BLOCK / G;
+// A group's words of shared memory: the value's record, then the step's
+// tangent streams.
+constexpr int ITEM_WORDS = NQ + NF;
+
 template <typename T>
-__device__ __forceinline__ void elements_jvp_sweep(
-    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
+__device__ __forceinline__ Rec<T, 1> item_rec(T* recs) {
+    return Rec<T, 1>{recs + (threadIdx.x / G) * ITEM_WORDS};
+}
+
+// Direction k's streams of step s into the group's words: row r of du,
+// dv, dph, and da (dy, unless null) from thread 0.
+template <typename T>
+__device__ __forceinline__ Rec<T, 1> item_in(T* recs, int r, int s, int k, int nT, int B, int l,
+                                             const T* __restrict__ du,
+                                             const T* __restrict__ dv,
+                                             const T* __restrict__ dph,
+                                             const T* __restrict__ da,
+                                             const T* __restrict__ dy) {
+    const Rec<T, 1> in{recs + (threadIdx.x / G) * ITEM_WORDS + NQ};
+    if (r < P) {
+        in[FU + r] = tvec_row(du, s, k, nT, B, l, r);
+        in[FV + r] = tvec_row(dv, s, k, nT, B, l, r);
+        in[FPH + r] = tvec_row(dph, s, k, nT, B, l, r);
+    }
+    if (r == 0) {
+        in[FA] = tscal(da, s, k, nT, B, l);
+        if (dy != nullptr) in[FY] = tscal(dy, s, k, nT, B, l);
+    }
+    return in;
+}
+
+template <typename T>
+__device__ __forceinline__ void elements_jvp_items(
+    T* recs, const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
     const T* __restrict__ a, const T* __restrict__ du, const T* __restrict__ dv,
     const T* __restrict__ dph, const T* __restrict__ da, int L, int B, int nT,
     T* __restrict__ A_out, T* __restrict__ J_out, T* __restrict__ C_out, T* __restrict__ DA_out,
     T* __restrict__ DJ_out, T* __restrict__ DC_out) {
     const Item it = item_of(B, nT);
     const int l = it.l, k = it.k, r = it.r;
+    const Rec<T, 1> rec = item_rec(recs);
     T Sh[P], A[P], J[P], dSh[P], dA[P], dJ[P];
 #pragma unroll
     for (int j = 0; j < P; ++j) {
@@ -165,32 +285,16 @@ __device__ __forceinline__ void elements_jvp_sweep(
         A[j] = j == r ? T(1) : T(0);
     }
     for (int s = 0; s < L; ++s) {
-        T uv[P], pv[P], duv[P], dpv[P], w[P], dw[P], uA[P], duA[P], wr, dwr, dd;
+        T uv[P], pv[P];
         load_vec(u, s, B, l, uv);
         load_vec(ph, s, B, l, pv);
-        load_tvec(du, s, k, nT, B, l, duv);
-        load_tvec(dph, s, k, nT, B, l, dpv);
         const T vr = r < P ? v[((size_t)s * P + r) * B + l] : T(0);
-        const T dvr = tvec_row(dv, s, k, nT, B, l, r);
-        const T d = riccati_tan_row(Sh, dSh, r, uv, duv, pv, dpv, vr, dvr,
-                                    a[(size_t)s * B + l], tscal(da, s, k, nT, B, l), wr, w, dwr,
-                                    dw, dd);
-        // uA = A^T (Phi u): a sum over rows for every column.
-        const T phr = pick(pv, r), dphr = pick(dpv, r);
-        const T utr = phr * pick(uv, r), dutr = dphr * pick(uv, r) + phr * pick(duv, r);
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            uA[j] = group_sum(A[j] * utr);
-            duA[j] = group_sum(dA[j] * utr + A[j] * dutr);
-        }
-        const T uAr = pick(uA, r), duAr = pick(duA, r);
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            dA[j] = dphr * A[j] + phr * dA[j] - dwr * uA[j] - wr * duA[j];
-            dJ[j] = dJ[j] - (duAr * (uA[j] / d) + uAr * (duA[j] / d - uA[j] * dd / (d * d)));
-            A[j] = phr * A[j] - wr * uA[j];
-            J[j] = J[j] - uAr * (uA[j] / d);
-        }
+        const Rec<T, 1> in = item_in(recs, r, s, k, nT, B, l, du, dv, dph, da,
+                                     static_cast<const T*>(nullptr));
+        elem_value_step<true>(uv, pv, vr, a[(size_t)s * B + l], r, Sh, A, J, rec);
+        __syncwarp();
+        elem_tan_step(rec, in, r, dSh, dA, dJ);
+        __syncwarp();
     }
     if (!it.live || r >= P) return;
     if (k == 0) {
@@ -203,14 +307,9 @@ __device__ __forceinline__ void elements_jvp_sweep(
     put_tmat(DC_out, k, r, B, l, dSh);
 }
 
-// ---------------------------------------------------------------------------
-// The factor sweep with tangents: from each lane's seed sh0 and direction
-// k's dsh0, the affine map, the statistics and their tangents.
-// ---------------------------------------------------------------------------
-
 template <typename T>
-__device__ __forceinline__ void factor_jvp_sweep(
-    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
+__device__ __forceinline__ void factor_jvp_items(
+    T* recs, const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
     const T* __restrict__ a, const T* __restrict__ y, const T* __restrict__ du,
     const T* __restrict__ dv, const T* __restrict__ dph, const T* __restrict__ da,
     const T* __restrict__ dy, const T* __restrict__ sh0, const T* __restrict__ dsh0, int L,
@@ -221,6 +320,7 @@ __device__ __forceinline__ void factor_jvp_sweep(
     double* __restrict__ Dld_out) {
     const Item it = item_of(B, nT);
     const int l = it.l, k = it.k, r = it.r;
+    const Rec<T, 1> rec = item_rec(recs);
     // Row r of Sh, M, Qm, entry r of m and qv, and their tangents; the
     // scalar statistics are kept alike in every thread of the group.
     T Sh[P], dSh[P], M[P], dM[P], Qm[P], dQm[P];
@@ -231,72 +331,20 @@ __device__ __forceinline__ void factor_jvp_sweep(
         M[j] = j == r ? T(1) : T(0);
         dM[j] = Qm[j] = dQm[j] = T(0);
     }
-    T mr = T(0), dmr = T(0), qvr = T(0), dqvr = T(0);
-    T q0 = T(0), cq0 = T(0), ld = T(0), cld = T(0);
-    T dq0 = T(0), dcq0 = T(0), dld = T(0), dcld = T(0);
-    T mind = T(INFINITY);
+    T mr = T(0), dmr = T(0), qvr = T(0), dqvr = T(0), mind = T(INFINITY);
+    Kahan<T> q0{T(0), T(0)}, ld{T(0), T(0)}, dq0{T(0), T(0)}, dld{T(0), T(0)};
     for (int s = 0; s < L; ++s) {
-        T uv[P], pv[P], duv[P], dpv[P], w[P], dw[P], g[P], dg[P], wr, dwr, dd;
+        T uv[P], pv[P];
         load_vec(u, s, B, l, uv);
         load_vec(ph, s, B, l, pv);
-        load_tvec(du, s, k, nT, B, l, duv);
-        load_tvec(dph, s, k, nT, B, l, dpv);
         const size_t o = (size_t)s * B + l;
         const T vr = r < P ? v[((size_t)s * P + r) * B + l] : T(0);
-        const T dvr = tvec_row(dv, s, k, nT, B, l, r);
-        const T d = riccati_tan_row(Sh, dSh, r, uv, duv, pv, dpv, vr, dvr, a[o],
-                                    tscal(da, s, k, nT, B, l), wr, w, dwr, dw, dd);
-        // M <- Phi M - w g^T with g = (Phi M)^T u.
-        const T phr = pick(pv, r), dphr = pick(dpv, r), ur = pick(uv, r), dur = pick(duv, r);
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            dM[j] = dphr * M[j] + phr * dM[j];
-            M[j] = phr * M[j];
-        }
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            g[j] = group_sum(M[j] * ur);
-            dg[j] = group_sum(dM[j] * ur + M[j] * dur);
-        }
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            dM[j] = dM[j] - dwr * g[j] - wr * dg[j];
-            M[j] = M[j] - wr * g[j];
-        }
-        // m <- Phi m + w z0 with z0 = y - u . Phi m.
-        const T mh = phr * mr, dmh = dphr * mr + phr * dmr;
-        const T z0 = y[o] - group_sum(ur * mh);
-        const T dz0 = tscal(dy, s, k, nT, B, l) - group_sum(dur * mh + ur * dmh);
-        dmr = dmh + dwr * z0 + wr * dz0;
-        mr = mh + wr * z0;
-        // The Kahan-compensated quad and log-det, and their tangents.
-        const T zd = z0 / d, dzd = (dz0 - zd * dd) / d;
-        const T x1 = z0 * z0 / d - cq0;
-        const T t1 = q0 + x1;
-        cq0 = (t1 - q0) - x1;
-        q0 = t1;
-        const T x2 = dlog(d) - cld;
-        const T t2 = ld + x2;
-        cld = (t2 - ld) - x2;
-        ld = t2;
-        const T y1 = dz0 * zd + z0 * dzd - dcq0;
-        const T s1 = dq0 + y1;
-        dcq0 = (s1 - dq0) - y1;
-        dq0 = s1;
-        const T y2 = dd / d - dcld;
-        const T s2 = dld + y2;
-        dcld = (s2 - dld) - y2;
-        dld = s2;
-        const T gr = pick(g, r), dgr = pick(dg, r);
-        qvr = qvr + zd * gr;
-        dqvr = dqvr + dzd * gr + zd * dgr;
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            dQm[j] = dQm[j] + (dgr * (g[j] / d) + gr * (dg[j] / d - g[j] * dd / (d * d)));
-            Qm[j] = Qm[j] + gr * (g[j] / d);
-        }
-        // NaN-propagating min, like torch.minimum.
-        mind = (d < mind || d != d) ? d : mind;
+        const Rec<T, 1> in = item_in(recs, r, s, k, nT, B, l, du, dv, dph, da, dy);
+        factor_value_step<true>(uv, pv, vr, a[o], y[o], r, Sh, M, Qm, mr, qvr, q0, ld, mind,
+                                rec);
+        __syncwarp();
+        factor_tan_step(rec, in, r, dSh, dM, dQm, dmr, dqvr, dq0, dld);
+        __syncwarp();
     }
     if (!it.live || r >= P) return;
     if (k == 0) {
@@ -305,8 +353,8 @@ __device__ __forceinline__ void factor_jvp_sweep(
         m_out[(size_t)r * B + l] = mr;
         qv_out[(size_t)r * B + l] = qvr;
         if (r == 0) {
-            q0_out[l] = (double)q0 + (double)cq0;
-            ld_out[l] = (double)ld + (double)cld;
+            q0_out[l] = q0.total();
+            ld_out[l] = ld.total();
             mind_out[l] = mind;
         }
     }
@@ -315,13 +363,281 @@ __device__ __forceinline__ void factor_jvp_sweep(
     Dm_out[((size_t)k * P + r) * B + l] = dmr;
     Dqv_out[((size_t)k * P + r) * B + l] = dqvr;
     if (r == 0) {
-        Dq0_out[(size_t)k * B + l] = (double)dq0 + (double)dcq0;
-        Dld_out[(size_t)k * B + l] = (double)dld + (double)dcld;
+        Dq0_out[(size_t)k * B + l] = dq0.total();
+        Dld_out[(size_t)k * B + l] = dld.total();
     }
 }
 
 // ---------------------------------------------------------------------------
-// The kernels: the split pair, and the four launches of _jac_kernel.
+// The jac sweeps' layout: a block of LB lanes, a value warp and a warp a
+// direction of the block's chunk, tiles of KT steps through shared rings.
+// ---------------------------------------------------------------------------
+
+constexpr int LB = 32 / G;      // lanes a block
+constexpr int KT = 4;           // steps a tile
+constexpr int TCH = 7;          // most directions a block
+constexpr int JAC_THREADS = 32 * (1 + TCH);
+// Shared memory in words of T: the value warp's rows of Qm (the factor's;
+// P + 1 words a thread, against bank conflicts), two tiles of records,
+// then each warp's two tiles of streams: 101,376 bytes at P = 8, T >= 7 in
+// float64 (94,720 at T = 16, three chunks of 6, 6 and 4).
+constexpr int SM_QM = 32 * (P + 1);
+constexpr int SM_PUB = KT * NQ * LB;
+constexpr int SM_STR = KT * NF * LB;
+__host__ __device__ constexpr int jac_smem_words(int tch) {
+    return SM_QM + 2 * SM_PUB + (1 + tch) * 2 * SM_STR;
+}
+
+extern __shared__ __align__(16) unsigned char jac_smem[];
+
+// This thread's place: its warp (0 the value, 1 + j direction j), its lane
+// in the block (q; global l, read as lc, which dead lanes past B clamp to
+// B - 1 and never write) and row r, and the block's chunk of directions
+// (k0, tc of them).
+struct JacCtx {
+    int warp, q, r, l, lc, l0, k0, tc;
+    bool live;
+};
+
+__device__ __forceinline__ JacCtx jac_ctx(int B, int nT, int tch) {
+    JacCtx c;
+    c.warp = threadIdx.x / 32;
+    c.q = (threadIdx.x & 31) / G;
+    c.r = threadIdx.x % G;
+    c.l0 = blockIdx.x * LB;
+    c.l = c.l0 + c.q;
+    c.live = c.l < B;
+    c.lc = c.live ? c.l : B - 1;
+    c.k0 = blockIdx.y * tch;
+    c.tc = min(tch, nT - c.k0);
+    return c;
+}
+
+template <typename T>
+__device__ __forceinline__ T* jac_ring(int warp) {
+    return reinterpret_cast<T*>(jac_smem) + SM_QM + 2 * SM_PUB + warp * 2 * SM_STR;
+}
+
+// The record of step s of tile `tile` for this thread's lane.
+template <typename T>
+__device__ __forceinline__ Rec<T, LB> jac_rec(const JacCtx& c, int tile, int s) {
+    return Rec<T, LB>{reinterpret_cast<T*>(jac_smem) + SM_QM + (tile & 1) * SM_PUB +
+                      s * NQ * LB + c.q};
+}
+
+__device__ __forceinline__ int tile_steps(int L, int tile) { return min(KT, L - tile * KT); }
+
+// Tile `tile` of a warp's streams into its ring: (L, n, P, B) vectors x0,
+// x1, x2 and (L, n, 1, B) scalars xa, xy (xy may be null) at index kk of n
+// (the value's streams: n = 1, kk = 0).  One cp.async group a tile, empty
+// past the end.
+template <typename T>
+__device__ __forceinline__ void prefetch_tile(const JacCtx& c, T* ring, const T* x0,
+                                              const T* x1, const T* x2, const T* xa,
+                                              const T* xy, int n, int kk, int L, int B,
+                                              int tile) {
+    T* slot = ring + (tile & 1) * SM_STR;
+    const int s0 = tile * KT;
+    for (int i = threadIdx.x & 31; i < KT * NF * LB; i += 32) {
+        const int q = i % LB, f = (i / LB) % NF, s = s0 + i / (LB * NF);
+        const int l = min(c.l0 + q, B - 1);
+        if (s >= L) continue;
+        const size_t sk = (size_t)s * n + kk;
+        if (f < FA) {
+            const T* x = f < FV ? x0 : (f < FPH ? x1 : x2);
+            cp_async(slot + i, x + (sk * P + f % P) * B + l);
+        } else if (f == FA) {
+            cp_async(slot + i, xa + sk * B + l);
+        } else if (xy != nullptr) {
+            cp_async(slot + i, xy + sk * B + l);
+        }
+    }
+    cp_async_commit();
+}
+
+// Step s of a tile's streams in a warp's ring, this thread's lane (each
+// field LB lanes wide).
+template <typename T>
+__device__ __forceinline__ Rec<T, LB> ring_step(const JacCtx& c, T* ring, int tile, int s) {
+    return Rec<T, LB>{ring + (tile & 1) * SM_STR + s * NF * LB + c.q};
+}
+
+// The value's streams of a step: u and phi whole, row r of v.
+template <typename T>
+__device__ __forceinline__ void value_in(Rec<T, LB> in, int r, T (&uv)[P], T (&pv)[P], T& vr) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        uv[j] = in[FU + j];
+        pv[j] = in[FPH + j];
+    }
+    vr = r < P ? in[FV + r] : T(0);
+}
+
+// A warp's pass over the tiles: its streams copied two tiles ahead, sweep(
+// tile, n) over each tile's n steps, and the block's barrier after each.
+// The value warp's barrier hands its tile on; a direction warp waits for
+// the value's first tile first, so the block's barriers number 1 + tiles
+// for both.
+template <bool VALUE, typename T, class Sweep>
+__device__ __forceinline__ void jac_pass(const JacCtx& c, T* ring, const T* x0, const T* x1,
+                                         const T* x2, const T* xa, const T* xy, int n, int kk,
+                                         int L, int B, Sweep&& sweep) {
+    const int ntiles = (L + KT - 1) / KT;
+    prefetch_tile(c, ring, x0, x1, x2, xa, xy, n, kk, L, B, 0);
+    prefetch_tile(c, ring, x0, x1, x2, xa, xy, n, kk, L, B, 1);
+    if (!VALUE) tile_barrier();
+    for (int k = 0; k < ntiles; ++k) {
+        cp_async_wait<1>();
+        __syncwarp();
+        sweep(k, tile_steps(L, k));
+        __syncwarp();
+        prefetch_tile(c, ring, x0, x1, x2, xa, xy, n, kk, L, B, k + 2);
+        tile_barrier();
+    }
+    if (VALUE) tile_barrier();
+    cp_async_wait<0>();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(JAC_THREADS, 2)
+jac_elements_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
+                    const T* __restrict__ a, const T* __restrict__ du, const T* __restrict__ dv,
+                    const T* __restrict__ dph, const T* __restrict__ da, int L, int B, int nT,
+                    int tch, T* __restrict__ A_out, T* __restrict__ J_out,
+                    T* __restrict__ C_out, T* __restrict__ DA_out, T* __restrict__ DJ_out,
+                    T* __restrict__ DC_out) {
+    const JacCtx c = jac_ctx(B, nT, tch);
+    const int r = c.r;
+    T* ring = jac_ring<T>(c.warp);
+    if (c.warp == 0) {
+        T Sh[P], A[P], J[P];
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+            Sh[j] = J[j] = T(0);
+            A[j] = j == r ? T(1) : T(0);
+        }
+        jac_pass<true>(c, ring, u, v, ph, a, static_cast<const T*>(nullptr), 1, 0, L, B,
+                       [&](int tile, int n) {
+                           for (int s = 0; s < n; ++s) {
+                               T uv[P], pv[P], vr;
+                               const Rec<T, LB> in = ring_step(c, ring, tile, s);
+                               value_in(in, r, uv, pv, vr);
+                               elem_value_step<true>(uv, pv, vr, in[FA], r, Sh, A, J,
+                                                     jac_rec<T>(c, tile, s));
+                           }
+                       });
+        if (blockIdx.y == 0 && c.live && r < P) {
+            put_mat(A_out, r, B, c.l, A);
+            put_mat(J_out, r, B, c.l, J);
+            put_mat(C_out, r, B, c.l, Sh);
+        }
+        return;
+    }
+    const int jd = c.warp - 1, kk = c.k0 + jd;
+    if (jd >= c.tc) {
+        // A warp past the last chunk's directions keeps the barriers' count.
+        for (int k = 0; k * KT < L; ++k) tile_barrier();
+        tile_barrier();
+        return;
+    }
+    T dSh[P], dA[P], dJ[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) dSh[j] = dA[j] = dJ[j] = T(0);
+    jac_pass<false>(c, ring, du, dv, dph, da, static_cast<const T*>(nullptr), nT, kk, L, B,
+                    [&](int tile, int n) {
+                        for (int s = 0; s < n; ++s)
+                            elem_tan_step(jac_rec<T>(c, tile, s), ring_step(c, ring, tile, s),
+                                          r, dSh, dA, dJ);
+                    });
+    if (c.live && r < P) {
+        put_tmat(DA_out, kk, r, B, c.l, dA);
+        put_tmat(DJ_out, kk, r, B, c.l, dJ);
+        put_tmat(DC_out, kk, r, B, c.l, dSh);
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(JAC_THREADS, 2)
+jac_factor_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
+                  const T* __restrict__ a, const T* __restrict__ y, const T* __restrict__ du,
+                  const T* __restrict__ dv, const T* __restrict__ dph, const T* __restrict__ da,
+                  const T* __restrict__ dy, const T* __restrict__ sh0,
+                  const T* __restrict__ dsh0, int L, int B, int nT, int tch,
+                  T* __restrict__ M_out, T* __restrict__ m_out, T* __restrict__ Qm_out,
+                  T* __restrict__ qv_out, double* __restrict__ q0_out,
+                  double* __restrict__ ld_out, T* __restrict__ mind_out,
+                  T* __restrict__ DM_out, T* __restrict__ Dm_out, T* __restrict__ DQm_out,
+                  T* __restrict__ Dqv_out, double* __restrict__ Dq0_out,
+                  double* __restrict__ Dld_out) {
+    const JacCtx c = jac_ctx(B, nT, tch);
+    const int r = c.r;
+    T* ring = jac_ring<T>(c.warp);
+    if (c.warp == 0) {
+        // Qm is only accumulated: its rows wait in shared memory.
+        T(&Qm)[P] = *reinterpret_cast<T(*)[P]>(reinterpret_cast<T*>(jac_smem) +
+                                                threadIdx.x * (P + 1));
+        T Sh[P], M[P];
+        get_mat(sh0, r, B, c.lc, Sh);
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+            M[j] = j == r ? T(1) : T(0);
+            Qm[j] = T(0);
+        }
+        T mr = T(0), qvr = T(0), mind = T(INFINITY);
+        Kahan<T> q0{T(0), T(0)}, ld{T(0), T(0)};
+        jac_pass<true>(c, ring, u, v, ph, a, y, 1, 0, L, B, [&](int tile, int n) {
+            for (int s = 0; s < n; ++s) {
+                T uv[P], pv[P], vr;
+                const Rec<T, LB> in = ring_step(c, ring, tile, s);
+                value_in(in, r, uv, pv, vr);
+                factor_value_step<true>(uv, pv, vr, in[FA], in[FY], r, Sh, M, Qm, mr, qvr, q0,
+                                        ld, mind, jac_rec<T>(c, tile, s));
+            }
+        });
+        if (blockIdx.y == 0 && c.live && r < P) {
+            put_mat(M_out, r, B, c.l, M);
+            put_mat(Qm_out, r, B, c.l, Qm);
+            m_out[(size_t)r * B + c.l] = mr;
+            qv_out[(size_t)r * B + c.l] = qvr;
+            if (r == 0) {
+                q0_out[c.l] = q0.total();
+                ld_out[c.l] = ld.total();
+                mind_out[c.l] = mind;
+            }
+        }
+        return;
+    }
+    const int jd = c.warp - 1, kk = c.k0 + jd;
+    if (jd >= c.tc) {
+        for (int k = 0; k * KT < L; ++k) tile_barrier();
+        tile_barrier();
+        return;
+    }
+    T dSh[P], dM[P], dQm[P];
+    get_tmat(dsh0, kk, r, B, c.lc, dSh);
+#pragma unroll
+    for (int j = 0; j < P; ++j) dM[j] = dQm[j] = T(0);
+    T dmr = T(0), dqvr = T(0);
+    Kahan<T> dq0{T(0), T(0)}, dld{T(0), T(0)};
+    jac_pass<false>(c, ring, du, dv, dph, da, dy, nT, kk, L, B, [&](int tile, int n) {
+        for (int s = 0; s < n; ++s)
+            factor_tan_step(jac_rec<T>(c, tile, s), ring_step(c, ring, tile, s), r, dSh, dM,
+                            dQm, dmr, dqvr, dq0, dld);
+    });
+    if (c.live && r < P) {
+        put_tmat(DM_out, kk, r, B, c.l, dM);
+        put_tmat(DQm_out, kk, r, B, c.l, dQm);
+        Dm_out[((size_t)kk * P + r) * B + c.l] = dmr;
+        Dqv_out[((size_t)kk * P + r) * B + c.l] = dqvr;
+        if (r == 0) {
+            Dq0_out[(size_t)kk * B + c.l] = dq0.total();
+            Dld_out[(size_t)kk * B + c.l] = dld.total();
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The split pair's kernels and the jac scans.
 // ---------------------------------------------------------------------------
 
 #define ELEMENTS_JVP_PARAMS                                                                    \
@@ -347,17 +663,14 @@ __device__ __forceinline__ void factor_jvp_sweep(
 
 template <typename T>
 __global__ void __launch_bounds__(BLOCK) tangent_elements_kernel(ELEMENTS_JVP_PARAMS) {
-    elements_jvp_sweep(ELEMENTS_JVP_ARGS);
+    __shared__ T recs[ITEM_GROUPS * ITEM_WORDS];
+    elements_jvp_items(recs, ELEMENTS_JVP_ARGS);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(BLOCK) tangent_factor_kernel(FACTOR_JVP_PARAMS) {
-    factor_jvp_sweep(FACTOR_JVP_ARGS);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(BLOCK) jac_elements_kernel(ELEMENTS_JVP_PARAMS) {
-    elements_jvp_sweep(ELEMENTS_JVP_ARGS);
+    __shared__ T recs[ITEM_GROUPS * ITEM_WORDS];
+    factor_jvp_items(recs, FACTOR_JVP_ARGS);
 }
 
 template <typename T>
@@ -366,11 +679,6 @@ jac_seed_kernel(const T* __restrict__ A, const T* __restrict__ J, const T* __res
                 const T* __restrict__ DA, const T* __restrict__ DJ, const T* __restrict__ DC,
                 int B, int seg, T* __restrict__ sh0, T* __restrict__ dsh0) {
     seed_scan<true, T>(A, J, C, DA, DJ, DC, B, seg, sh0, dsh0);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(BLOCK) jac_factor_kernel(FACTOR_JVP_PARAMS) {
-    factor_jvp_sweep(FACTOR_JVP_ARGS);
 }
 
 template <typename T>
@@ -401,7 +709,10 @@ jac_assemble_kernel(const T* __restrict__ M, const T* __restrict__ m, const T* _
 // jac: the elements' and the factor's inputs; as scratch their outputs
 //   (w[0..5] the elements', w[6..7] sh0 and dsh0, w[8..20] the factor's);
 //   out quad, ld (B / seg,) float64, mind (B / seg,), dquad, dld
-//   (T, B / seg) float64.
+//   (T, B / seg) float64.  Its sweeps take the T directions in chunks of
+//   at most TCH, as even as they go, one row of blocks a chunk, with
+//   jac_smem_words of dynamic shared memory (above the default 48 KB at
+//   P = 8), so it raises both sweeps' limit first; padded widths 1-8.
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -409,19 +720,35 @@ static int jac_launch(const T* u, const T* v, const T* ph, const T* a, const T* 
                       const T* dv, const T* dph, const T* da, const T* dy, void** w,
                       double* quad, double* ldo, T* mindo, double* dquad, double* dldo, int L,
                       int B, int seg, int nT, cudaStream_t st) {
+    if (P > 8 || nT < 1) return (int)cudaErrorInvalidValue;
     T *A = (T*)w[0], *J = (T*)w[1], *C = (T*)w[2], *DA = (T*)w[3], *DJ = (T*)w[4],
       *DC = (T*)w[5], *sh0 = (T*)w[6], *dsh0 = (T*)w[7], *M = (T*)w[8], *m = (T*)w[9],
       *Qm = (T*)w[10], *qv = (T*)w[11], *mind = (T*)w[14], *DM = (T*)w[15], *Dm = (T*)w[16],
       *DQm = (T*)w[17], *Dqv = (T*)w[18];
     double *q0 = (double*)w[12], *ld = (double*)w[13], *Dq0 = (double*)w[19],
            *Dld = (double*)w[20];
-    const dim3 sweep = grid_for(B * nT, G), scans((unsigned)(B / seg), (unsigned)nT);
+    const int nch = (nT + TCH - 1) / TCH, tch = (nT + nch - 1) / nch;
+    const dim3 sweep((unsigned)((B + LB - 1) / LB), (unsigned)nch),
+        threads((unsigned)(32 * (1 + tch))), scans((unsigned)(B / seg), (unsigned)nT);
+    const size_t bytes = sizeof(T) * (size_t)jac_smem_words(tch);
     int err;
-    jac_elements_kernel<T><<<sweep, BLOCK, 0, st>>>(ELEMENTS_JVP_ARGS);
+    if ((err = (int)cudaFuncSetAttribute(jac_elements_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes)))
+        return err;
+    if ((err = (int)cudaFuncSetAttribute(jac_factor_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes)))
+        return err;
+    jac_elements_kernel<T><<<sweep, threads, bytes, st>>>(u, v, ph, a, du, dv, dph, da, L, B,
+                                                          nT, tch, A, J, C, DA, DJ, DC);
     if ((err = (int)cudaGetLastError())) return err;
     jac_seed_kernel<T><<<scans, SCAN_THREADS, 0, st>>>(A, J, C, DA, DJ, DC, B, seg, sh0, dsh0);
     if ((err = (int)cudaGetLastError())) return err;
-    jac_factor_kernel<T><<<sweep, BLOCK, 0, st>>>(FACTOR_JVP_ARGS);
+    jac_factor_kernel<T><<<sweep, threads, bytes, st>>>(u, v, ph, a, y, du, dv, dph, da, dy,
+                                                        sh0, dsh0, L, B, nT, tch, M, m, Qm, qv,
+                                                        q0, ld, mind, DM, Dm, DQm, Dqv, Dq0,
+                                                        Dld);
     if ((err = (int)cudaGetLastError())) return err;
     jac_assemble_kernel<T><<<scans, P, 0, st>>>(M, m, Qm, qv, q0, ld, mind, DM, Dm, DQm, Dqv,
                                                 Dq0, Dld, B, seg, quad, ldo, mindo, dquad,

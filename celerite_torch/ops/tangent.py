@@ -34,13 +34,15 @@ The launch plan.  The JAX package sizes the lane count and the direction
 chunk from a TPU's scoped-VMEM budget (``_VMEM_BUDGET``,
 ``_fused_per_lane``); none of those constants means anything here.  The
 port's rule: P <= 8 the single-sweep kernel, 9..16 the split pair; every
-launch takes all T directions, since a kernel gives each (lane,
-direction) item its own group of threads and a thread holds the same 6 P
-words of state whatever T is (``csrc/tangent.cu``), so neither registers
-nor shared memory bound the chunk (``max_tangents`` still splits the
-directions); the lanes a chain (:func:`default_jac_blocks`) on the card
-are ``_CUDA_LANES``, from chip_smoke.py's lane_sweep_G (PERF.md), and on
-the CPU ``fused.default_num_blocks``.
+call takes all T directions (``max_tangents`` still splits them into
+pipeline runs).  The split pair gives each (lane, direction) item its own
+group of threads, whatever T is; the jac sweeps give a block of lanes a
+value warp and a warp a direction, and the host entry of
+``csrc/tangent.cu`` splits T into chunks of at most eight directions, one
+row of blocks a chunk, each redoing the value once.  The lanes a chain
+(:func:`default_jac_blocks`) on the card are ``_CUDA_LANES``, from
+chip_smoke.py's lane_sweep_G (PERF.md), and on the CPU
+``fused.default_num_blocks``.
 """
 
 from __future__ import annotations

@@ -71,7 +71,8 @@ through the entry points a user calls:
 - tangent_kernels: the single-sweep kernel (celerite_torch/csrc/fused.cu)
   and the three tangent kernels (celerite_torch/csrc/tangent.cu) against
   their plain versions at padded widths 2, 8, 13 and 16 on small plans
-  and on main path G's own plans, timed there;
+  and on main path G's own plans, timed there (the jac call's four
+  launches each by torch.profiler);
 - G: ``fast_grad="tangent"``: ``build_logprob(..., fast_grad="tangent")``
   for config[2] (P = 8) and E's model (P = 16) at N = 1e5, one theta's
   value, ``value_and_grad`` and ``value_and_grad_batch`` over 16 thetas,
@@ -97,8 +98,11 @@ Each main path resets every kernel's launch counter just before it runs and
 reads the counters just after; a kernel of the path that did not launch
 fails the run.
 
-Prints one JSON line per phase, a ``kernels`` line, the card's name and
-power limit as nvidia-smi gives them, and last
+Prints one JSON line per phase, a ``redesigned_kernels`` line (ptxas's
+registers and spills and the timings of the kernels redesigned for the
+card and of those sharing their code, beside the card's name and power
+limit), a ``kernels`` line, the card's name and power limit as
+nvidia-smi gives them, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA device it exits non-zero before printing anything.
 """
@@ -2175,15 +2179,47 @@ def tangent_case(errs, tag, streams, tangents, seg, kernels, floor=None,
                 name, tag, info))
 
 
+def launch_split_ms(fn, warmup=5, active=10):
+    """Device ms of each CUDA kernel one call of ``fn`` launches, by name:
+    torch.profiler over ``active`` calls after ``warmup`` traced and
+    dropped (late in this script, a window without a warmup caught few or
+    none of the jac call's launches), each kernel's mean over the launches
+    traced."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    steps = warmup + active
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=warmup, active=active,
+                                   repeat=1)) as prof:
+        for i in range(steps):
+            fn()
+            if i == steps - 1:
+                torch.cuda.synchronize()
+            prof.step()
+    split = {}
+    for e in prof.key_averages():
+        # ProfilerStep* is the schedule's span of each traced call.
+        if (e.device_type == torch.autograd.DeviceType.CUDA and e.count
+                and not e.key.startswith("ProfilerStep")):
+            us = max(getattr(e, "self_device_time_total", 0) or 0,
+                     getattr(e, "device_time_total", 0) or 0)
+            split[re.sub(r"^void ", "", e.key).split("<")[0]] = \
+                us / 1e3 / e.count
+    return split
+
+
 def time_tangent_kernels(streams, tangents, seg, kernels, plain=True):
     """{name: {"ms", "plain_ms", "bound_ms", "bound_by"}}: each kernel by
-    CUDA events over 5 calls, its plain version once."""
+    CUDA events over 5 calls, its plain version once; the jac call's four
+    launches also by torch.profiler (``split_ms``, ms a launch)."""
     rows = {}
     T = tangents[0].shape[1] if tangents else 0
     nseg = streams[0].shape[-1] // seg
     for name, (kern, plain_fn) in tangent_kernel_calls(
             streams, tangents, seg, kernels).items():
         row = rows[name] = {"ms": sync_time_ms(kern, reps=5)}
+        if name == "jac":
+            row["split_ms"] = launch_split_ms(kern)
         if plain:
             row["plain_ms"] = sync_time_ms(plain_fn, reps=1, warm=0)
         row["bound_ms"], row["bound_by"] = tangent_bound_ms(
@@ -2817,6 +2853,40 @@ def main_path_i(t, y, yerr, dev):
     return counts
 
 
+def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
+                       onepass_rows):
+    """The kernels redesigned for this card and those sharing their code,
+    with the card's name and power limit: ptxas's registers and spill bytes
+    of each at every width built, and their timings on each plan (row 5 on
+    C's 1- and 16-chain plans; row 18 on G's plans, with its four launches'
+    split; rows 16-17 on E's model; rows 11 and 21, which share row 5's
+    transposed step)."""
+    def regs(src, prefix):
+        return {p: {k: v for k, v in kerns.items() if k.startswith(prefix)}
+                for p, kerns in ptxas[src].items()}
+
+    return {
+        "card": smi,
+        "factor_bwd": {"ptxas": regs("fused4_grad.cu", "factor_bwd"),
+                       "chains": {nc: rows["factor_bwd"]
+                                  for nc, rows in grad_rows.items()}},
+        "jac": {"ptxas": regs("tangent.cu", "jac_"),
+                "plans": {k: v["jac"] for k, v in tangent_rows.items()
+                          if "jac" in v}},
+        "split_pair": {"ptxas": regs("tangent.cu", "tangent_"),
+                       "plans": {k: v for k, v in tangent_rows.items()
+                                 if "elements_jvp" in v}},
+        "adjoint_factor_bwd": {
+            "ptxas": regs("adjoint.cu", "adjoint_factor_bwd"),
+            "chains": {nc: rows["factor_bwd"]
+                       for nc, rows in adj_rows.items()}},
+        "onepass_sweep_bwd": {
+            "ptxas": regs("onepass.cu", "onepass_bwd"),
+            "models": {m: rows["sweep_bwd"]
+                       for m, rows in onepass_rows.items()}},
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3254,6 +3324,9 @@ def main():
             "bound_by": row["bound_by_float64"],
             "library_ms": None,
         })
+    emit("redesigned_kernels", **redesigned_summary(
+        smi, ptxas, grad_rows, tangent_rows, adj_rows, onepass_rows))
+    emit("done", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -196,12 +196,43 @@ def test_grad_kernels_match_plain(jr, jc, vals, dtype, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("jr,jc,vals", WIDE_CASES)
-def test_grad_kernels_every_width(jr, jc, vals, cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_grad_kernels_every_width(jr, jc, vals, dtype, cuda_device):
     t, y, yerr = make_data(2053, seed=5, t_max=200.0)
-    plan = lanes4.make_plan4(t, y, yerr**2, 64, dtype=torch.float64,
+    plan = lanes4.make_plan4(t, y, yerr**2, 64, dtype=dtype,
                              device=cuda_device)
     cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device)
-    _check_grad_kernels(cf, plan, jr, jc, 1e-10)
+    _check_grad_kernels(cf, plan, jr, jc,
+                        1e-10 if dtype == torch.float64 else GRAD_F32_RTOL)
+
+
+def _first_lanes(plan, b):
+    """The first ``b`` lanes of ``plan`` as a plan of their own."""
+    return plan._replace(num_blocks=b, **{
+        k: getattr(plan, k)[:, :b].contiguous()
+        for k in ("t", "t_lo", "dt", "diag", "y", "mask")})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("jr,jc,vals", CASES + WIDE_CASES)
+@pytest.mark.parametrize("shape", ["dead_lanes", "one_step"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_grad_kernels_odd_shapes(jr, jc, vals, shape, dtype, cuda_device):
+    """The gradient kernels at every padded width 1-12 on 12 lanes, which
+    no block of factor_bwd's divides (128 / G lanes, G threads a lane: its
+    last block runs dead lanes), and on 16 lanes of one step each."""
+    if shape == "dead_lanes":
+        t, y, yerr = make_data(1499, seed=9, t_max=150.0)
+        plan = _first_lanes(lanes4.make_plan4(
+            t, y, yerr**2, 16, dtype=dtype, device=cuda_device), 12)
+    else:
+        t, y, yerr = make_data(16, seed=9, t_max=2.0)
+        plan = lanes4.make_plan4(t, y, yerr**2, 16, dtype=dtype,
+                                 device=cuda_device)
+        assert plan.t.shape[0] == 1
+    cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device)
+    _check_grad_kernels(cf, plan, jr, jc,
+                        1e-10 if dtype == torch.float64 else GRAD_F32_RTOL)
 
 
 @pytest.mark.cuda
@@ -515,6 +546,46 @@ def test_tangent_jac_kernel_matches_plain(width, dtype, cuda_device):
     assert errs["jac"]["max_rel_err"] <= rtol, errs
 
 
+def _jac_model(terms, width):
+    """A model of padded width 1, 2, 4 or 8."""
+    from celerite_torch.testing import bench_kernel, config2_kernel
+
+    if width == 1:
+        return terms.RealTerm(log_a=-0.5, log_c=-1.0)
+    if width == 4:
+        return bench_kernel(terms) + terms.ComplexTerm(
+            log_a=-0.7, log_b=-2.0, log_c=-0.5, log_d=0.8)
+    return bench_kernel(terms) if width == 2 else config2_kernel(terms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 4, 8])
+@pytest.mark.parametrize("ndir", [1, 7, 9, 13])
+def test_tangent_jac_kernel_directions(width, ndir, cuda_device):
+    """The jac kernel along ndir directions (random combinations of the
+    parameters' basis tangents, numpy seed): one chunk of the block's
+    directions (1, 7), two (9: five and four, 13: seven and six); 30 lanes
+    in three segments of 10 (no block of 32 / G lanes divides them) of 125
+    steps (no multiple of the 8-step tile), float64, against the plain
+    version at 1e-10."""
+    from celerite_torch import terms
+    from celerite_torch.ops import tangent
+
+    t, y, yerr = make_data(2000, seed=3, t_max=200.0)
+    s, d = lane_tangent_streams(_jac_model(terms, width), t, y, yerr, 16,
+                                n_chain=2, device=cuda_device)
+    assert s[0].shape[0] % 8 != 0
+    mix = torch.as_tensor(np.random.default_rng(ndir).standard_normal(
+        (ndir, d[0].shape[1])), device=cuda_device)
+    s = tuple(x[..., :30].contiguous() for x in s)
+    d = tuple(torch.einsum("kt,ltpb->lkpb", mix, x[..., :30]).contiguous()
+              for x in d)
+    before = tangent.jac_cuda.launches
+    errs = compare_tangent_kernels(s, d, seg=10, kernels=("jac",))
+    assert tangent.jac_cuda.launches == before + 1
+    assert errs["jac"]["max_rel_err"] <= 1e-10, errs
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [8, 16])
 def test_tangent_route_on_the_card(width, cuda_device):
@@ -563,7 +634,7 @@ def test_tangent_route_on_the_card(width, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [2, 8, 16])
+@pytest.mark.parametrize("width", [2, 5, 8, 16])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_onepass_kernels_match_plain(width, dtype, cuda_device):
     """Each of the three one-pass kernels equals its plain version on the

@@ -1,0 +1,200 @@
+#!/usr/bin/env python
+"""Time one tree's kernels of rows 5, 11, 16-18 and 21 (PERF.md section 6) on
+the plans chip_smoke.py times them on, so that two trees can be compared
+on one card.
+
+Usage (on a machine with an NVIDIA H100), from the root of a checkout:
+
+    python3 tools/kernel_ab.py [--tree DIR]
+
+``DIR`` (default: this checkout) is the root of a tree whose
+``celerite_torch`` and ``chip_smoke.py`` are imported; an older commit
+unpacked with ``git archive`` into a git-ignored directory (``build/``)
+serves.  Run the trees in turns in one command (old, new, new, old) to
+compare them on one card.
+
+Builds ``fused4_grad.cu`` at P = 8, ``tangent.cu`` at 8 and 16,
+``adjoint.cu`` at 16 and ``onepass.cu`` at 8, and prints one JSON line a
+measurement, each with the tree, the card's name and power limit (nvidia-smi) and ptxas's
+registers and spill bytes of the kernels timed:
+
+- ``row5``: fused4 ``factor_bwd`` on main path C's 16-chain batch plan
+  (config[2], N = 1e5, 16 x 512 lanes of 196 steps), float64 and float32;
+- ``row18``: the tangent route's ``jac`` call on sampler_G's 4-chain plan
+  (4 x 256 lanes of 391 steps, T = 7) and on main path G's 16-chain
+  batch plan, float64, with the device time of each of its four launches
+  from torch.profiler;
+- ``row16_17``: the split pair (``elements_jvp``, ``factor_jvp``) on main
+  path G's folded batch plan of E's model (P = 16, T = 13), float64;
+- ``row11``: the adjoint ``factor_bwd`` on sampler_E's 4-chain plan (E's
+  model, P = 16), float64;
+- ``row21``: the one-pass ``sweep_bwd`` on main path H's config[2] plan,
+  float64.
+
+Times are the mean of CUDA events around back-to-back calls.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=".",
+                    help="root of the tree whose celerite_torch is timed")
+    args = ap.parse_args()
+    root = os.path.abspath(args.tree)
+    sys.path.insert(0, root)
+
+    import numpy as np
+    import torch
+
+    import celerite_torch
+    import chip_smoke as cs
+    from celerite_torch import _build, terms
+    from celerite_torch.ops import adjoint, fused4, onepass, tangent
+    from celerite_torch.testing import config2_kernel
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    if not celerite_torch.__file__.startswith(root):
+        raise RuntimeError("imported celerite_torch from {0}, not {1}".format(
+            celerite_torch.__file__, root))
+    dev = torch.device("cuda")
+    smi = cs.smi_name_power()
+    t0 = time.perf_counter()
+    jobs = [("fused4_grad.cu", 8), ("tangent.cu", 8), ("tangent.cu", 16),
+            ("adjoint.cu", 16), ("onepass.cu", 8)]
+    paths = _build.build([(s, {"CELERITE_P": p}) for s, p in jobs])
+    ptxas = {"{0}:{1}".format(s, p): cs.ptxas_summary(
+        path.with_suffix(".ptxas.txt")) for (s, p), path in zip(jobs, paths)}
+    build_s = time.perf_counter() - t0
+
+    def pick(src, p, *names):
+        rows = ptxas["{0}:{1}".format(src, p)]
+        return {k: v for k, v in rows.items()
+                if any(k.startswith(n) for n in names)}
+
+    def emit(row, **fields):
+        print(json.dumps({"row": row, "tree": args.tree, "card": smi,
+                          **fields}), flush=True)
+
+    emit("build", seconds=build_s)
+
+    # config[2] at N = 1e5 on main path B's data (chip_smoke.main).
+    n = 100_000
+    rng = np.random.default_rng(2)
+    t = np.sort(rng.uniform(0, 100.0, n))
+    yerr = np.full(n, 0.3)
+    y = np.sin(t) + 0.5 * np.sin(3.1 * t) + yerr * rng.standard_normal(n)
+    gp = celerite_torch.GP(config2_kernel(terms))
+    pr, pc = gp.kernel.padded_size
+
+    def prior(th):
+        return -0.5 * torch.sum((th / 3.0) ** 2)
+
+    theta = torch.as_tensor(gp.get_parameter_vector(), device=dev)
+    thetas = cs.path_c_thetas(theta, dev)
+
+    # Row 5 on C's 16-chain plan.
+    nc = cs.SAMPLER_CHAINS
+    cfs = torch.stack([cs.packed_cf(gp, th) for th in thetas[:nc]])
+    for dt in (torch.float64, torch.float32):
+        lp = gp.build_logprob(t, y, yerr=yerr, log_prior=prior, dtype=dt)
+        plan = lp.loglik.value_ok_grad_batch.folded_plan(nc)
+        kern, _ = cs.grad_kernel_calls(cfs.to(dt), plan, pr, pc)["factor_bwd"]
+        emit("row5", kernel="fused4 factor_bwd", dtype=str(dt)[6:],
+             chains=nc, lanes=plan.t.shape[1], steps=plan.t.shape[0],
+             ms=cs.sync_time_ms(kern, reps=20),
+             ptxas=pick("fused4_grad.cu", 8, "factor_bwd"))
+        del lp, plan, kern
+        torch.cuda.empty_cache()
+
+    # Row 18 on sampler_G's and G's batch plans, with its launches' split.
+    from torch.profiler import ProfilerActivity, profile
+    lpg = gp.build_logprob(t, y, yerr=yerr, log_prior=prior,
+                           dtype=torch.float64, fast_grad="tangent")
+    vog = lpg.loglik.value_ok_grad_batch
+    for tag, ncg in (("sampler4_B", cs.SAMPLER_G_CHAINS),
+                     ("batch16_B", min(nc, vog.fold_cap))):
+        plan = vog.folded_plan(ncg)
+        s, d = cs.path_tangent_streams(gp, plan, thetas[:ncg])
+        seg = s[0].shape[-1] // ncg
+
+        def call():
+            return tangent.jac_cuda(*s, *d, seg=seg)
+
+        ms = cs.sync_time_ms(call, reps=10)
+        reps = 5
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            name = e.key.split("<")[0].replace("void ", "")
+            if "jac" in name:
+                us = max(getattr(e, "self_device_time_total", 0) or 0,
+                         getattr(e, "device_time_total", 0) or 0)
+                split[name] = split.get(name, 0.0) + us / 1e3 / reps
+        emit("row18", kernel="tangent jac", plan=tag, dtype="float64",
+             chains=ncg, lanes=s[0].shape[-1], steps=s[0].shape[0],
+             directions=d[0].shape[1], ms=ms, split_ms=split,
+             ptxas=pick("tangent.cu", 8, "jac_"))
+        del s, d
+        torch.cuda.empty_cache()
+    del lpg, vog
+
+    # Rows 16-17 (the split pair) on main path G's batch plan of E's model.
+    gpe = celerite_torch.GP(config2_kernel(terms, modes=3))
+    thetase = cs.path_c_thetas(
+        torch.as_tensor(gpe.get_parameter_vector(), device=dev), dev)
+    lpg = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior,
+                            dtype=torch.float64, fast_grad="tangent")
+    vog = lpg.loglik.value_ok_grad_batch
+    ncg = min(nc, vog.fold_cap)
+    s, d = cs.path_tangent_streams(gpe, vog.folded_plan(ncg), thetase[:ncg])
+    calls = cs.tangent_kernel_calls(s, d, s[0].shape[-1] // ncg,
+                                    ("elements_jvp", "factor_jvp"))
+    emit("row16_17", kernel="tangent elements_jvp, factor_jvp",
+         dtype="float64", chains=ncg, lanes=s[0].shape[-1],
+         steps=s[0].shape[0], directions=d[0].shape[1],
+         ms={k: cs.sync_time_ms(kern, reps=3) for k, (kern, _) in
+             calls.items()},
+         ptxas=pick("tangent.cu", 16, "tangent_"))
+    del lpg, vog, s, d, calls
+    torch.cuda.empty_cache()
+
+    # Row 11 on sampler_E's 4-chain plan.
+    lpe = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior,
+                            dtype=torch.float64)
+    nce = cs.SAMPLER_E_CHAINS
+    plan = lpe.loglik.value_ok_grad_batch.folded_plan(nce)
+    streams = cs.lane_streams(gpe, plan, thetase[:nce])
+    kern, _ = cs.adjoint_kernel_calls(
+        streams, streams[0].shape[-1] // nce)["factor_bwd"]
+    emit("row11", kernel="adjoint factor_bwd", dtype="float64", chains=nce,
+         lanes=streams[0].shape[-1], steps=streams[0].shape[0],
+         ms=cs.sync_time_ms(kern, reps=10),
+         ptxas=pick("adjoint.cu", 16, "adjoint_factor_bwd"))
+    del lpe, plan, streams, kern
+    torch.cuda.empty_cache()
+
+    # Row 21 on H's config[2] plan.
+    s64 = cs.h_streams(gp, t, y, yerr, dev)
+    kern, _ = cs.onepass_kernel_calls(s64)["sweep_bwd"]
+    emit("row21", kernel="onepass sweep_bwd", dtype="float64",
+         lanes=s64[0].shape[-1], steps=s64[0].shape[0],
+         ms=cs.sync_time_ms(kern, reps=20),
+         ptxas=pick("onepass.cu", 8, "onepass_bwd"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
