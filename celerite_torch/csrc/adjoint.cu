@@ -25,16 +25,36 @@
 // power of two at or above P; 16 for P = 13..16) owns one lane, thread r
 // row r of every P x P state, so a thread holds a few P-vectors; rows r >=
 // P are padding that holds zeros.  Row sums are thread-local; sums over
-// rows are xor-shuffle reductions within the group (group_sum); the
-// transposes of the backward bodies (hJ + hJ^T, hSh + hSh^T, X + X^T with
-// X = hS * Shin, hQm + hQm^T) and the column sums of S go through a
-// per-group tile in shared memory, since a register array indexed by
-// another thread's row would spill.  Every thread reads the step's stream
-// vectors (u, ph) whole; they are (L, P, B), lane fastest.  The group
-// helpers and the elements and factor sweeps are in lanes_common.cuh,
-// shared with pallas_solver.cu, fused.cu, tangent.cu and onepass.cu; the
-// tile, the Riccati step's transpose and the factor sweep's transposed
-// step in adjoint_common.cuh, shared with onepass.cu and fused4_grad.cu.
+// rows are xor-shuffle reductions within the group (group_sum), column
+// sums and transposes go through a per-group tile in shared memory.  The
+// forward kernels step through the streams with each thread reading the
+// step's u and phi whole (lanes_common.cuh's sweeps, shared with
+// pallas_solver.cu, fused.cu, tangent.cu and onepass.cu).
+//
+// The backward kernels are a chain of dependent steps a lane, so a step's
+// latency is their time.  Each step is split in two (adjoint_common.cuh):
+// the front, what the step computes of its saves and streams alone (S, su,
+// d, one reciprocal 1 / d, w, the column sums g or uAc, the constant
+// cotangents' terms), and the back, the transpose that carries the
+// cotangents.  A block holds 4 lanes at P = 16 and two roles of two
+// warps, a group a lane in each: the front warps copy each lane's saves
+// and streams two steps ahead into a ring in shared memory (cp.async,
+// reverse step order) and write each step's front to a record; the back
+// warps transpose the step before, reading the ring and the record where
+// they use them and holding only the carried cotangents (two P-vectors)
+// in registers; one block barrier a step.  So no step waits on device
+// memory, the front runs beside the back instead of before it, the back
+// divides nowhere, and nothing spills.  The constant cotangent (hJ, or
+// hQm) waits in a tile the front reads by row and by column.  Four lanes
+// a block write 32 bytes of each row of the stream cotangents a step in
+// float64; at sampler_E's 512 lanes that is 128 blocks of 128 threads
+// (blocks of 2 lanes would reach all 132 SMs, but an SM's step time is set
+// by its 4 lanes either way: they were 1-4% faster on 4 chains and took
+// 1.13-1.26x as long on 16).
+// The ring makes ~103 KB of dynamic shared memory a block in float64 at P
+// = 16, two blocks an SM.  factor_bwd's sweep is also onepass.cu's
+// transpose, and its step, run front then back in the same threads, is
+// fused4_grad.cu's.
 //
 // Saves, (L, B, NSV): step s of lane l holds NSV consecutive words, each
 // saved matrix column-major (word j * P + i is entry (i, j)) and then the
@@ -48,7 +68,8 @@
 // float64, ~30 GB, ~9 ms at 3.35 TB/s.  Operations: ~120 P^2 a point over
 // the four, ~1.4 ms at 34 TFLOP/s float64.  So the function is bound by
 // bytes; the kernels are also bound by the latency of each lane's chain of
-// dependent steps, each with a few dozen shuffle reductions.
+// dependent steps and, with several blocks an SM, by their shared-memory
+// and float64 instructions.
 //
 // Rounding: -fmad=false (_build.SOURCE_FLAGS), so that float32 rounds as
 // the plain versions, which keep every multiply and add separate; sums
@@ -75,81 +96,43 @@ adjoint_elements_fwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
 // ---------------------------------------------------------------------------
 
 template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BWD_THREADS, BwdBlocks<T>::value)
 adjoint_elements_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
                             const T* __restrict__ ph, const T* __restrict__ a,
                             const T* __restrict__ sv, const T* __restrict__ hA0,
                             const T* __restrict__ hJ0, const T* __restrict__ hC0, int L, int B,
                             T* __restrict__ hu_out, T* __restrict__ hv_out,
                             T* __restrict__ hph_out, T* __restrict__ ha_out) {
-    __shared__ T tiles[LANES * P * TS];
-    const Lane ln = lane_of(B);
-    const int l = ln.l, r = ln.r;
-    T* tile = tiles + (threadIdx.x / G) * P * TS;
-    T hA[P], hJ[P], hJs[P], hSh[P];
-    get_mat(hA0, r, B, l, hA);
-    get_mat(hJ0, r, B, l, hJ);
-    get_mat(hC0, r, B, l, hSh);
-    // J_in enters additively: hJ is constant, and enters symmetrised.
-    transpose_row(tile, r, hJ, hJs);
-#pragma unroll
-    for (int j = 0; j < P; ++j) hJs[j] = hJ[j] + hJs[j];
-
-    for (int s = L - 1; s >= 0; --s) {
-        const T* svs = sv + ((size_t)s * B + l) * NSV0;
-        T Shin[P], Ain[P], uv[P], pv[P], S[P], w[P], uAc[P], huAc[P], su, wr;
-        load_row(svs, r, Shin);
-        load_row(svs + PP, r, Ain);
-        load_vec(u, s, B, l, uv);
-        load_vec(ph, s, B, l, pv);
-        const size_t o = ((size_t)s * P + r) * B + l;
-        const T vr = r < P ? v[o] : T(0);
-        const T d = front_row(Shin, uv, pv, vr, a[(size_t)s * B + l], r, S, su, wr, w);
-        const T phr = pick(pv, r), ur = pick(uv, r), utr = phr * ur;
-#pragma unroll
-        for (int j = 0; j < P; ++j) uAc[j] = group_sum(Ain[j] * utr);
-        const T uAr = pick(uAc, r);
-
-        // F9: J_out = J_in - uAc (uAc/d)^T
-        T t = T(0), q = T(0);
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            t += hJs[j] * uAc[j];
-            q += hJ[j] * uAr * uAc[j];
-        }
-        const T huAr = -t / d;
-        T hd = group_sum(q) / (d * d);
-        // F8: A_out = Phi A_in - w uAc^T
-        T hph = T(0), hw = T(0);
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            hph += hA[j] * Ain[j];
-            hw += hA[j] * uAc[j];
-        }
-        hw = -hw;
-        gather(huAr, huAc);
-#pragma unroll
-        for (int k = 0; k < P; ++k) huAc[k] = huAc[k] - group_sum(hA[k] * wr);
-        // F7: uAc = A_in^T ut
-        T hut = T(0);
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            hut += Ain[j] * huAc[j];
-            hA[j] = phr * hA[j] + utr * huAc[j];
-        }
-        // F6: ut = ph * u
-        hph = hph + hut * ur;
-        T hu = hut * phr, hv, ha;
-        // F5-F1: the Riccati step.
-        riccati_adjoint_row(tile, r, Shin, S, su, d, wr, w, uv, pv, hSh, hw, hd, hu, hph, hv,
-                            ha);
-        if (ln.live && r < P) {
-            hu_out[o] = hu;
-            hv_out[o] = hv;
-            hph_out[o] = hph;
-            if (r == 0) ha_out[(size_t)s * B + l] = ha;
-        }
-    }
+    const BwdCtx<T, NSV0> c(B, sv);
+    const int r = c.r, l = c.l;
+    // The front warp's constant: hJ in the lane's tile.
+    if (c.front) load_tile(c.cst, hJ0, r, B, c.ls);
+    // The back warp's carried cotangents.
+    T hA[P], hSh[P];
+    get_mat(hA0, r, B, c.ls, hA);
+    get_mat(hC0, r, B, c.ls, hSh);
+    __syncwarp();
+    bwd_ticks(
+        c, L,
+        [&](T* w, int s) {
+            copy_step<T, NSV0>(w, sv, u, v, ph, a, static_cast<const T*>(nullptr), s, B, c.ls,
+                               r, c.wide);
+        },
+        [&](const T* w, Rec<T, BWD_LB> rec) {
+            elem_front(c.ftile, c.cst, r, RingStep<T, NSV0>(w, r), rec);
+        },
+        [&](const T* w, Rec<T, BWD_LB> rec, int s) {
+            T hu, hv, hph, ha;
+            elem_back(c.btile, c.vec, r, RingStep<T, NSV0>(w, r), rec, hA, hSh, hu, hv, hph,
+                      ha);
+            if (c.live && r < P) {
+                const size_t o = ((size_t)s * P + r) * B + l;
+                hu_out[o] = hu;
+                hv_out[o] = hv;
+                hph_out[o] = hph;
+                if (r == 0) ha_out[(size_t)s * B + l] = ha;
+            }
+        });
 }
 
 // ---------------------------------------------------------------------------
@@ -174,7 +157,7 @@ adjoint_factor_fwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
 // ---------------------------------------------------------------------------
 
 template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BWD_THREADS, BwdBlocks<T>::value)
 adjoint_factor_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
                           const T* __restrict__ ph, const T* __restrict__ a,
                           const T* __restrict__ y, const T* __restrict__ sv,
@@ -184,14 +167,14 @@ adjoint_factor_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
                           T* __restrict__ hu_out, T* __restrict__ hv_out, T* __restrict__ hph_out,
                           T* __restrict__ ha_out, T* __restrict__ hy_out,
                           T* __restrict__ hsh0_out) {
-    __shared__ T tiles[FACTOR_BWD_TILES];
-    factor_bwd_sweep(tiles, u, v, ph, a, y, sv, static_cast<const T*>(nullptr), hM0, hm0, hQm0,
-                     hqv0, hq00, hld0, L, B, hu_out, hv_out, hph_out, ha_out, hy_out, hsh0_out);
+    factor_bwd_sweep(u, v, ph, a, y, sv, static_cast<const T*>(nullptr), hM0, hm0, hQm0, hqv0,
+                     hq00, hld0, L, B, hu_out, hv_out, hph_out, ha_out, hy_out, hsh0_out);
 }
 
 // ---------------------------------------------------------------------------
 // Host entry points: one launch each on the caller's stream, nothing
-// allocated.  Each returns cudaGetLastError() after its launch.
+// allocated.  Each returns cudaGetLastError() after its launch (or the
+// error of a backward kernel's shared memory settings, bwd_prepare).
 // ---------------------------------------------------------------------------
 
 #define CELERITE_ADJOINT_ENTRIES(T, SFX)                                                        \
@@ -209,13 +192,12 @@ adjoint_factor_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
         const void* u, const void* v, const void* ph, const void* a, const void* sv,          \
         const void* hA, const void* hJ, const void* hC, void* hu, void* hv, void* hph,        \
         void* ha, int L, int B, void* stream) {                                                \
-        adjoint_elements_bwd_kernel<T>                                                          \
-            <<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                 \
+        return launch_bwd(                                                                     \
+            adjoint_elements_bwd_kernel<T>, bwd_smem_bytes<T, NSV0>(), B, stream,             \
             static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(ph),     \
             static_cast<const T*>(a), static_cast<const T*>(sv), static_cast<const T*>(hA),    \
             static_cast<const T*>(hJ), static_cast<const T*>(hC), L, B, static_cast<T*>(hu),   \
             static_cast<T*>(hv), static_cast<T*>(hph), static_cast<T*>(ha));                   \
-        return (int)cudaGetLastError();                                                        \
     }                                                                                          \
     int celerite_adjoint_factor_fwd_##SFX(                                                     \
         const void* u, const void* v, const void* ph, const void* a, const void* y,           \
@@ -235,8 +217,8 @@ adjoint_factor_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
         const void* sv, const void* hM, const void* hm, const void* hQm, const void* hqv,     \
         const void* hq0, const void* hld, void* hu, void* hv, void* hph, void* ha, void* hy,  \
         void* hsh0, int L, int B, void* stream) {                                              \
-        adjoint_factor_bwd_kernel<T>                                                            \
-            <<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                 \
+        return launch_bwd(                                                                     \
+            adjoint_factor_bwd_kernel<T>, bwd_smem_bytes<T, NSV1>(), B, stream,               \
             static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(ph),     \
             static_cast<const T*>(a), static_cast<const T*>(y), static_cast<const T*>(sv),     \
             static_cast<const T*>(hM), static_cast<const T*>(hm), static_cast<const T*>(hQm),  \
@@ -244,7 +226,23 @@ adjoint_factor_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
             static_cast<const T*>(hld), L, B, static_cast<T*>(hu), static_cast<T*>(hv),        \
             static_cast<T*>(hph), static_cast<T*>(ha), static_cast<T*>(hy),                    \
             static_cast<T*>(hsh0));                                                            \
-        return (int)cudaGetLastError();                                                        \
+    }                                                                                          \
+    /* The backward kernels' launch shape: out[0] threads and out[1] lanes a                   \
+       block, out[2] bytes of dynamic shared memory, out[3] blocks an SM at                    \
+       most (the occupancy API); which 0 is elements_bwd, 1 factor_bwd. */                     \
+    int celerite_adjoint_bwd_layout_##SFX(int which, int* out) {                              \
+        const void* k = which ? (const void*)adjoint_factor_bwd_kernel<T>                      \
+                              : (const void*)adjoint_elements_bwd_kernel<T>;                   \
+        const size_t bytes = which ? bwd_smem_bytes<T, NSV1>() : bwd_smem_bytes<T, NSV0>();   \
+        cudaError_t e = bwd_prepare(k, bytes);                                                 \
+        int blocks = 0;                                                                        \
+        if (e == cudaSuccess)                                                                  \
+            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, BWD_THREADS, bytes); \
+        out[0] = BWD_THREADS;                                                                  \
+        out[1] = BWD_LB;                                                                       \
+        out[2] = (int)bytes;                                                                   \
+        out[3] = blocks;                                                                       \
+        return (int)e;                                                                         \
     }
 
 extern "C" {

@@ -1,246 +1,595 @@
-// Shared device code of the reversed sweeps (adjoint.cu, onepass.cu and
-// fused4_grad.cu's factor_bwd): the per-group shared tile, the hand-written
-// transpose of one Riccati step, and one step of the transpose of the
-// seeded factor sweep, which all three call.  adjoint.cu and onepass.cu
-// load each step's streams (factor_bwd_sweep); fused4's factor_bwd lowers
-// them in the kernel and reads its own save layout.
+// Shared device code of the reversed sweeps (adjoint.cu's elements_bwd and
+// factor_bwd, onepass.cu's sweep_bwd, fused4_grad.cu's factor_bwd): the
+// transposed steps, each split into a front and a back, and the pipeline
+// that runs the streamed reversed sweeps.
 //
-// A group of G threads owns a lane, thread r row r (lanes_common.cuh).  The
-// transposes of the backward bodies (hSh + hSh^T, X + X^T with X = hS *
-// Shin, hQm + hQm^T) and the column sums of S go through a per-group tile in
-// shared memory, since a register array indexed by another thread's row
-// would spill; the constant hQm waits in a second tile a group.
+// A group of G threads owns a lane, thread r row r (lanes_common.cuh).  A
+// step's front is what the step computes of its saves and streams alone:
+// S = Phi Shin Phi, su = S u, d, 1 / d, w, the column sums (g = (Phi
+// Mprev)^T u, or uAc = A_in^T (Phi u)) and the terms of the constant
+// cotangents (E12, F9).  It writes them to the step's record in shared
+// memory.  The back is the transpose proper: it carries the cotangents
+// from the step's outputs to its inputs in registers and reads the
+// record, the step's streams and row r of its saves where it uses them.
+// One reciprocal of d a step, in the front; the back divides nowhere.
+// Column sums and transposes go through the group's tile in shared memory
+// (row r written, __syncwarp, column r read), since a register array
+// indexed by another thread's row would spill; the constant cotangent (hQm
+// or hJ) waits in a tile of its own, read by row and by column.  Sums of
+// P terms run in four partial sums (Acc4), and in float64 as fused
+// multiply-adds (mac); float32 keeps each multiply and add apart, as its
+// plain version does.
+//
+// fused4_grad.cu's factor_bwd lowers its streams in the kernel and reads
+// its own save layout: it runs the front and the back of each step one
+// after the other in its own threads (factor_bwd_step).  The streamed
+// sweeps run them in front warps and back warps (bwd_ticks below).
 
 #pragma once
 
 #include "lanes_common.cuh"
 
-// Lane groups of a block, and a group's tile.
+// Lane groups of a BLOCK-thread block, and a group's tile.
 constexpr int LANES = BLOCK / G;
 constexpr int TS = P + 1;          // row stride of a group's tile
 
-// Row r of a column-major saved matrix at `base`; zeros for r >= P.
+// A transposed step's record, field f at rec[f * S]: d, 1 / d, z0 (factor)
+// and the constant cotangents' terms of hz0 (E12) and of hd (E12, F9);
+// rows r of su, w, g (factor) or uAc (elements), and of the constant term
+// of hg (E12) or huAc (F9).
+constexpr int XD = 0, XRD = 1, XZ = 2, XHZ = 3, XHD = 4, XSU = 5, XW = XSU + P, XG = XW + P,
+              XHG = XG + P, NX = XHG + P;
+
+// Row r's view of a step's inputs: u_j and phi_j; row r of the saved
+// matrices x0 (Shin) and x1 (Mprev or A_in); the row's scalars u_r, phi_r,
+// v_r, a, y and x_r (entry r of the saved vector, mprev).  Rows r >= P
+// read zeros.  From registers (fused4_grad.cu's factor_bwd), j known at
+// compile time:
 template <typename T>
-__device__ __forceinline__ void load_row(const T* __restrict__ base, int r, T (&x)[P]) {
+struct RegStep {
+    const T (&uv)[P];
+    const T (&pv)[P];
+    const T (&s0)[P];
+    const T (&s1)[P];
+    T ur, phr, vr, a, y, xr;
+    __device__ __forceinline__ T u(int j) const { return uv[j]; }
+    __device__ __forceinline__ T ph(int j) const { return pv[j]; }
+    __device__ __forceinline__ T x0(int j) const { return s0[j]; }
+    __device__ __forceinline__ T x1(int j) const { return s1[j]; }
+};
+
+// ... or from a lane's words in a ring slot: its NSV save words as saved
+// (each matrix column-major, entry (i, j) at word j * P + i), then the
+// step's streams at NSV + RU + j etc.
+constexpr int RU = 0, RPH = P, RV = 2 * P, RA = 3 * P, RY = 3 * P + 1, NRS = 3 * P + 2;
+
+template <typename T, int NSV>
+struct RingStep {
+    const T* w;
+    int r;
+    T ur, phr, vr, a, y, xr;
+    __device__ __forceinline__ RingStep(const T* words, int row) : w(words), r(row) {
+        const T* st = w + NSV;
+        const bool in = r < P;
+        ur = in ? st[RU + r] : T(0);
+        phr = in ? st[RPH + r] : T(0);
+        vr = in ? st[RV + r] : T(0);
+        a = st[RA];
+        y = st[RY];
+        xr = (NSV > 2 * PP && in) ? w[2 * PP + r] : T(0);
+    }
+    __device__ __forceinline__ T u(int j) const { return w[NSV + RU + j]; }
+    __device__ __forceinline__ T ph(int j) const { return w[NSV + RPH + j]; }
+    __device__ __forceinline__ T x0(int j) const { return r < P ? w[j * P + r] : T(0); }
+    __device__ __forceinline__ T x1(int j) const { return r < P ? w[PP + j * P + r] : T(0); }
+};
+
+// a * b + c: one fused multiply-add in float64; in float32 a multiply and
+// an add, which round as the plain versions do (-fmad=false).
+__device__ __forceinline__ double mac(double a, double b, double c) { return __fma_rn(a, b, c); }
+__device__ __forceinline__ float mac(float a, float b, float c) { return a * b + c; }
+
+// A sum of P terms in four interleaved partial sums (term j into j % 4), so
+// that its chain of dependent adds is a quarter as long.
+template <typename T>
+struct Acc4 {
+    T s[4] = {T(0), T(0), T(0), T(0)};
+    __device__ __forceinline__ void fma(int j, T a, T b) { s[j & 3] = mac(a, b, s[j & 3]); }
+    __device__ __forceinline__ void add(int j, T x) { s[j & 3] += x; }
+    __device__ __forceinline__ T sum() const { return (s[0] + s[1]) + (s[2] + s[3]); }
+};
+
+// Row r of a (P, P, B) per-lane matrix into a group's tile (row i at i *
+// TS); nothing for r >= P.
+template <typename T, typename U>
+__device__ __forceinline__ void load_tile(T* tile, const U* __restrict__ in, int r, int B,
+                                          int l) {
+    if (r >= P) return;
 #pragma unroll
-    for (int j = 0; j < P; ++j) x[j] = r < P ? base[j * P + r] : T(0);
+    for (int j = 0; j < P; ++j) tile[r * TS + j] = static_cast<T>(in[((size_t)r * P + j) * B + l]);
 }
 
-// Row r of x^T (column r of x) through the group's tile; zeros for r >= P.
-template <typename T>
-__device__ __forceinline__ void transpose_row(T* tile, int r, const T (&x)[P], T (&xt)[P]) {
+// Thread r's sum over the group's rows i of x_i(r), row i's terms x(j)
+// given by a functor, through the group's tile (0 for r >= P).  The caller
+// syncs the warp before the tile is written again.
+template <typename T, class X>
+__device__ __forceinline__ T column_sum(T* tile, int r, X&& x) {
     if (r < P) {
 #pragma unroll
-        for (int j = 0; j < P; ++j) tile[r * TS + j] = x[j];
+        for (int j = 0; j < P; ++j) tile[r * TS + j] = x(j);
     }
     __syncwarp();
+    Acc4<T> c;
+    if (r < P) {
 #pragma unroll
-    for (int j = 0; j < P; ++j) xt[j] = r < P ? tile[j * TS + r] : T(0);
-    __syncwarp();
+        for (int i = 0; i < P; ++i) c.add(i, tile[i * TS + r]);
+    }
+    return c.sum();
 }
 
-// Steps 5-1 of both backward sweeps (F5-F1 = E5-E1, fused4._riccati_adjoint),
-// row r: the transposes of Sh_out = S + d w w^T, w = (v - su)/d, d = a -
-// u.su, su = S u and S = Phi Shin Phi.  hSh comes in as the output's
-// cotangent and leaves as Shin's; hw, hd, hu, hph come in with the step's
-// other contributions; writes hv and ha.
-template <typename T>
-__device__ __forceinline__ void riccati_adjoint_row(T* tile, int r, const T (&Shin)[P],
-                                                    const T (&S)[P], T su, T d, T wr,
-                                                    const T (&w)[P], const T (&u)[P],
-                                                    const T (&ph)[P], T (&hSh)[P], T hw, T hd,
-                                                    T& hu, T& hph, T& hv, T& ha) {
-    const T ur = pick(u, r), phr = pick(ph, r);
-    T tmp[P];
-    // F5: Sh_out = S + d w w^T
-    T q = T(0);
+// ---------------------------------------------------------------------------
+// Fronts: what a step computes of its inputs alone, into its record
+// ---------------------------------------------------------------------------
+
+// The Riccati step's front (fused4._front), row r: su = S u with S = Phi
+// Shin Phi, d = a - u.su, 1 / d and w_r = (v_r - su) / d.  Returns 1 / d.
+template <typename T, class In, int S>
+__device__ __forceinline__ T riccati_front(int r, const In& in, Rec<T, S> rec) {
+    Acc4<T> sa;
 #pragma unroll
-    for (int j = 0; j < P; ++j) q += hSh[j] * wr * w[j];
-    hd = hd + group_sum(q);
-    transpose_row(tile, r, hSh, tmp);
-    T t = T(0);
+    for (int j = 0; j < P; ++j) sa.fma(j, in.x0(j) * in.ph(j), in.u(j));
+    const T su = in.phr * sa.sum();
+    const T d = in.a - group_sum(in.ur * su);
+    const T rd = T(1) / d;
+    if (r == 0) {
+        rec[XD] = d;
+        rec[XRD] = rd;
+    }
+    if (r < P) {
+        rec[XSU + r] = su;
+        rec[XW + r] = (in.vr - su) * rd;
+    }
+    return rd;
+}
+
+// The factor transpose's front (E12 of adjoint.py:253, onepass.py:219,
+// fused4.py:686): the Riccati front, g = (Phi Mprev)^T u, z0 = y - u . Phi
+// mprev and the statistics' constant cotangents (hQm in the tile hq, read
+// symmetrised; entry r of hqv; hq0, hld) as their terms of hz0, hd and hg.
+template <typename T, class In, int S>
+__device__ __forceinline__ void factor_front(T* tile, const T* hq, int r, const In& in,
+                                             Rec<T, S> rec, T hqv, T hq0, T hld) {
+    const T rd = riccati_front(r, in, rec);
+    const T phr = in.phr, ur = in.ur, pu = phr * ur;
+    const T gr = column_sum(tile, r, [&](int j) { return in.x1(j) * pu; });
+    if (r < P) rec[XG + r] = gr;
+    __syncwarp();
+    const T z0 = in.y - group_sum(ur * (phr * in.xr));
+    const T hqv_g = group_sum(hqv * gr);
+    Acc4<T> qa, ta;
 #pragma unroll
-    for (int j = 0; j < P; ++j) t += (hSh[j] + tmp[j]) * w[j];
-    hw = hw + d * t;
+    for (int j = 0; j < P; ++j) {
+        const T gj = rec[XG + j];
+        const T hqm = r < P ? hq[r * TS + j] : T(0);
+        const T hqs = r < P ? hqm + hq[j * TS + r] : T(0);
+        qa.fma(j, hqm, gj);
+        ta.fma(j, hqs, gj);
+    }
+    const T t = ta.sum();
+    const T gQg = group_sum(gr * qa.sum()), rd2 = rd * rd;
+    if (r == 0) {
+        rec[XZ] = z0;
+        rec[XHZ] = hq0 * (T(2) * z0 * rd) + hqv_g * rd;
+        rec[XHD] = -hq0 * z0 * z0 * rd2 + hld * rd - hqv_g * z0 * rd2 - gQg * rd2;
+    }
+    if (r < P) rec[XHG + r] = hqv * (z0 * rd) + t * rd;
+}
+
+// The elements transpose's front (adjoint.py:98): the Riccati front, uAc =
+// A_in^T (Phi u) and F9, J_out = J_in - uAc (uAc / d)^T, whose cotangent
+// hJ is constant (in the tile hj, entering symmetrised).
+template <typename T, class In, int S>
+__device__ __forceinline__ void elem_front(T* tile, const T* hj, int r, const In& in,
+                                           Rec<T, S> rec) {
+    const T rd = riccati_front(r, in, rec);
+    const T utr = in.phr * in.ur;
+    const T uAr = column_sum(tile, r, [&](int j) { return in.x1(j) * utr; });
+    if (r < P) rec[XG + r] = uAr;
+    __syncwarp();
+    Acc4<T> ta, qa;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        const T uj = rec[XG + j];
+        const T hjm = r < P ? hj[r * TS + j] : T(0);
+        const T hjs = r < P ? hjm + hj[j * TS + r] : T(0);
+        ta.fma(j, hjs, uj);
+        qa.fma(j, hjm, uj);
+    }
+    const T hd = group_sum(uAr * qa.sum()) * (rd * rd);
+    if (r == 0) rec[XHD] = hd;
+    if (r < P) rec[XHG + r] = -ta.sum() * rd;
+}
+
+// ---------------------------------------------------------------------------
+// Backs: the transposes proper, carrying the cotangents in registers.
+// `vec` is the group's P words for a vector all its threads read.
+// ---------------------------------------------------------------------------
+
+// F5-F1 of both transposes (fused4._riccati_adjoint), row r: the
+// transposes of Sh_out = S + d w w^T, w = (v - su)/d, d = a - u.su, su = S
+// u and S = Phi Shin Phi.  hSh comes in as the output's cotangent and
+// leaves as Shin's; hw, hd, hu, hph come in with the step's other
+// contributions; writes hv and ha.
+template <typename T, class In, int S>
+__device__ __forceinline__ void riccati_back(T* tile, int r, const In& in, Rec<T, S> rec, T wr,
+                                             T (&hSh)[P], T hw, T hd, T& hu, T& hph, T& hv,
+                                             T& ha) {
+    const T d = rec[XD], rd = rec[XRD], su = r < P ? rec[XSU + r] : T(0);
+    const T phr = in.phr, ur = in.ur;
+    // F5: Sh_out = S + d w w^T, through (hSh w)_r and (hSh^T w)_r (a
+    // column sum).
+    const T ct = column_sum(tile, r, [&](int j) { return hSh[j] * wr; });
+    Acc4<T> aa;
+#pragma unroll
+    for (int j = 0; j < P; ++j) aa.fma(j, hSh[j], rec[XW + j]);
+    __syncwarp();
+    const T a = aa.sum();
+    hd = hd + group_sum(wr * a);
+    hw = hw + d * (a + ct);
     // F4: w = (v - su)/d
-    hv = hw / d;
-    T hsu = -hw / d;
-    hd = hd - group_sum(hw * wr) / d;
+    hv = hw * rd;
+    T hsu = -hw * rd;
+    hd = hd - group_sum(hw * wr) * rd;
     // F3: d = a - u.su
     ha = hd;
     hu = hu - hd * su;
     hsu = hsu - hd * ur;
-    // F2: su = S u (hu gains column r of S against hsu)
-    transpose_row(tile, r, S, tmp);
-    T hsuv[P];
-    gather(hsu, hsuv);
-    T c = T(0);
-#pragma unroll
-    for (int i = 0; i < P; ++i) c += tmp[i] * hsuv[i];
-    hu = hu + c;
-#pragma unroll
-    for (int j = 0; j < P; ++j) hSh[j] = hSh[j] + hsu * u[j];  // hS
-    // F1: S = Phi Shin Phi
+    // F2: su = S u: hu gains (S^T hsu)_r = phi_r sum_i Shin_ir (phi_i
+    // hsu_i), a column sum through the tile; and X = hS * Shin of F1.
     T X[P];
-#pragma unroll
-    for (int j = 0; j < P; ++j) X[j] = hSh[j] * Shin[j];
-    transpose_row(tile, r, X, tmp);
-    T e = T(0);
-#pragma unroll
-    for (int j = 0; j < P; ++j) e += (X[j] + tmp[j]) * ph[j];
-    hph = hph + e;
-#pragma unroll
-    for (int j = 0; j < P; ++j) hSh[j] = phr * hSh[j] * ph[j];
-}
-
-// A factor transpose's shared memory: each group's transpose tile, then
-// its tile of the constant cotangent hQm (row i at i * TS), read by row and
-// by column where the step needs hQm + hQm^T, so that neither lives in
-// registers through the sweep.
-constexpr int FACTOR_BWD_TILES = 2 * LANES * P * TS;
-
-// Row r of x into a group's tile; nothing for r >= P.
-template <typename T>
-__device__ __forceinline__ void put_tile_row(T* tile, int r, const T (&x)[P]) {
-    if (r >= P) return;
-#pragma unroll
-    for (int j = 0; j < P; ++j) tile[r * TS + j] = x[j];
-}
-
-// One step of the transpose of the seeded factor sweep, row r: E12-E1 of
-// the Pallas bodies adjoint.py:253, onepass.py:219 and fused4.py:686.  From
-// the step's streams (u and ph whole, v_r, a, y), its saves (rows r of
-// Shin and Mprev, entry r of mprev) and the statistics' constant
-// cotangents (hQm in the group's tile hq; entry r of hqv; hq0, hld), the
-// step's intermediates are recomputed and the step transposed by hand:
-// hM, hm and hSh come in as the cotangents of the step's outputs (rows r
-// of M and S-hat, entry r of m) and leave as its inputs'; the stream
-// cotangents hu_r, hv_r, hph_r, ha and hy are written.
-template <typename T>
-__device__ __forceinline__ void factor_bwd_step(T* tile, const T* hq, int r, const T (&uv)[P],
-                                                const T (&pv)[P], T vr, T a, T y,
-                                                const T (&Shin)[P], const T (&Mprev)[P],
-                                                T mprev, T hqv, T hq0, T hld, T (&hM)[P],
-                                                T& hm, T (&hSh)[P], T& hu, T& hv, T& hph,
-                                                T& ha, T& hy) {
-    T S[P], w[P], g[P], hg[P], su, wr;
-    const T d = front_row(Shin, uv, pv, vr, a, r, S, su, wr, w);
-    const T phr = pick(pv, r), ur = pick(uv, r);
-#pragma unroll
-    for (int j = 0; j < P; ++j) g[j] = group_sum(phr * Mprev[j] * ur);  // (Phi Mprev)^T u
-    const T gr = pick(g, r);
-    const T mh = phr * mprev;
-    const T z0 = y - group_sum(ur * mh);
-
-    // E12: the statistics (constant cotangents, one term a step); hQm
-    // enters symmetrised too.
-    const T hqv_g = group_sum(hqv * gr);
-    T q = T(0), t = T(0);
+    const T hp = phr * hsu;
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-        const T hqm = r < P ? hq[r * TS + j] : T(0);
-        const T hqs = r < P ? hqm + hq[j * TS + r] : T(0);
-        q += hqm * gr * g[j];
-        t += hqs * g[j];
+        const T x0j = in.x0(j);
+        if (r < P) tile[r * TS + j] = x0j * hp;
+        hSh[j] = mac(hsu, in.u(j), hSh[j]);  // hS
+        X[j] = hSh[j] * x0j;
     }
-    const T gQg = group_sum(q);
-    T hz0 = hq0 * (T(2) * z0 / d) + hqv_g / d;
-    T hd = -hq0 * z0 * z0 / (d * d) + hld / d - hqv_g * z0 / (d * d) - gQg / (d * d);
-    const T hgr = hqv * (z0 / d) + t / d;
+    __syncwarp();
+    Acc4<T> c;
+    if (r < P) {
+#pragma unroll
+        for (int i = 0; i < P; ++i) c.add(i, tile[i * TS + r]);
+    }
+    __syncwarp();
+    hu = hu + phr * c.sum();
+    // F1: S = Phi Shin Phi
+    Acc4<T> e;
+    if (r < P) {
+#pragma unroll
+        for (int j = 0; j < P; ++j) tile[r * TS + j] = X[j];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        const T phj = in.ph(j);
+        e.fma(j, X[j] + (r < P ? tile[j * TS + r] : T(0)), phj);
+        hSh[j] = phr * hSh[j] * phj;
+    }
+    __syncwarp();
+    hph = hph + e.sum();
+}
+
+// E11-E1 of the factor transpose, row r: hM, hm and hSh come in as the
+// cotangents of the step's outputs (rows r of M and S-hat, entry r of m)
+// and leave as its inputs'; the stream cotangents hu_r, hv_r, hph_r, ha
+// and hy are returned.
+template <typename T, class In, int S>
+__device__ __forceinline__ void factor_back(T* tile, T* vec, int r, const In& in, Rec<T, S> rec,
+                                            T (&hM)[P], T& hm, T (&hSh)[P], T& hu, T& hv,
+                                            T& hph, T& ha, T& hy) {
+    const T phr = in.phr, ur = in.ur, z0 = rec[XZ];
+    const T wr = r < P ? rec[XW + r] : T(0);
     // E11: m_out = mh + w z0
     T hw = hm * z0;
-    hz0 = hz0 + group_sum(hm * wr);
+    const T hz0 = rec[XHZ] + group_sum(hm * wr);
     // E10: z0 = y - u . mh
     hy = hz0;
-    hu = -hz0 * mh;
+    hu = -hz0 * (phr * in.xr);
     const T hmh = hm - hz0 * ur;
     // E9: mh = ph * mprev
-    hph = hmh * mprev;
+    hph = hmh * in.xr;
     hm = hmh * phr;
-    // E8: M_out = PhM - w g^T
-    t = T(0);
+    // E8: M_out = PhM - w g^T; hg's column sums through the tile.
+    Acc4<T> t8;
 #pragma unroll
-    for (int j = 0; j < P; ++j) t += hM[j] * g[j];
-    hw = hw - t;
-    gather(hgr, hg);
-#pragma unroll
-    for (int k = 0; k < P; ++k) hg[k] = hg[k] - group_sum(hM[k] * wr);
-    // E7: g = PhM^T u
-    t = T(0);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-        t += phr * Mprev[j] * hg[j];
-        hM[j] = hM[j] + ur * hg[j];  // hPhM
-    }
-    hu = hu + t;
-    // E6: PhM = Phi Mprev (row scale)
-    t = T(0);
+    for (int j = 0; j < P; ++j) t8.fma(j, hM[j], rec[XG + j]);
+    hw = hw - t8.sum();
+    const T c = column_sum(tile, r, [&](int j) { return hM[j] * wr; });
+    if (r < P) vec[r] = rec[XHG + r] - c;
+    __syncwarp();
+    // E7: g = PhM^T u, and E6: PhM = Phi Mprev (row scale)
+    Acc4<T> t7, t6;
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-        t += hM[j] * Mprev[j];
+        const T hg = vec[j], mj = in.x1(j);
+        t7.fma(j, mj, hg);
+        hM[j] = mac(ur, hg, hM[j]);  // hPhM
+        t6.fma(j, hM[j], mj);
         hM[j] = phr * hM[j];
     }
-    hph = hph + t;
+    hu = hu + phr * t7.sum();
+    hph = hph + t6.sum();
     // E5-E1: the Riccati step.
-    riccati_adjoint_row(tile, r, Shin, S, su, d, wr, w, uv, pv, hSh, hw, hd, hu, hph, hv, ha);
+    riccati_back(tile, r, in, rec, wr, hSh, hw, rec[XHD], hu, hph, hv, ha);
+}
+
+// F8-F1 of the elements transpose, row r: hA and hSh come in as the
+// cotangents of the step's outputs (rows r of A and S-hat) and leave as
+// its inputs'; the stream cotangents hu_r, hv_r, hph_r and ha are
+// returned.
+template <typename T, class In, int S>
+__device__ __forceinline__ void elem_back(T* tile, T* vec, int r, const In& in, Rec<T, S> rec,
+                                          T (&hA)[P], T (&hSh)[P], T& hu, T& hv, T& hph,
+                                          T& ha) {
+    const T phr = in.phr, ur = in.ur, utr = phr * ur;
+    const T wr = r < P ? rec[XW + r] : T(0);
+    // F8: A_out = Phi A_in - w uAc^T; huAc's column sums through the tile.
+    Acc4<T> hpa, hwa;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        hpa.fma(j, hA[j], in.x1(j));
+        hwa.fma(j, hA[j], rec[XG + j]);
+    }
+    const T hp = hpa.sum(), hw = -hwa.sum();
+    const T c = column_sum(tile, r, [&](int j) { return hA[j] * wr; });
+    if (r < P) vec[r] = rec[XHG + r] - c;
+    __syncwarp();
+    // F7: uAc = A_in^T ut
+    Acc4<T> huta;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        const T h = vec[j];
+        huta.fma(j, in.x1(j), h);
+        hA[j] = mac(utr, h, phr * hA[j]);
+    }
+    const T hut = huta.sum();
+    // F6: ut = ph * u
+    hph = hp + hut * ur;
+    hu = hut * phr;
+    // F5-F1: the Riccati step.
+    riccati_back(tile, r, in, rec, wr, hSh, hw, rec[XHD], hu, hph, hv, ha);
+}
+
+// One step of the transpose of the seeded factor sweep, front then back in
+// the same threads (fused4_grad.cu's factor_bwd): `tile` and `hq` are the
+// group's tiles, `vec` its P words, `rec` its record.
+template <typename T, int S>
+__device__ __forceinline__ void factor_bwd_step(T* tile, const T* hq, T* vec, Rec<T, S> rec,
+                                                int r, const RegStep<T>& in, T hqv, T hq0,
+                                                T hld, T (&hM)[P], T& hm, T (&hSh)[P], T& hu,
+                                                T& hv, T& hph, T& ha, T& hy) {
+    factor_front(tile, hq, r, in, rec, hqv, hq0, hld);
+    __syncwarp();
+    factor_back(tile, vec, r, in, rec, hM, hm, hSh, hu, hv, hph, ha, hy);
+}
+
+// ---------------------------------------------------------------------------
+// The streamed reversed sweeps: a block of BWD_LB lanes and two roles of
+// BWD_RW warps each, a group of G threads a lane in each role.  The front
+// warps copy each lane's saves and streams BWD_AHEAD steps ahead, in
+// reverse step order, into a ring in shared memory (cp.async), and run
+// each step's front into a record; the back warps run the back of the step
+// before, reading the ring and the record.  One block barrier a step
+// hands the step over, so a step costs the longer of the two halves.
+// ---------------------------------------------------------------------------
+
+// Warps a role: at least four lanes a block, so that a block's stream
+// cotangents of a step fill 16 bytes (float32) or a 32-byte sector
+// (float64) of each row; blocks of 2 lanes took 1.13-1.26x as long on
+// main path E's 16 chains (PERF.md).
+constexpr int BWD_RW = G >= 8 ? G / 8 : 1;
+constexpr int BWD_LB = BWD_RW * 32 / G;   // lanes a block
+constexpr int BWD_THREADS = 64 * BWD_RW;  // the back warps, then the front warps
+constexpr int BWD_AHEAD = 2;              // steps copied ahead of the front
+constexpr int BWD_RING = BWD_AHEAD + 2;   // the back's step, the front's, those in flight
+// Blocks an SM the register budget is set for: at P = 16 an SM's shared
+// memory holds two blocks in float64 (255 registers a thread) and four in
+// float32 (128 registers a thread), so main path E's 16 chains (512
+// blocks) take one wave in float32 and two in float64.
+template <typename T>
+struct BwdBlocks {
+    static constexpr int value = (sizeof(T) == 4 ? 8 : 4) / BWD_RW;
+};
+
+// Dynamic shared memory of a sweep whose steps save NSV words, in words:
+// the ring (BWD_RING slots of BWD_LB lanes' words), two record slots, each
+// lane's tiles (the constant cotangent, the front's, the back's) and its
+// vector.
+template <int NSV>
+struct BwdSmem {
+    static constexpr int LW = (NSV + NRS + 3) / 4 * 4;  // a lane's words in a slot, 16-byte aligned
+    static constexpr int RING = BWD_RING * BWD_LB * LW;
+    static constexpr int REC = 2 * NX * BWD_LB;
+    static constexpr int TILE = BWD_LB * P * TS;
+    static constexpr int WORDS = RING + REC + 3 * TILE + BWD_LB * P;
+};
+
+extern __shared__ __align__(16) unsigned char bwd_smem[];
+
+// A lane's step s into its words of a ring slot, by the lane's group: the
+// NSV save words (16 bytes a copy where `wide`, the saves 16-byte aligned
+// and NSV words a multiple of 16 bytes), then u, phi and v (a word a row),
+// a and y (y may be null).  One cp.async group a call, empty for s < 0.
+template <typename T, int NSV>
+__device__ __forceinline__ void copy_step(T* dst, const T* __restrict__ sv,
+                                          const T* __restrict__ u, const T* __restrict__ v,
+                                          const T* __restrict__ ph, const T* __restrict__ a,
+                                          const T* __restrict__ y, int s, int B, int l, int r,
+                                          bool wide) {
+    constexpr int V = 16 / sizeof(T);
+    if (s >= 0) {
+        const T* src = sv + ((size_t)s * B + l) * NSV;
+        if (NSV % V == 0 && wide) {
+            for (int i = r * V; i < NSV; i += G * V) cp_async16(dst + i, src + i);
+        } else {
+            for (int i = r; i < NSV; i += G) cp_async(dst + i, src + i);
+        }
+        T* st = dst + NSV;
+        if (r < P) {
+            const size_t o = ((size_t)s * P + r) * B + l;
+            cp_async(st + RU + r, u + o);
+            cp_async(st + RPH + r, ph + o);
+            cp_async(st + RV + r, v + o);
+        }
+        if (r == 0) {
+            cp_async(st + RA, a + (size_t)s * B + l);
+            if (y != nullptr) cp_async(st + RY, y + (size_t)s * B + l);
+        }
+    }
+    cp_async_commit();
+}
+
+// A sweep's block: this thread's lane (q in the block, l in the launch,
+// the lane whose words it copies), row, warp and its shared memory.
+template <typename T, int NSV>
+struct BwdCtx {
+    int q, r, l, ls;
+    bool live, front, wide;
+    T *ring, *recs, *cst, *ftile, *btile, *vec;
+    __device__ __forceinline__ BwdCtx(int B, const T* sv) {
+        using Sm = BwdSmem<NSV>;
+        q = (threadIdx.x % (32 * BWD_RW)) / G;
+        r = threadIdx.x % G;
+        l = blockIdx.x * BWD_LB + q;
+        live = l < B;
+        ls = live ? l : B - 1;  // a dead lane runs the last lane and writes nothing
+        front = threadIdx.x >= 32 * BWD_RW;
+        wide = (reinterpret_cast<size_t>(sv) & 15) == 0;
+        T* sm = reinterpret_cast<T*>(bwd_smem);
+        ring = sm;
+        recs = sm + Sm::RING;
+        cst = recs + Sm::REC + q * P * TS;
+        ftile = cst + Sm::TILE;
+        btile = cst + 2 * Sm::TILE;
+        vec = sm + Sm::RING + Sm::REC + 3 * Sm::TILE + q * P;
+    }
+    __device__ __forceinline__ T* words(int k) const {
+        return ring + ((k % BWD_RING) * BWD_LB + q) * BwdSmem<NSV>::LW;
+    }
+    __device__ __forceinline__ Rec<T, BWD_LB> rec(int k) const {
+        return Rec<T, BWD_LB>{recs + (k & 1) * NX * BWD_LB + q};
+    }
+};
+
+// The sweep's ticks: at tick k the front warp runs front(words, rec) on
+// step L - 1 - k (its words arrived) and copies step L - 1 - k -
+// BWD_AHEAD; the back warp runs back(words, rec, s) on step s = L - k, the
+// front's step of the tick before.  A barrier ends each tick.
+template <typename T, int NSV, class Copy, class Front, class Back>
+__device__ __forceinline__ void bwd_ticks(const BwdCtx<T, NSV>& c, int L, Copy&& copy,
+                                          Front&& front, Back&& back) {
+    if (c.front) {
+        for (int k = 0; k < BWD_AHEAD; ++k) copy(c.words(k), L - 1 - k);
+    }
+    for (int k = 0; k <= L; ++k) {
+        if (c.front) {
+            if (k < L) {
+                cp_async_wait<BWD_AHEAD - 1>();
+                __syncwarp();
+                front(c.words(k), c.rec(k));
+                copy(c.words(k + BWD_AHEAD), L - 1 - k - BWD_AHEAD);
+            }
+        } else if (k > 0) {
+            back(c.words(k - 1), c.rec(k - 1), L - k);
+        }
+        __syncthreads();
+    }
+    if (c.front) cp_async_wait<0>();
 }
 
 // The transpose of the seeded factor sweep (factor_sweep<true>) on
-// pre-lowered streams, streamed in reverse: each step's streams and saves
-// [Shin, Mprev, mprev] are loaded and factor_bwd_step writes the per-step
-// stream cotangents (hu, hv, hph, ha, hy).  The carried S-hat cotangent
-// starts from hC0, the end state's cotangent (zero when null); with a
-// non-null hsh0_out the seed's cotangent is written.  `tiles` is the
-// block's FACTOR_BWD_TILES words of shared memory.
+// pre-lowered streams, streamed in reverse from the saves [Shin, Mprev,
+// mprev]: writes the per-step stream cotangents (hu, hv, hph, ha, hy).
+// The carried S-hat cotangent starts from hC0, the end state's cotangent
+// (zero when null); with a non-null hsh0_out the seed's cotangent is
+// written.  Launched as BWD_THREADS threads a block, BwdSmem<NSV1> words
+// of dynamic shared memory.
 template <typename T>
 __device__ __forceinline__ void factor_bwd_sweep(
-    T* tiles, const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
+    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
     const T* __restrict__ a, const T* __restrict__ y, const T* __restrict__ sv,
     const T* __restrict__ hC0, const T* __restrict__ hM0, const T* __restrict__ hm0,
     const T* __restrict__ hQm0, const T* __restrict__ hqv0, const T* __restrict__ hq00,
     const T* __restrict__ hld0, int L, int B, T* __restrict__ hu_out, T* __restrict__ hv_out,
     T* __restrict__ hph_out, T* __restrict__ ha_out, T* __restrict__ hy_out,
     T* __restrict__ hsh0_out) {
-    const Lane ln = lane_of(B);
-    const int l = ln.l, r = ln.r;
-    T* tile = tiles + (threadIdx.x / G) * 2 * P * TS;
-    T* hq = tile + P * TS;
-    // hSh enters as the end state's cotangent hC, zero without one.
+    const BwdCtx<T, NSV1> c(B, sv);
+    const int r = c.r, l = c.l;
+    // The front warp's constants: hQm in the lane's tile, hqv_r, hq0, hld.
+    if (c.front) load_tile(c.cst, hQm0, r, B, c.ls);
+    const T hqv = r < P ? hqv0[(size_t)r * B + c.ls] : T(0);
+    const T hq0 = hq00[c.ls], hld = hld0[c.ls];
+    // The back warp's carried cotangents; hSh enters as hC, zero without.
     T hM[P], hSh[P];
-    get_mat(hM0, r, B, l, hM);
-    get_mat(hQm0, r, B, l, hSh);
-    put_tile_row(hq, r, hSh);
-    __syncwarp();
-    if (hC0 != nullptr) get_mat(hC0, r, B, l, hSh);
+    get_mat(hM0, r, B, c.ls, hM);
+    if (hC0 != nullptr) get_mat(hC0, r, B, c.ls, hSh);
 #pragma unroll
     for (int j = 0; j < P; ++j)
         if (hC0 == nullptr) hSh[j] = T(0);
-    T hm = r < P ? hm0[(size_t)r * B + l] : T(0);
-    const T hqv = r < P ? hqv0[(size_t)r * B + l] : T(0);
-    const T hq0 = hq00[l], hld = hld0[l];
-
-    for (int s = L - 1; s >= 0; --s) {
-        const T* svs = sv + ((size_t)s * B + l) * NSV1;
-        T Shin[P], Mprev[P], uv[P], pv[P];
-        load_row(svs, r, Shin);
-        load_row(svs + PP, r, Mprev);
-        const T mprev = r < P ? svs[2 * PP + r] : T(0);
-        load_vec(u, s, B, l, uv);
-        load_vec(ph, s, B, l, pv);
-        const size_t o = ((size_t)s * P + r) * B + l, o1 = (size_t)s * B + l;
-        const T vr = r < P ? v[o] : T(0);
-        T hu, hv, hph, ha, hy;
-        factor_bwd_step(tile, hq, r, uv, pv, vr, a[o1], y[o1], Shin, Mprev, mprev, hqv, hq0,
-                        hld, hM, hm, hSh, hu, hv, hph, ha, hy);
-        if (ln.live && r < P) {
-            hu_out[o] = hu;
-            hv_out[o] = hv;
-            hph_out[o] = hph;
-            if (r == 0) {
-                ha_out[o1] = ha;
-                hy_out[o1] = hy;
+    T hm = r < P ? hm0[(size_t)r * B + c.ls] : T(0);
+    __syncwarp();
+    bwd_ticks(
+        c, L,
+        [&](T* w, int s) { copy_step<T, NSV1>(w, sv, u, v, ph, a, y, s, B, c.ls, r, c.wide); },
+        [&](const T* w, Rec<T, BWD_LB> rec) {
+            factor_front(c.ftile, c.cst, r, RingStep<T, NSV1>(w, r), rec, hqv, hq0, hld);
+        },
+        [&](const T* w, Rec<T, BWD_LB> rec, int s) {
+            T hu, hv, hph, ha, hy;
+            factor_back(c.btile, c.vec, r, RingStep<T, NSV1>(w, r), rec, hM, hm, hSh, hu, hv,
+                        hph, ha, hy);
+            if (c.live && r < P) {
+                const size_t o = ((size_t)s * P + r) * B + l, o1 = (size_t)s * B + l;
+                hu_out[o] = hu;
+                hv_out[o] = hv;
+                hph_out[o] = hph;
+                if (r == 0) {
+                    ha_out[o1] = ha;
+                    hy_out[o1] = hy;
+                }
             }
-        }
-    }
-    if (hsh0_out != nullptr && ln.live && r < P) put_mat(hsh0_out, r, B, l, hSh);
+        });
+    if (!c.front && hsh0_out != nullptr && c.live && r < P) put_mat(hsh0_out, r, B, l, hSh);
+}
+
+// A sweep's dynamic shared memory in bytes.
+template <typename T, int NSV>
+constexpr size_t bwd_smem_bytes() {
+    return sizeof(T) * (size_t)BwdSmem<NSV>::WORDS;
+}
+
+// A sweep kernel's shared memory settings: its dynamic limit raised to
+// `bytes`, and an SM's L1 given to shared memory, so that as many blocks
+// fit an SM as its shared memory holds.
+template <typename K>
+static cudaError_t bwd_prepare(K kernel, size_t bytes) {
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    return e;
+}
+
+// A sweep kernel's launch on the caller's stream: BWD_THREADS threads
+// and BWD_LB lanes a block.  Returns the error of its settings or of its
+// launch.
+template <typename K, typename... A>
+static int launch_bwd(K kernel, size_t bytes, int B, void* stream, A... args) {
+    const cudaError_t e = bwd_prepare(kernel, bytes);
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grid((unsigned)((B + BWD_LB - 1) / BWD_LB));
+    kernel<<<grid, BWD_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(args...);
+    return (int)cudaGetLastError();
 }

@@ -115,6 +115,12 @@ __device__ __forceinline__ void cp_async(T* dst, const T* src) {
                  "n"((int)sizeof(T))
                  : "memory");
 }
+// 16 bytes from device memory into shared memory, both 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void cp_async16(T* dst, const T* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -24,9 +24,11 @@
 // adjoints beside two saved matrices, more than one thread's registers
 // hold, so it gives a lane a group of G threads (the power of two at or
 // above P; 16 at P = 9..12), thread r owning row r of every P x P state,
-// BLOCK threads a block, as the adjoint and one-pass transposes do (no
-// spills at P <= 9 in float64); its step is theirs, factor_bwd_step
-// (adjoint_common.cuh).  Thread r lowers its own
+// BLOCK threads a block (no spills at P <= 11 in float64); its step is
+// the adjoint and one-pass transposes', its front and back run one after
+// the other in the group's threads (factor_bwd_step, adjoint_common.cuh),
+// through a record, a tile and a vector a group in shared memory.  Thread
+// r lowers its own
 // column of each step (u_r, v_r, phi_r; the two rows of a complex pair
 // compute their shared exp and sincos each) and the group gathers u and
 // phi by shuffles; its coefficients and its share of the coefficient
@@ -513,8 +515,11 @@ __device__ __forceinline__ void store_col_grad(const Col<T>& k, int jr, int r, i
     if (r == 0) hcf[(size_t)(2 * jr + 4 * jc) * B + l] = k[GT];
 }
 
+// Two blocks an SM, up to 255 registers a thread: left to itself ptxas
+// held the kernel at 168 registers and spilled at P = 8 in float64, 1.34x
+// slower (PERF.md).
 template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, 2)
 factor_bwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
                   const T* __restrict__ tl, const T* __restrict__ dt, const T* __restrict__ dg,
                   const T* __restrict__ msk, const T* __restrict__ y, int L, int B, int jr,
@@ -523,18 +528,22 @@ factor_bwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
                   const double* __restrict__ hqv0, const double* __restrict__ hq0_,
                   const double* __restrict__ hld_, T* __restrict__ hcf, T* __restrict__ hy_out,
                   T* __restrict__ hsh0) {
-    __shared__ T tiles[FACTOR_BWD_TILES];
+    // Each group's tiles (its transposes', then hQm's), its step's record
+    // and its P words of a vector.
+    __shared__ T tiles[2 * LANES * P * TS];
+    __shared__ T recs[NX * LANES];
+    __shared__ T vecs[LANES * P];
     __shared__ T cols[NCOL * BLOCK];
     const Lane ln = lane_of(B);
-    const int l = ln.l, r = ln.r;
-    T* tile = tiles + (threadIdx.x / G) * 2 * P * TS;
+    const int l = ln.l, r = ln.r, grp = threadIdx.x / G;
+    T* tile = tiles + grp * 2 * P * TS;
     T* hq = tile + P * TS;
+    const Rec<T, LANES> rec{recs + grp};
     const Col<T> k = load_col(cols, cf + (size_t)(l / seg) * (2 * P + 1), jr, r);
 
     // The cotangents, rounded to T; hQm waits in the group's tile.
     T hM[P], hSh[P];
-    get_mat(hQm0, r, B, l, hSh);
-    put_tile_row(hq, r, hSh);
+    load_tile(hq, hQm0, r, B, l);
     __syncwarp();
     get_mat(hM0, r, B, l, hM);
 #pragma unroll
@@ -561,8 +570,9 @@ factor_bwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
         }
         const T mprev = r < P ? sp[(size_t)(2 * PP + r) * B] : T(0);
         T hu, hv, hph, ha, hy;
-        factor_bwd_step(tile, hq, r, uv, pv, vr, a, y[o], Shin, Mprev, mprev, hqv, hq0, hld, hM,
-                        hm, hSh, hu, hv, hph, ha, hy);
+        const RegStep<T> in{uv, pv, Shin, Mprev, ur, phr, vr, a, y[o], mprev};
+        factor_bwd_step(tile, hq, vecs + grp * P, rec, r, in, hqv, hq0, hld, hM, hm, hSh, hu,
+                        hv, hph, ha, hy);
         if (ln.live && r == 0) hy_out[o] = hy;
         chain_row(k, hu, hv, hph, ha, phr, cm, sm, ts, tls, dts, ms);
     }

@@ -21,7 +21,10 @@
 // (adjoint_common.cuh) with hC as the carried cotangent's start.  A group
 // of G threads (the power of two at or above P) owns a lane, thread r row
 // r of every P x P state; sums over rows are xor-shuffle reductions in the
-// group, transposes go through a per-group tile in shared memory.
+// group, transposes go through a per-group tile in shared memory.  The
+// transpose is adjoint.cu's factor_bwd sweep: a front warp copies the
+// saves and streams ahead into shared memory and computes each step's
+// front, a back warp carries the cotangents (BWD_LB lanes a block).
 //
 // Bound.  Bytes: per point the streams (3P + 2 words read), and for the
 // fwd / bwd pair the saves (2P^2 + P words, written then read) and the
@@ -64,7 +67,7 @@ onepass_fwd_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __
 }
 
 template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BWD_THREADS, BwdBlocks<T>::value)
 onepass_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
                    const T* __restrict__ a, const T* __restrict__ y, const T* __restrict__ sv,
                    const T* __restrict__ hC0, const T* __restrict__ hM0,
@@ -73,9 +76,8 @@ onepass_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __
                    const T* __restrict__ hld0, int L, int B, T* __restrict__ hu_out,
                    T* __restrict__ hv_out, T* __restrict__ hph_out, T* __restrict__ ha_out,
                    T* __restrict__ hy_out) {
-    __shared__ T tiles[FACTOR_BWD_TILES];
-    factor_bwd_sweep(tiles, u, v, ph, a, y, sv, hC0, hM0, hm0, hQm0, hqv0, hq00, hld0, L, B,
-                     hu_out, hv_out, hph_out, ha_out, hy_out, static_cast<T*>(nullptr));
+    factor_bwd_sweep(u, v, ph, a, y, sv, hC0, hM0, hm0, hQm0, hqv0, hq00, hld0, L, B, hu_out,
+                     hv_out, hph_out, ha_out, hy_out, static_cast<T*>(nullptr));
 }
 
 // ---------------------------------------------------------------------------
@@ -112,14 +114,14 @@ onepass_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __
         const void* sv, const void* hC, const void* hM, const void* hm, const void* hQm,      \
         const void* hqv, const void* hq0, const void* hld, void* hu, void* hv, void* hph,     \
         void* ha, void* hy, int L, int B, void* stream) {                                      \
-        onepass_bwd_kernel<T><<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>( \
+        return launch_bwd(                                                                     \
+            onepass_bwd_kernel<T>, bwd_smem_bytes<T, NSV1>(), B, stream,                      \
             static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(ph),     \
             static_cast<const T*>(a), static_cast<const T*>(y), static_cast<const T*>(sv),     \
             static_cast<const T*>(hC), static_cast<const T*>(hM), static_cast<const T*>(hm),   \
             static_cast<const T*>(hQm), static_cast<const T*>(hqv), static_cast<const T*>(hq0), \
             static_cast<const T*>(hld), L, B, static_cast<T*>(hu), static_cast<T*>(hv),        \
             static_cast<T*>(hph), static_cast<T*>(ha), static_cast<T*>(hy));                   \
-        return (int)cudaGetLastError();                                                        \
     }
 
 extern "C" {

@@ -83,18 +83,21 @@ def config2_kernel(terms, modes=1):
 
 
 def wide_kernel(terms, width):
-    """A model of padded width 13 (a RealTerm plus three SHO terms) or 16
-    (:func:`config2_kernel` with three modes)."""
+    """A model of padded width 13 (a RealTerm plus three SHO terms), 14 (13
+    and a second RealTerm) or 16 (:func:`config2_kernel` with three
+    modes)."""
     if width == 16:
         return config2_kernel(terms, modes=3)
-    if width == 13:
+    if width in (13, 14):
         kernel = terms.RealTerm(log_a=-0.5, log_c=-1.0)
         for k in range(3):
             kernel = kernel + terms.SHOTerm(log_S0=0.2 - 0.5 * k,
                                             log_Q=-0.3 + 1.2 * k,
                                             log_omega0=0.2 + 0.7 * k)
+        if width == 14:
+            kernel = kernel + terms.RealTerm(log_a=-1.0, log_c=0.5)
         return kernel
-    raise ValueError("width must be 13 or 16")
+    raise ValueError("width must be 13, 14 or 16")
 
 
 def width_kernel(terms, width):

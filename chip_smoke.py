@@ -107,6 +107,7 @@ nvidia-smi gives them, and last
 without a CUDA device it exits non-zero before printing anything.
 """
 
+import ctypes
 import functools
 import json
 import math
@@ -1251,7 +1252,7 @@ def adjoint_bound_ms(name, u):
     it = u.element_size()
     pts, pp = L * b, p * p
     front = 4 * pp + 4 * p + 1
-    adjoint_step = 16 * pp + 10 * p + 4   # riccati_adjoint_row
+    adjoint_step = 16 * pp + 10 * p + 4   # F5-F1 (riccati_back)
     words, per_point = {
         "elements_fwd": ((3 * p + 1 + 2 * pp) * pts + 3 * pp * b,
                          front + 11 * pp + p),
@@ -1268,6 +1269,23 @@ def adjoint_bound_ms(name, u):
         / PEAK_BYTES_S * 1e3
     t_ops = per_point * pts / PEAK_FLOPS[u.dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def adjoint_bwd_layout(name, p, dtype):
+    """The launch shape of adjoint backward kernel ``name`` at width ``p``
+    and ``dtype``, as its library reports it: threads and lanes a block,
+    dynamic shared memory in bytes a block, and blocks an SM at most (the
+    occupancy API on this card)."""
+    lib = _build.load("adjoint.cu", {"CELERITE_P": p})
+    fn = getattr(lib, "celerite_adjoint_bwd_layout_{0}".format(
+        "f32" if dtype == torch.float32 else "f64"))
+    out = (ctypes.c_int * 4)()
+    err = fn(("elements_bwd", "factor_bwd").index(name), out)
+    if err != 0:
+        fail("adjoint {0} layout query failed: CUDA error {1}".format(
+            name, err))
+    return dict(zip(("threads", "lanes", "smem_bytes", "blocks_per_sm"),
+                    out))
 
 
 def adjoint_kernel_calls(streams, seg):
@@ -1333,14 +1351,24 @@ def plain_adjoint_f32_floor(gp, plans, rows):
                                outs[torch.float64])}
 
 
-def check_adjoint_kernels(dev, gp, lpe, theta, thetas, adj_errs):
+def check_adjoint_kernels(dev, gp, lpe, theta, thetas, adj_errs, ptxas):
     """adjoint_kernels: the four kernels against their plain versions.
 
     Widths 13 and 16 on a small plan (N = 4099, 64 lanes) in float64 and
     float32, then on main path E's own plans (``folded_plan(1)``, ``(4)``
     for sampler_E and ``(16)``), where each kernel and its plain version
-    are timed and the bound computed.  Returns ``{nc: {name: row}}``.
+    are timed and the bound computed; each adjoint_kernel_time_E line
+    also gives the two backward kernels' ptxas registers and spill bytes
+    (``ptxas``: adjoint.cu's summaries by width) and launch shapes.
+    Returns ``{nc: {name: row}}``.
     """
+    backward = {name: {
+        "ptxas": {p: {k: v for k, v in kerns.items()
+                      if k.startswith("adjoint_" + name)}
+                  for p, kerns in ptxas.items()},
+        "layout_p16": {str(dt).split(".")[1]: adjoint_bwd_layout(name, 16, dt)
+                       for dt in (torch.float64, torch.float32)}}
+        for name in ("elements_bwd", "factor_bwd")}
     t, y, yerr = make_data(4099, seed=7, t_max=400.0)
     for width in (13, 16):
         g = celerite_torch.GP(wide_kernel(terms, width))
@@ -1380,7 +1408,7 @@ def check_adjoint_kernels(dev, gp, lpe, theta, thetas, adj_errs):
             del streams
             torch.cuda.empty_cache()
         emit("adjoint_kernel_time_E", n=plan.n, n_chain=nc, lanes=lanes_,
-             steps_per_lane=steps, kernels=rows[nc])
+             steps_per_lane=steps, kernels=rows[nc], backward=backward)
     return rows
 
 
@@ -2859,8 +2887,8 @@ def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
     with the card's name and power limit: ptxas's registers and spill bytes
     of each at every width built, and their timings on each plan (row 5 on
     C's 1- and 16-chain plans; row 18 on G's plans, with its four launches'
-    split; rows 16-17 on E's model; rows 11 and 21, which share row 5's
-    transposed step)."""
+    split; rows 16-17 on E's model; rows 9 and 11 on E's plans; row 21,
+    which shares row 11's sweep and row 5's transposed step)."""
     def regs(src, prefix):
         return {p: {k: v for k, v in kerns.items() if k.startswith(prefix)}
                 for p, kerns in ptxas[src].items()}
@@ -2876,6 +2904,10 @@ def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
         "split_pair": {"ptxas": regs("tangent.cu", "tangent_"),
                        "plans": {k: v for k, v in tangent_rows.items()
                                  if "elements_jvp" in v}},
+        "adjoint_elements_bwd": {
+            "ptxas": regs("adjoint.cu", "adjoint_elements_bwd"),
+            "chains": {nc: rows["elements_bwd"]
+                       for nc, rows in adj_rows.items()}},
         "adjoint_factor_bwd": {
             "ptxas": regs("adjoint.cu", "adjoint_factor_bwd"),
             "chains": {nc: rows["factor_bwd"]
@@ -3151,7 +3183,7 @@ def main():
     thetase = path_c_thetas(thetae, dev)
     adj_errs = {name: [] for name in adjoint.ADJOINT_KERNELS}
     adj_rows = check_adjoint_kernels(dev, gpe, lpe, thetae, thetase,
-                                     adj_errs)
+                                     adj_errs, ptxas["adjoint.cu"])
     counts_e = main_path_e(gpe, lpe, prior, thetae, thetase, t, y, yerr)
     lane_sweep_e(gpe, t, y, yerr, prior, thetae, thetase)
     grew_e = sampler_nuts("sampler_E", lpe[torch.float64], thetae, dev,

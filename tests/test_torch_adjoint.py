@@ -208,3 +208,15 @@ def test_wrappers_reject_widths_above_16():
     u = torch.zeros(2, 17, B)
     with pytest.raises(NotImplementedError, match="1..16"):
         adjoint.elements_fwd_cuda(u, u, u, torch.zeros(2, 1, B))
+
+
+@pytest.mark.parametrize("width", [13, 14, 16])
+def test_wide_kernel_widths(width):
+    """The card tests' wide models (``testing.wide_kernel``) have the padded
+    width they are named by, in this package's terms and in the JAX
+    package's alike."""
+    from celerite_torch import terms as tterms
+
+    for mod in (tterms, jterms):
+        kernel = wide_kernel(mod, width)
+        assert sum(np.multiply(kernel.padded_size, (1, 2))) == width

@@ -327,38 +327,67 @@ def test_gp_gradient_entries_on_the_card(cuda_device):
                                    atol=1e-8 * float(np.abs(b).max()))
 
 
-def _wide_streams(width, dtype, device, n_chain=1):
-    """Lane streams of a width-13 or width-16 model over 64 lanes a chain
-    (N = 4099), its rows 1.0, 0.98, 1.02, 1.04 times the parameters."""
+def _wide_streams(width, dtype, device, n_chain=1, n=4099, lanes=64,
+                  first=None):
+    """Lane streams of a width-13, -14 or -16 model over ``lanes`` lanes a
+    chain (``n`` points; by default N = 4099, 64 lanes), chain k's row
+    1.0, 0.98, 1.02, 1.04 (k mod 4) times (1 + 0.005 (k // 4)) the
+    parameters; with ``first`` only the first lanes."""
     from celerite_torch import terms
-    from celerite_torch.ops import lanes
+    from celerite_torch.ops import lanes as lanes_
     from celerite_torch.ops.lower import Coefficients
     from celerite_torch.testing import wide_kernel
 
-    t, y, yerr = make_data(4099, seed=7, t_max=400.0)
-    plan = lanes.make_plan(t, y, yerr**2, 64, dtype=dtype, n_chain=n_chain,
-                           device=device)
+    t, y, yerr = make_data(n, seed=7, t_max=400.0 * n / 4099)
+    plan = lanes_.make_plan(t, y, yerr**2, lanes, dtype=dtype,
+                            n_chain=n_chain, device=device)
     kern = wide_kernel(terms, width)
     th = torch.as_tensor(kern.get_parameter_vector(), device=device)
-    rows = th * torch.tensor([1.0, 0.98, 1.02, 1.04][:n_chain],
-                             dtype=th.dtype, device=device)[:, None]
+    scale = [[1.0, 0.98, 1.02, 1.04][k % 4] * (1 + 0.005 * (k // 4))
+             for k in range(n_chain)]
+    rows = th * torch.tensor(scale, dtype=th.dtype, device=device)[:, None]
     coeffs = torch.func.vmap(lambda x: tuple(Coefficients(
         *kern.get_padded_coefficients(x), jitter=kern.get_jitter(x))))(rows)
     if n_chain == 1:
         coeffs = [c[0] for c in coeffs]
-    return (*lanes.lower_lanes(coeffs, plan), plan.y)
+    streams = (*lanes_.lower_lanes(coeffs, plan), plan.y)
+    if first is not None:
+        streams = tuple(x[..., :first].contiguous() for x in streams)
+    return streams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [13, 14, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n_chain", [1, 4, 16])
+def test_adjoint_kernels_match_plain(width, dtype, n_chain, cuda_device):
+    """Each of the four adjoint kernels equals its plain version on the
+    same streams, every output: 1e-10 in float64, ADJ_F32_RTOL in
+    float32; one chain, and four and sixteen chains folded onto the
+    lanes."""
+    streams = _wide_streams(width, dtype, cuda_device, n_chain)
+    errs = compare_adjoint_kernels(*streams, seg=64)
+    rtol = 1e-10 if dtype == torch.float64 else ADJ_F32_RTOL
+    bad = {k: e["outputs"] for k, e in errs.items() if e["max_rel_err"] > rtol}
+    assert not bad, bad
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [13, 16])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n_chain", [1, 4])
-def test_adjoint_kernels_match_plain(width, dtype, n_chain, cuda_device):
-    """Each of the four adjoint kernels equals its plain version on the
-    same streams, every output: 1e-10 in float64, ADJ_F32_RTOL in
-    float32; one chain, and four chains folded onto the lanes."""
-    streams = _wide_streams(width, dtype, cuda_device, n_chain)
-    errs = compare_adjoint_kernels(*streams, seg=64)
+@pytest.mark.parametrize("shape", ["dead_lanes", "one_step", "short",
+                                   "one_lane"])
+def test_adjoint_kernels_odd_shapes(width, dtype, shape, cuda_device):
+    """The adjoint kernels on lane counts that no backward block divides
+    (32 / G lanes a block: its last block runs dead lanes) and on lanes
+    shorter than the backward kernels' ring of steps: 63 lanes of 65
+    steps, 7 lanes of one step, 5 lanes of three steps, one lane of 17
+    steps."""
+    n, lanes, first = {"dead_lanes": (4099, 64, 63), "one_step": (8, 8, 7),
+                       "short": (24, 8, 5), "one_lane": (17, 1, 1)}[shape]
+    streams = _wide_streams(width, dtype, cuda_device, n=n, lanes=lanes,
+                            first=first)
+    errs = compare_adjoint_kernels(*streams, seg=first)
     rtol = 1e-10 if dtype == torch.float64 else ADJ_F32_RTOL
     bad = {k: e["outputs"] for k, e in errs.items() if e["max_rel_err"] > rtol}
     assert not bad, bad
@@ -659,6 +688,27 @@ def test_onepass_kernels_match_plain(width, dtype, cuda_device):
         limit = {k: 10 * f for k, f in floor.items()}
     bad = {k: (e["outputs"], limit[k]) for k, e in errs.items()
            if e["max_rel_err"] > limit[k]}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 16])
+@pytest.mark.parametrize("shape", [(13, 1), (1000, 3), (777, 96)])
+def test_onepass_kernels_odd_shapes(width, shape, cuda_device):
+    """The one-pass kernels in float64, their transpose seeded by a random
+    end-state cotangent hC, on blocks of 1 step (13 lanes), of 3 steps
+    (334 lanes) and of 96 steps (9 lanes): lanes shorter than the
+    transpose's ring, and lane counts no block of it divides."""
+    from celerite_torch import terms
+    from celerite_torch.testing import compare_onepass_kernels
+
+    n, L = shape
+    t, y, yerr = make_data(n, seed=3, t_max=n / 20.0)
+    streams = blocked_streams(width_kernel(terms, width), t, y, yerr, L,
+                              device=cuda_device)
+    errs = compare_onepass_kernels(*streams)
+    bad = {k: e["outputs"] for k, e in errs.items()
+           if e["max_rel_err"] > 1e-10}
     assert not bad, bad
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Time one tree's kernels of rows 5, 11, 16-18 and 21 (PERF.md section 6) on
-the plans chip_smoke.py times them on, so that two trees can be compared
-on one card.
+"""Time one tree's kernels of rows 5, 9, 11, 16-18 and 21 (PERF.md section
+6) on the plans chip_smoke.py times them on, so that two trees can be
+compared on one card.
 
 Usage (on a machine with an NVIDIA H100), from the root of a checkout:
 
@@ -14,9 +14,9 @@ serves.  Run the trees in turns in one command (old, new, new, old) to
 compare them on one card.
 
 Builds ``fused4_grad.cu`` at P = 8, ``tangent.cu`` at 8 and 16,
-``adjoint.cu`` at 16 and ``onepass.cu`` at 8, and prints one JSON line a
-measurement, each with the tree, the card's name and power limit (nvidia-smi) and ptxas's
-registers and spill bytes of the kernels timed:
+``adjoint.cu`` at 13 and 16 and ``onepass.cu`` at 8, and prints one JSON
+line a measurement, each with the tree, the card's name and power limit
+(nvidia-smi) and ptxas's registers and spill bytes of the kernels timed:
 
 - ``row5``: fused4 ``factor_bwd`` on main path C's 16-chain batch plan
   (config[2], N = 1e5, 16 x 512 lanes of 196 steps), float64 and float32;
@@ -26,8 +26,12 @@ registers and spill bytes of the kernels timed:
   from torch.profiler;
 - ``row16_17``: the split pair (``elements_jvp``, ``factor_jvp``) on main
   path G's folded batch plan of E's model (P = 16, T = 13), float64;
-- ``row11``: the adjoint ``factor_bwd`` on sampler_E's 4-chain plan (E's
-  model, P = 16), float64;
+- ``row9`` and ``row11``: the adjoint ``elements_bwd`` and ``factor_bwd``
+  on sampler_E's 4-chain plan and on main path E's 16-chain batch plan
+  (E's model, P = 16, 128 lanes a chain of 782 steps), float64 and
+  float32, with ptxas's figures at P = 13 and 16 and the launch's shape
+  (threads and lanes a block, dynamic shared memory, blocks an SM) where
+  the tree's ``chip_smoke.adjoint_bwd_layout`` gives it;
 - ``row21``: the one-pass ``sweep_bwd`` on main path H's config[2] plan,
   float64.
 
@@ -68,7 +72,7 @@ def main():
     smi = cs.smi_name_power()
     t0 = time.perf_counter()
     jobs = [("fused4_grad.cu", 8), ("tangent.cu", 8), ("tangent.cu", 16),
-            ("adjoint.cu", 16), ("onepass.cu", 8)]
+            ("adjoint.cu", 13), ("adjoint.cu", 16), ("onepass.cu", 8)]
     paths = _build.build([(s, {"CELERITE_P": p}) for s, p in jobs])
     ptxas = {"{0}:{1}".format(s, p): cs.ptxas_summary(
         path.with_suffix(".ptxas.txt")) for (s, p), path in zip(jobs, paths)}
@@ -171,20 +175,28 @@ def main():
     del lpg, vog, s, d, calls
     torch.cuda.empty_cache()
 
-    # Row 11 on sampler_E's 4-chain plan.
-    lpe = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior,
-                            dtype=torch.float64)
-    nce = cs.SAMPLER_E_CHAINS
-    plan = lpe.loglik.value_ok_grad_batch.folded_plan(nce)
-    streams = cs.lane_streams(gpe, plan, thetase[:nce])
-    kern, _ = cs.adjoint_kernel_calls(
-        streams, streams[0].shape[-1] // nce)["factor_bwd"]
-    emit("row11", kernel="adjoint factor_bwd", dtype="float64", chains=nce,
-         lanes=streams[0].shape[-1], steps=streams[0].shape[0],
-         ms=cs.sync_time_ms(kern, reps=10),
-         ptxas=pick("adjoint.cu", 16, "adjoint_factor_bwd"))
-    del lpe, plan, streams, kern
-    torch.cuda.empty_cache()
+    # Rows 9 and 11 on sampler_E's 4-chain plan and E's 16-chain plan.
+    layout = getattr(cs, "adjoint_bwd_layout", None)
+    for dt in (torch.float64, torch.float32):
+        lpe = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior, dtype=dt)
+        for nce in (cs.SAMPLER_E_CHAINS, cs.SAMPLER_CHAINS):
+            plan = lpe.loglik.value_ok_grad_batch.folded_plan(nce)
+            streams = cs.lane_streams(gpe, plan, thetase[:nce])
+            calls = cs.adjoint_kernel_calls(streams,
+                                            streams[0].shape[-1] // nce)
+            for row, name in (("row9", "elements_bwd"),
+                              ("row11", "factor_bwd")):
+                emit(row, kernel="adjoint " + name, dtype=str(dt)[6:],
+                     chains=nce, lanes=streams[0].shape[-1],
+                     steps=streams[0].shape[0],
+                     ms=cs.sync_time_ms(calls[name][0], reps=10),
+                     ptxas={p: pick("adjoint.cu", p, "adjoint_" + name)
+                            for p in (13, 16)},
+                     layout=None if layout is None
+                     else layout(name, 16, dt))
+            del plan, streams, calls
+            torch.cuda.empty_cache()
+        del lpe
 
     # Row 21 on H's config[2] plan.
     s64 = cs.h_streams(gp, t, y, yerr, dev)
