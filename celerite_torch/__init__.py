@@ -15,6 +15,7 @@ from .solver import CholeskySolver, LinAlgError
 from .modeling import ConstantModel, Model, ModelSet
 
 __version__ = "0.1.0"
+__library_version__ = solver.__library_version__
 
 __all__ = [
     "GP",
@@ -28,4 +29,5 @@ __all__ = [
     "solver",
     "terms",
     "__version__",
+    "__library_version__",
 ]

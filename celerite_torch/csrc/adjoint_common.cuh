@@ -1,7 +1,9 @@
 // Shared device code of the reversed sweeps (adjoint.cu's elements_bwd and
-// factor_bwd, onepass.cu's sweep_bwd, fused4_grad.cu's factor_bwd): the
-// transposed steps, each split into a front and a back, and the pipeline
-// that runs the streamed reversed sweeps.
+// factor_bwd, onepass.cu's sweep_bwd, fused4_grad.cu's factor_bwd and
+// elem_bwd): the transposed steps, each split into a front and a back, and
+// the pipeline that runs the streamed reversed sweeps; also the copy of a
+// step's streams into shared memory that adjoint.cu's streamed factor_fwd
+// shares with them.
 //
 // A group of G threads owns a lane, thread r row r (lanes_common.cuh).  A
 // step's front is what the step computes of its saves and streams alone:
@@ -20,10 +22,11 @@
 // multiply-adds (mac); float32 keeps each multiply and add apart, as its
 // plain version does.
 //
-// fused4_grad.cu's factor_bwd lowers its streams in the kernel and reads
-// its own save layout: it runs the front and the back of each step one
-// after the other in its own threads (factor_bwd_step).  The streamed
-// sweeps run them in front warps and back warps (bwd_ticks below).
+// fused4_grad.cu's factor_bwd and elem_bwd lower their streams in the
+// kernel and read their own save layout: they run the front and the back of
+// each step one after the other in their own threads (factor_bwd_step,
+// elem_bwd_step).  The streamed sweeps run them in front warps and back
+// warps (bwd_ticks below).
 
 #pragma once
 
@@ -374,6 +377,18 @@ __device__ __forceinline__ void factor_bwd_step(T* tile, const T* hq, T* vec, Re
     factor_back(tile, vec, r, in, rec, hM, hm, hSh, hu, hv, hph, ha, hy);
 }
 
+// One step of the transpose of the elements sweep, front then back in the
+// same threads (fused4_grad.cu's elem_bwd), as factor_bwd_step: `hj` is
+// the group's tile of the constant cotangent hJ.
+template <typename T, int S>
+__device__ __forceinline__ void elem_bwd_step(T* tile, const T* hj, T* vec, Rec<T, S> rec,
+                                              int r, const RegStep<T>& in, T (&hA)[P],
+                                              T (&hSh)[P], T& hu, T& hv, T& hph, T& ha) {
+    elem_front(tile, hj, r, in, rec);
+    __syncwarp();
+    elem_back(tile, vec, r, in, rec, hA, hSh, hu, hv, hph, ha);
+}
+
 // ---------------------------------------------------------------------------
 // The streamed reversed sweeps: a block of BWD_LB lanes and two roles of
 // BWD_RW warps each, a group of G threads a lane in each role.  The front
@@ -417,6 +432,26 @@ struct BwdSmem {
 
 extern __shared__ __align__(16) unsigned char bwd_smem[];
 
+// A lane's streams of step s into NRS words at `st`, by the lane's group:
+// u, phi and v (a word a row), a and y (y may be null).  cp.async, not
+// committed.
+template <typename T>
+__device__ __forceinline__ void copy_streams(T* st, const T* __restrict__ u,
+                                             const T* __restrict__ v, const T* __restrict__ ph,
+                                             const T* __restrict__ a, const T* __restrict__ y,
+                                             int s, int B, int l, int r) {
+    if (r < P) {
+        const size_t o = ((size_t)s * P + r) * B + l;
+        cp_async(st + RU + r, u + o);
+        cp_async(st + RPH + r, ph + o);
+        cp_async(st + RV + r, v + o);
+    }
+    if (r == 0) {
+        cp_async(st + RA, a + (size_t)s * B + l);
+        if (y != nullptr) cp_async(st + RY, y + (size_t)s * B + l);
+    }
+}
+
 // A lane's step s into its words of a ring slot, by the lane's group: the
 // NSV save words (16 bytes a copy where `wide`, the saves 16-byte aligned
 // and NSV words a multiple of 16 bytes), then u, phi and v (a word a row),
@@ -435,17 +470,7 @@ __device__ __forceinline__ void copy_step(T* dst, const T* __restrict__ sv,
         } else {
             for (int i = r; i < NSV; i += G) cp_async(dst + i, src + i);
         }
-        T* st = dst + NSV;
-        if (r < P) {
-            const size_t o = ((size_t)s * P + r) * B + l;
-            cp_async(st + RU + r, u + o);
-            cp_async(st + RPH + r, ph + o);
-            cp_async(st + RV + r, v + o);
-        }
-        if (r == 0) {
-            cp_async(st + RA, a + (size_t)s * B + l);
-            if (y != nullptr) cp_async(st + RY, y + (size_t)s * B + l);
-        }
+        copy_streams(dst + NSV, u, v, ph, a, y, s, B, l, r);
     }
     cp_async_commit();
 }

@@ -12,42 +12,41 @@
 // stream.  The backward pair walks the steps in reverse, recomputes each
 // step's lowering and Riccati intermediates from the saves, transposes the
 // step by hand (the F1-F9 / E1-E12 comments follow the Pallas bodies) and
-// accumulates the packed-coefficient cotangent per lane (chain_step).  The
+// accumulates the packed-coefficient cotangent per lane (chain_row).  The
 // cross-lane prefixes and their VJP run between the launches as float64
 // torch glue (celerite_torch/ops/fused4.py); cotangents and seeds that come
 // from the glue arrive in float64 and are rounded to T here on load.
 //
-// Design.  elem_fwd, factor_fwd and elem_bwd: as in the primal, one
-// thread owns one lane and loops over its L steps with the P x P state in
-// registers, THREADS lanes a block (elem_bwd spills at P = 8 in float64;
-// registers and spills are in PERF.md).  factor_bwd carries three P x P
-// adjoints beside two saved matrices, more than one thread's registers
-// hold, so it gives a lane a group of G threads (the power of two at or
-// above P; 16 at P = 9..12), thread r owning row r of every P x P state,
-// BLOCK threads a block (no spills at P <= 11 in float64); its step is
-// the adjoint and one-pass transposes', its front and back run one after
-// the other in the group's threads (factor_bwd_step, adjoint_common.cuh),
-// through a record, a tile and a vector a group in shared memory.  Thread
-// r lowers its own
-// column of each step (u_r, v_r, phi_r; the two rows of a complex pair
+// Design.  elem_fwd and factor_fwd: as in the primal, one thread owns one
+// lane and loops over its L steps with the P x P state in registers,
+// THREADS lanes a block.  The backward pair carries two or three P x P
+// adjoints beside two saved matrices, more than one thread's registers hold
+// (one thread a lane spilled 7.7 KB at P = 8 in float64), so each gives a
+// lane a group of G threads (the power of two at or above P; 16 at P =
+// 9..12), thread r owning row r of every P x P state, BLOCK threads a block,
+// two blocks an SM (no spills at P <= 12; registers and spills are in
+// PERF.md).  Their steps are the adjoint and one-pass transposes'
+// (factor_bwd_step, elem_bwd_step; adjoint_common.cuh): the front and the
+// back of each step run one after the other in the group's threads,
+// through a record, a tile and a vector a group in shared memory; the
+// constant cotangent (hQm, hJ) waits in a second tile.  Thread r lowers its
+// own column of each step (u_r, v_r, phi_r; the two rows of a complex pair
 // compute their shared exp and sincos each) and the group gathers u and
-// phi by shuffles; its coefficients and its share of the coefficient
-// cotangent are its column's only, in shared memory (Col), and a pair's two
-// rows are added at the end.  One coefficient row per segment of `seg`
-// lanes.  The streams and saves are stored with the lane fastest, step s
-// of lane l at s * B + l and save word q at (s * NSV + q) * B + l, so a
-// warp reads and writes neighbouring words.  The one-thread kernels
-// accumulate the coefficient cotangent per column of the padded model
-// (CoefGrad, the layout of Coeffs), so every register index is known at
-// compile time, and scatter it into the packed layout once at the end.
+// phi by shuffles; thread r reads row r of the step's saves.  Its
+// coefficients and its share of the coefficient cotangent are its column's
+// only, in shared memory (Col), and a pair's two rows are added at the end.
+// One coefficient row per segment of `seg` lanes.  The streams and saves
+// are stored with the lane fastest, step s of lane l at s * B + l and save
+// word q at (s * NSV + q) * B + l, so a warp reads and writes neighbouring
+// words.
 //
 // Bound.  Bytes: the saves, 2P^2 + (2P^2 + P) words a point, are written
 // once and read once; at config[2] (N = 1e5, P = 8, float64) that is 211 MB
 // a chain, ~0.13 ms at 3.35 TB/s, well above the streams' 6-7 words a
 // point.  Operations: a few thousand a point for P = 8 (each sweep
 // recomputes the step and its O(P^2) products).  In practice the kernels
-// are bound by the latency of the per-lane dependent recursion (factor_bwd:
-// of its shuffle reductions) and, where they spill, by local memory.
+// are bound by the latency of the per-lane dependent recursion (the
+// backward pair: of its shuffle reductions and shared-memory round trips).
 //
 // Numerics: fused4_common.cuh.  Compiled once per padded width:
 // nvcc -DCELERITE_P=<P> (1 <= P <= 12).
@@ -55,169 +54,6 @@
 #include "adjoint_common.cuh"
 
 static_assert(P <= 12, "padded width must be in [1, 12]");
-
-// Cotangent of the packed coefficients, per column of the padded model
-// (the layout of Coeffs): real columns k < jr carry (a, c); the first
-// column of a complex pair carries (a, b, c, d).
-template <typename T>
-struct CoefGrad {
-    T c0[P], c1[P], c2[P], c3[P];
-    T total;
-};
-
-template <typename T>
-__device__ __forceinline__ void zero_grad(CoefGrad<T>& g) {
-#pragma unroll
-    for (int col = 0; col < P; ++col) g.c0[col] = g.c1[col] = g.c2[col] = g.c3[col] = T(0);
-    g.total = T(0);
-}
-
-// The packed layout of load_coeffs: hcf[k * B + l].
-template <typename T>
-__device__ __forceinline__ void store_grad(const CoefGrad<T>& g, int jr, int B, int l,
-                                           T* __restrict__ hcf) {
-    const int jc = (P - jr) / 2;
-#pragma unroll
-    for (int col = 0; col < P; ++col) {
-        if (col < jr) {
-            hcf[(size_t)col * B + l] = g.c0[col];
-            hcf[(size_t)(jr + col) * B + l] = g.c1[col];
-        } else if (((col - jr) & 1) == 0) {
-            const int j = (col - jr) >> 1;
-            hcf[(size_t)(2 * jr + j) * B + l] = g.c0[col];
-            hcf[(size_t)(2 * jr + jc + j) * B + l] = g.c1[col];
-            hcf[(size_t)(2 * jr + 2 * jc + j) * B + l] = g.c2[col];
-            hcf[(size_t)(2 * jr + 3 * jc + j) * B + l] = g.c3[col];
-        }
-    }
-    hcf[(size_t)(2 * jr + 4 * jc) * B + l] = g.total;
-}
-
-// Transpose of lower_step for one step (fused4._chain_step).  A complex
-// pair's (cos, sin) * m are its columns of v and its decay is ph, so the
-// tangents d(phi)/d(c) = -dt phi and d(angle)/d(d) = t + t_lo use the
-// forward step's own rounded transcendentals.
-template <typename T>
-__device__ __forceinline__ void chain_step(const Coeffs<T>& k, int jr, const T (&hu)[P],
-                                           const T (&hv)[P], const T (&hph)[P], T ha,
-                                           const T (&v)[P], const T (&ph)[P], T t, T tl,
-                                           T dt, T m, CoefGrad<T>& g) {
-#pragma unroll
-    for (int col = 0; col < P; ++col) {
-        if (col < jr) {
-            g.c0[col] += hu[col] * m;
-            g.c1[col] += hph[col] * ph[col] * (-dt);
-        } else if (((col - jr) & 1) == 0 && col + 1 < P) {
-            const int q = col + 1 < P ? col + 1 : col;  // the pair's partner
-            const T cm = v[col], sm = v[q];
-            const T ac = k.c0[col], bc = k.c1[col];
-            g.c0[col] += hu[col] * cm + hu[q] * sm;
-            g.c1[col] += hu[col] * sm - hu[q] * cm;
-            g.c2[col] += (hph[col] + hph[q]) * ph[col] * (-dt);
-            const T hcm = ac * hu[col] - bc * hu[q] + hv[col];
-            const T hsm = bc * hu[col] + ac * hu[q] + hv[q];
-            // cm = cos(ang) m, sm = sin(ang) m: d cm/d ang = -sm, d sm/d ang = cm.
-            g.c3[col] += (hsm * cm - hcm * sm) * (t + tl);
-        }
-    }
-    g.total += ha * m;
-}
-
-// The Riccati step's intermediates from its input Shin, with
-// S = Phi Shin Phi formed on the fly: su = S u, d = a - u.su,
-// w = (v - su) / d.  Returns d.
-template <typename T>
-__device__ __forceinline__ T riccati_front(const T (&Shin)[P][P], const T (&u)[P],
-                                           const T (&v)[P], const T (&ph)[P], T a,
-                                           T (&su)[P], T (&w)[P]) {
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-        T s = T(0);
-#pragma unroll
-        for (int j = 0; j < P; ++j) s += ph[i] * Shin[i][j] * ph[j] * u[j];
-        su[i] = s;
-    }
-    T us = T(0);
-#pragma unroll
-    for (int i = 0; i < P; ++i) us += u[i] * su[i];
-    const T d = a - us;
-#pragma unroll
-    for (int i = 0; i < P; ++i) w[i] = (v[i] - su[i]) / d;
-    return d;
-}
-
-// Steps 5-1 of both backward sweeps (F5-F1 = E5-E1): the transposes of
-// Sh_out = S + d w w^T, w = (v - su)/d, d = a - u.su, su = S u and
-// S = Phi Shin Phi.  Adds into hu, hph; writes hv, ha; hSh goes from the
-// cotangent of Sh_out to that of Shin.
-template <typename T>
-__device__ __forceinline__ void riccati_adjoint(const T (&Shin)[P][P], const T (&u)[P],
-                                                const T (&ph)[P], const T (&su)[P], T d,
-                                                const T (&w)[P], T (&hSh)[P][P], T (&hw)[P],
-                                                T hd, T (&hu)[P], T (&hph)[P], T (&hv)[P],
-                                                T& ha) {
-    // 5: Sh_out = S + d w w^T
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-        T acc = T(0), hdw = T(0);
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            acc += (hSh[i][j] + hSh[j][i]) * w[j];
-            hdw += hSh[i][j] * w[j];
-        }
-        hd += w[i] * hdw;
-        hw[i] += d * acc;
-    }
-    // 4: w = (v - su) / d
-    T hsu[P], hww = T(0);
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-        hv[i] = hw[i] / d;
-        hsu[i] = -hw[i] / d;
-        hww += hw[i] * w[i];
-    }
-    hd -= hww / d;
-    // 3: d = a - u.su
-    ha = hd;
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-        hu[i] -= hd * su[i];
-        hsu[i] -= hd * u[i];
-    }
-    // 2: su = S u, hS = hSh + hsu u^T
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-        T acc = T(0);
-#pragma unroll
-        for (int i = 0; i < P; ++i) acc += ph[i] * Shin[i][j] * ph[j] * hsu[i];
-        hu[j] += acc;
-    }
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-        for (int j = 0; j < P; ++j) hSh[i][j] += hsu[i] * u[j];
-    // 1: S = Phi Shin Phi
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-        T acc = T(0);
-#pragma unroll
-        for (int j = 0; j < P; ++j)
-            acc += (hSh[i][j] * Shin[i][j] + hSh[j][i] * Shin[j][i]) * ph[j];
-        hph[i] += acc;
-    }
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-        for (int j = 0; j < P; ++j) hSh[i][j] = ph[i] * hSh[i][j] * ph[j];
-}
-
-template <typename T>
-__device__ __forceinline__ void load_sq(const T* __restrict__ p, int B, T (&X)[P][P]) {
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-        for (int j = 0; j < P; ++j) X[i][j] = p[(size_t)(i * P + j) * B];
-}
 
 template <typename T>
 __device__ __forceinline__ void store_sq(T* __restrict__ p, int B, const T (&X)[P][P]) {
@@ -581,111 +417,62 @@ factor_bwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
 }
 
 // ---------------------------------------------------------------------------
-// elem_bwd: reversed phase 0.  Cotangents of the lane's element (float64,
-// from the prefix VJP): hA0 and hC0 seed the sweep, hJ0 is constant.
-// Writes the per-lane coefficient rows hcf (C, B).
+// elem_bwd: reversed phase 0, laid out as factor_bwd: a group of G threads
+// a lane, thread r row r.  Cotangents of the lane's element (float64, from
+// the prefix VJP): hA0 and hC0 seed the sweep, hJ0 is constant and waits in
+// the group's tile.  Writes the per-lane coefficient rows hcf (C, B).
 // ---------------------------------------------------------------------------
 
+// Two blocks an SM, as factor_bwd.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(BLOCK, 2)
 elem_bwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
                 const T* __restrict__ tl, const T* __restrict__ dt, const T* __restrict__ dg,
                 const T* __restrict__ msk, int L, int B, int jr, const T* __restrict__ sv,
                 const double* __restrict__ hA0, const double* __restrict__ hJ0,
                 const double* __restrict__ hC0, T* __restrict__ hcf) {
-    const int l = blockIdx.x * blockDim.x + threadIdx.x;
-    if (l >= B) return;
-    Coeffs<T> k;
-    load_coeffs(cf + (size_t)(l / seg) * (2 * P + 1), jr, k);
+    // Each group's tiles (its transposes', then hJ's), its step's record
+    // and its P words of a vector.
+    __shared__ T tiles[2 * LANES * P * TS];
+    __shared__ T recs[NX * LANES];
+    __shared__ T vecs[LANES * P];
+    __shared__ T cols[NCOL * BLOCK];
+    const Lane ln = lane_of(B);
+    const int l = ln.l, r = ln.r, grp = threadIdx.x / G;
+    T* tile = tiles + grp * 2 * P * TS;
+    T* hj = tile + P * TS;
+    const Rec<T, LANES> rec{recs + grp};
+    const Col<T> k = load_col(cols, cf + (size_t)(l / seg) * (2 * P + 1), jr, r);
 
-    T hA[P][P], hJs[P][P], hSh[P][P];
-    load_sq64(hA0 + l, B, hA);
-    load_sq64(hJ0 + l, B, hJs);
-    load_sq64(hC0 + l, B, hSh);
-    // hJ is constant through the sweep and enters only symmetrised.
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-        for (int j = i; j < P; ++j) {
-            const T s = hJs[i][j] + hJs[j][i];
-            hJs[i][j] = s;
-            hJs[j][i] = s;
-        }
-    CoefGrad<T> gr;
-    zero_grad(gr);
+    // The carried cotangents, rounded to T; hJ waits in the group's tile.
+    T hA[P], hSh[P];
+    load_tile(hj, hJ0, r, B, l);
+    __syncwarp();
+    get_mat(hA0, r, B, l, hA);
+    get_mat(hC0, r, B, l, hSh);
 
     for (int s = L - 1; s >= 0; --s) {
         const size_t o = (size_t)s * B + l;
-        const T* sp = sv + (size_t)s * NSV0 * B + l;
-        T u[P], v[P], ph[P], a;
         const T ts = t[o], tls = tl[o], dts = dt[o], ms = msk[o];
-        lower_step(k, jr, ts, tls, dts, dg[o], ms, u, v, ph, a);
-        T Shin[P][P], A_in[P][P];
-        load_sq(sp, B, Shin);
-        load_sq(sp + (size_t)PP * B, B, A_in);
-
-        T su[P], w[P], ut[P], uAc[P];
-        const T d = riccati_front(Shin, u, v, ph, a, su, w);
-#pragma unroll
-        for (int i = 0; i < P; ++i) ut[i] = ph[i] * u[i];
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            T acc = T(0);
-#pragma unroll
-            for (int i = 0; i < P; ++i) acc += A_in[i][j] * ut[i];
-            uAc[j] = acc;
-        }
-
-        // F9: J_out = J_in - uAc (uAc/d)^T
-        T huAc[P], hd = T(0);
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-            T acc = T(0);
-#pragma unroll
-            for (int j = 0; j < P; ++j) acc += hJs[i][j] * uAc[j];
-            huAc[i] = -acc / d;
-            hd += uAc[i] * acc;
-        }
-        hd = T(0.5) * hd / (d * d);
-        // F8: A_out = Phi A_in - w uAc^T
-        T hph[P], hw[P];
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-            T acc = T(0), accw = T(0);
-#pragma unroll
-            for (int j = 0; j < P; ++j) {
-                acc += hA[i][j] * A_in[i][j];
-                accw += hA[i][j] * uAc[j];
-            }
-            hph[i] = acc;
-            hw[i] = -accw;
-        }
+        T ur, vr, phr, cm, sm, uv[P], pv[P];
+        lower_row(k, ts, tls, dts, ms, ur, vr, phr, cm, sm);
+        gather(ur, uv);
+        gather(phr, pv);
+        const T a = ms * (dg[o] + k[CT]) + (T(1) - ms);
+        // Row r of the step's saves [Shin, A_in].
+        const T* sp = sv + (size_t)s * NSV0 * B + l;
+        T Shin[P], Ain[P];
 #pragma unroll
         for (int j = 0; j < P; ++j) {
-            T acc = T(0);
-#pragma unroll
-            for (int i = 0; i < P; ++i) acc += hA[i][j] * w[i];
-            huAc[j] -= acc;
+            Shin[j] = r < P ? sp[(size_t)(r * P + j) * B] : T(0);
+            Ain[j] = r < P ? sp[(size_t)(PP + r * P + j) * B] : T(0);
         }
-        // F7: uAc = A_in^T ut;  F6: ut = ph * u
-        T hu[P];
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-            T acc = T(0);
-#pragma unroll
-            for (int j = 0; j < P; ++j) {
-                acc += A_in[i][j] * huAc[j];
-                hA[i][j] = ph[i] * hA[i][j] + ut[i] * huAc[j];
-            }
-            hph[i] += acc * u[i];
-            hu[i] = acc * ph[i];
-        }
-        // F5-F1: the Riccati step.
-        T hv[P], ha;
-        riccati_adjoint(Shin, u, ph, su, d, w, hSh, hw, hd, hu, hph, hv, ha);
-        chain_step(k, jr, hu, hv, hph, ha, v, ph, ts, tls, dts, ms, gr);
+        T hu, hv, hph, ha;
+        const RegStep<T> in{uv, pv, Shin, Ain, ur, phr, vr, a, T(0), T(0)};
+        elem_bwd_step(tile, hj, vecs + grp * P, rec, r, in, hA, hSh, hu, hv, hph, ha);
+        chain_row(k, hu, hv, hph, ha, phr, cm, sm, ts, tls, dts, ms);
     }
-    store_grad(gr, jr, B, l, hcf);
+    store_col_grad(k, jr, r, B, l, ln.live, hcf);
 }
 
 // ---------------------------------------------------------------------------
@@ -742,7 +529,7 @@ static inline dim3 grid_for(int B) { return dim3((B + THREADS - 1) / THREADS); }
                                        const void* sv, const void* hA, const void* hJ,           \
                                        const void* hC, void* hcf, int L, int B, int jr,          \
                                        int seg, void* stream) {                                  \
-        elem_bwd_kernel<T><<<grid_for(B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(    \
+        elem_bwd_kernel<T><<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(   \
             static_cast<const T*>(cf), seg, static_cast<const T*>(t),                            \
             static_cast<const T*>(tl), static_cast<const T*>(dt), static_cast<const T*>(dg),     \
             static_cast<const T*>(m), L, B, jr, static_cast<const T*>(sv),                       \

@@ -1,7 +1,7 @@
 // Shared device code of the kernels on pre-lowered (L, P, B) streams
 // (adjoint.cu, pallas_solver.cu, fused.cu, tangent.cu, onepass.cu; and
-// fused4_grad.cu's factor_bwd, which lowers in the kernel), padded widths
-// 1..16.
+// fused4_grad.cu's factor_bwd and elem_bwd, which lower in the kernel),
+// padded widths 1..16.
 //
 // A group of G threads (the power of two at or above P; fused4_common.cuh)
 // owns one lane, thread r row r of every P x P state, so a thread holds a
@@ -13,8 +13,8 @@
 // Also the elements sweep these sources run: each lane's Riccati element
 // (A, J, C) from a zero seed, with per-step saves in adjoint.cu and
 // without in pallas_solver.cu and fused.cu; and the seeded factor sweep,
-// with saves in adjoint.cu and without in fused.cu, and from a zero seed
-// with its end state in onepass.cu.  Each sweep's step is a value step
+// without saves in fused.cu, and from a zero seed with its end state in
+// onepass.cu.  Each sweep's step is a value step
 // (elem_value_step, factor_value_step), which tangent.cu's sweeps with
 // tangents also take, there filling the record their tangent steps read.
 
@@ -272,12 +272,12 @@ __device__ __forceinline__ void elements_sweep(const T* __restrict__ u, const T*
 }
 
 // Each lane's seeded factor from sh0 (P, P, B), its affine map (M, m) and
-// statistics (Qm, qv, Kahan-summed q0 and log-det, min pivot): the Pallas
-// factor kernels adjoint.py:188 (with SAVE, each step's input [Sh, M, m]
-// to the save stream sv, NSV1 words a lane and step) and, without saves,
-// the phase 1 of fused.py:130 (fused.cu).  A null sh0 is the zero seed and
-// a non-null C_out takes the end state Sh (P, P, B): the one-pass sweeps
-// onepass.py:111 and :162 (onepass.cu).
+// statistics (Qm, qv, Kahan-summed q0 and log-det, min pivot): the phase 1
+// of fused.py:130 (fused.cu).  A null sh0 is the zero seed and a non-null
+// C_out takes the end state Sh (P, P, B): the one-pass sweeps onepass.py:111
+// and, with SAVE (each step's input [Sh, M, m] to the save stream sv, NSV1
+// words a lane and step), :162 (onepass.cu).  adjoint.cu's factor_fwd
+// (adjoint.py:188) streams the same step through shared memory instead.
 template <bool SAVE, typename T>
 __device__ __forceinline__ void factor_sweep(const T* __restrict__ u, const T* __restrict__ v,
                                              const T* __restrict__ ph,

@@ -69,10 +69,12 @@ package's lax double-single solver (``dsblocked``, not ported).
 from __future__ import annotations
 
 import math
+import warnings
 
 import numpy as np
 import torch
 
+from . import terms
 from .modeling import ConstantModel, ModelSet
 from .ops import (adjoint, blocked, dense, dsfused, fused, fused4, lanes,
                   lanes4, pallas_solver, seq, tangent)
@@ -303,16 +305,31 @@ class GP(ModelSet):
         kernel: a :class:`celerite_torch.terms.Term`.
         mean: a float or a :class:`celerite_torch.modeling.Model`.
         fit_mean: if False, the mean's parameters are frozen.
+        log_white_noise: deprecated; appends a
+            ``terms.JitterTerm(log_sigma=log_white_noise)`` to ``kernel``
+            with a ``UserWarning`` (celerite_tpu/gp.py:82-89).
+        fit_white_noise: if False, that term's ``log_sigma`` is frozen.
         device: where the entry points compute; ``None`` means ``"cuda"``.
     """
 
-    def __init__(self, kernel, mean=0.0, fit_mean=False, device=None):
+    def __init__(self, kernel, mean=0.0, fit_mean=False,
+                 log_white_noise=None, fit_white_noise=False, *,
+                 device=None):
         self.device = device
         self._solver = None
         self._computed = False
         self._t = None
         self._yerr = None
         self._diag = None
+        if log_white_noise is not None:
+            warnings.warn(
+                "The 'log_white_noise' parameter is deprecated. "
+                "Use a 'JitterTerm' instead."
+            )
+            jt = terms.JitterTerm(log_sigma=float(log_white_noise))
+            if not fit_white_noise:
+                jt.freeze_parameter("log_sigma")
+            kernel = kernel + jt
         try:
             mean = ConstantModel(float(mean))
         except TypeError:
@@ -570,7 +587,7 @@ class GP(ModelSet):
     # -- pure closures --------------------------------------------------------
     def build_loglik(self, t, y, yerr=1.123e-12, diag=None, solver="auto",
                      block_size=None, fast_grad=False, precision=None,
-                     dtype=torch.float64):
+                     dtype=torch.float64, fast_compile=False):
         """Return a pure closure ``theta_active -> (ll, ok)``.
 
         ``theta_active`` follows ``get_parameter_vector()`` ordering (kernel
@@ -602,8 +619,14 @@ class GP(ModelSet):
         ``solver="auto"`` and raise with "fused", "pallas", "blocked" with a
         truthy ``fast_grad``, or ``fast_grad="tangent"``.  ``loglik.route``
         names the route taken: "seq", "fused", "adjoint", "tangent",
-        "dsfused", "pallas" or "blocked".
+        "dsfused", "pallas" or "blocked".  ``fast_compile=True`` forces
+        ``solver="blocked"`` with ``fast_grad=False`` and keeps exact mode
+        off the forward-mode kernels, as the JAX package's flag does
+        (celerite_tpu/gp.py:341-343, :426): no kernel runs.
         """
+        if fast_compile:
+            solver = "blocked"
+            fast_grad = False
         if precision not in (None, "ds"):
             raise ValueError(
                 "precision must be None or 'ds', got {0!r}".format(precision)
@@ -645,7 +668,7 @@ class GP(ModelSet):
         # the forward-mode kernels on the card, their plain versions on the
         # CPU.  Other exact-mode calls take the float64 route below.
         if (precision == "ds" and not mean_active and 0 < width <= 8
-                and n >= 2048 and block_size is None):
+                and n >= 2048 and block_size is None and not fast_compile):
             return self._build_loglik_dsfused(t_np, y_np, diag_np,
                                               split_theta, fixed, nk,
                                               mean_fn, pr, pc, device)
@@ -999,7 +1022,8 @@ class GP(ModelSet):
 
     def build_logprob(self, t, y, yerr=1.123e-12, log_prior=None,
                       solver="auto", block_size=None, fast_grad=None,
-                      precision=None, dtype=torch.float64):
+                      precision=None, dtype=torch.float64,
+                      fast_compile=False):
         """Pure ``theta -> log posterior`` (ll + prior), -inf-safe.
 
         ``log_prior`` defaults to the box prior of the parameter bounds.
@@ -1013,11 +1037,13 @@ class GP(ModelSet):
         forward-mode route (:meth:`build_loglik`).  ``precision="ds"``
         takes exact mode (:meth:`build_loglik`); on config[2]-sized data
         that is the forward-mode kernels.  These two wrap either route's
-        entries unchanged.
+        entries unchanged.  ``fast_compile`` is passed on to
+        :meth:`build_loglik`.
         """
         ll_fn = self.build_loglik(
             t, y, yerr=yerr, solver=solver, block_size=block_size,
             fast_grad=fast_grad, precision=precision, dtype=dtype,
+            fast_compile=fast_compile,
         )
         if log_prior is None:
             bounds = self.get_parameter_bounds()

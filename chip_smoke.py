@@ -295,17 +295,19 @@ def nvcc_version():
 
 
 def ptxas_summary(path):
-    """{kernel<[threads a lane,] dtype or tan/value>: {"registers",
-    "spill_stores", "spill_loads"}}."""
+    """{kernel<[threads a lane,] dtype or tan/value[, warps a block]>:
+    {"registers", "spill_stores", "spill_loads"}}."""
     out, cur, props = {}, None, None
     tags = {"f": "f32", "d": "f64", "Lb1": "tan", "Lb0": "value"}
     for line in path.read_text().splitlines():
         m = re.search(r"Compiling entry function "
-                      r"'_Z\d+(\w+?)I(?:Li(\d+)E)?([df]|Lb[01])E", line)
+                      r"'_Z\d+(\w+?)I(?:Li(\d+)E)?([df]|Lb[01])"
+                      r"(?:Li(\d+)E)?E", line)
         if m:
-            cur = "{0}<{1}{2}>".format(
+            cur = "{0}<{1}{2}{3}>".format(
                 m.group(1), "" if m.group(2) is None else m.group(2) + ",",
-                tags[m.group(3)])
+                tags[m.group(3)],
+                "" if m.group(4) is None else "," + m.group(4))
             out[cur] = {}
             continue
         m = re.search(r"Function properties for (\S+)", line)
@@ -2886,9 +2888,10 @@ def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
     """The kernels redesigned for this card and those sharing their code,
     with the card's name and power limit: ptxas's registers and spill bytes
     of each at every width built, and their timings on each plan (row 5 on
-    C's 1- and 16-chain plans; row 18 on G's plans, with its four launches'
-    split; rows 16-17 on E's model; rows 9 and 11 on E's plans; row 21,
-    which shares row 11's sweep and row 5's transposed step)."""
+    C's 1- and 16-chain plans, and row 3, which runs row 9's transposed
+    step in row 5's layout; row 18 on G's plans, with its four launches'
+    split; rows 16-17 on E's model; rows 9, 10 and 11 on E's plans; row
+    21, which shares row 11's sweep and row 5's transposed step)."""
     def regs(src, prefix):
         return {p: {k: v for k, v in kerns.items() if k.startswith(prefix)}
                 for p, kerns in ptxas[src].items()}
@@ -2898,6 +2901,9 @@ def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
         "factor_bwd": {"ptxas": regs("fused4_grad.cu", "factor_bwd"),
                        "chains": {nc: rows["factor_bwd"]
                                   for nc, rows in grad_rows.items()}},
+        "elem_bwd": {"ptxas": regs("fused4_grad.cu", "elem_bwd"),
+                     "chains": {nc: rows["elem_bwd"]
+                                for nc, rows in grad_rows.items()}},
         "jac": {"ptxas": regs("tangent.cu", "jac_"),
                 "plans": {k: v["jac"] for k, v in tangent_rows.items()
                           if "jac" in v}},
@@ -2907,6 +2913,10 @@ def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
         "adjoint_elements_bwd": {
             "ptxas": regs("adjoint.cu", "adjoint_elements_bwd"),
             "chains": {nc: rows["elements_bwd"]
+                       for nc, rows in adj_rows.items()}},
+        "adjoint_factor_fwd": {
+            "ptxas": regs("adjoint.cu", "adjoint_factor_fwd"),
+            "chains": {nc: rows["factor_fwd"]
                        for nc, rows in adj_rows.items()}},
         "adjoint_factor_bwd": {
             "ptxas": regs("adjoint.cu", "adjoint_factor_bwd"),

@@ -219,8 +219,9 @@ def _first_lanes(plan, b):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_grad_kernels_odd_shapes(jr, jc, vals, shape, dtype, cuda_device):
     """The gradient kernels at every padded width 1-12 on 12 lanes, which
-    no block of factor_bwd's divides (128 / G lanes, G threads a lane: its
-    last block runs dead lanes), and on 16 lanes of one step each."""
+    no block of factor_bwd's or elem_bwd's divides (128 / G lanes, G
+    threads a lane: the last block runs dead lanes), and on 16 lanes of one
+    step each."""
     if shape == "dead_lanes":
         t, y, yerr = make_data(1499, seed=9, t_max=150.0)
         plan = _first_lanes(lanes4.make_plan4(
@@ -329,19 +330,19 @@ def test_gp_gradient_entries_on_the_card(cuda_device):
 
 def _wide_streams(width, dtype, device, n_chain=1, n=4099, lanes=64,
                   first=None):
-    """Lane streams of a width-13, -14 or -16 model over ``lanes`` lanes a
-    chain (``n`` points; by default N = 4099, 64 lanes), chain k's row
-    1.0, 0.98, 1.02, 1.04 (k mod 4) times (1 + 0.005 (k // 4)) the
-    parameters; with ``first`` only the first lanes."""
+    """Lane streams of a model of padded width 2, 5, 8, 13, 14 or 16
+    (``width_kernel``) over ``lanes`` lanes a chain (``n`` points; by
+    default N = 4099, 64 lanes), chain k's row 1.0, 0.98, 1.02, 1.04 (k mod
+    4) times (1 + 0.005 (k // 4)) the parameters; with ``first`` only the
+    first lanes."""
     from celerite_torch import terms
     from celerite_torch.ops import lanes as lanes_
     from celerite_torch.ops.lower import Coefficients
-    from celerite_torch.testing import wide_kernel
 
     t, y, yerr = make_data(n, seed=7, t_max=400.0 * n / 4099)
     plan = lanes_.make_plan(t, y, yerr**2, lanes, dtype=dtype,
                             n_chain=n_chain, device=device)
-    kern = wide_kernel(terms, width)
+    kern = width_kernel(terms, width)
     th = torch.as_tensor(kern.get_parameter_vector(), device=device)
     scale = [[1.0, 0.98, 1.02, 1.04][k % 4] * (1 + 0.005 * (k // 4))
              for k in range(n_chain)]
@@ -357,14 +358,16 @@ def _wide_streams(width, dtype, device, n_chain=1, n=4099, lanes=64,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [13, 14, 16])
+@pytest.mark.parametrize("width", [2, 5, 8, 13, 14, 16])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n_chain", [1, 4, 16])
+@pytest.mark.parametrize("n_chain", [1, 4, 16, 32])
 def test_adjoint_kernels_match_plain(width, dtype, n_chain, cuda_device):
     """Each of the four adjoint kernels equals its plain version on the
     same streams, every output: 1e-10 in float64, ADJ_F32_RTOL in
-    float32; one chain, and four and sixteen chains folded onto the
-    lanes."""
+    float32; one chain, and 4, 16 and 32 chains folded onto the lanes
+    (64 lanes a chain: at P = 13-16 factor_fwd takes blocks of one warp
+    up to 1024 lanes and of four at 2048 on an H100's 132 SMs); groups of
+    G = 2, 8 and 16 threads a lane."""
     streams = _wide_streams(width, dtype, cuda_device, n_chain)
     errs = compare_adjoint_kernels(*streams, seg=64)
     rtol = 1e-10 if dtype == torch.float64 else ADJ_F32_RTOL
@@ -378,9 +381,9 @@ def test_adjoint_kernels_match_plain(width, dtype, n_chain, cuda_device):
 @pytest.mark.parametrize("shape", ["dead_lanes", "one_step", "short",
                                    "one_lane"])
 def test_adjoint_kernels_odd_shapes(width, dtype, shape, cuda_device):
-    """The adjoint kernels on lane counts that no backward block divides
-    (32 / G lanes a block: its last block runs dead lanes) and on lanes
-    shorter than the backward kernels' ring of steps: 63 lanes of 65
+    """The adjoint kernels on lane counts that no backward or factor_fwd
+    block divides (32 / G lanes a block: its last block runs dead lanes)
+    and on lanes shorter than the kernels' rings of steps: 63 lanes of 65
     steps, 7 lanes of one step, 5 lanes of three steps, one lane of 17
     steps."""
     n, lanes, first = {"dead_lanes": (4099, 64, 63), "one_step": (8, 8, 7),

@@ -1,37 +1,41 @@
 #!/usr/bin/env python
-"""Time one tree's kernels of rows 5, 9, 11, 16-18 and 21 (PERF.md section
-6) on the plans chip_smoke.py times them on, so that two trees can be
-compared on one card.
+"""Time one tree's kernels of rows 3, 5, 9-11, 16-18 and 21 (PERF.md
+section 6) on the plans chip_smoke.py times them on, so that two trees can
+be compared on one card.
 
 Usage (on a machine with an NVIDIA H100), from the root of a checkout:
 
-    python3 tools/kernel_ab.py [--tree DIR]
+    python3 tools/kernel_ab.py [--tree DIR] [--rows 3,10]
 
 ``DIR`` (default: this checkout) is the root of a tree whose
 ``celerite_torch`` and ``chip_smoke.py`` are imported; an older commit
 unpacked with ``git archive`` into a git-ignored directory (``build/``)
 serves.  Run the trees in turns in one command (old, new, new, old) to
-compare them on one card.
+compare them on one card.  ``--rows`` times only the rows named (3, 5, 9,
+10, 11, 16, 17, 18, 21; 9-11 run together, as do 16-17 and 3 and 5).
 
-Builds ``fused4_grad.cu`` at P = 8, ``tangent.cu`` at 8 and 16,
-``adjoint.cu`` at 13 and 16 and ``onepass.cu`` at 8, and prints one JSON
-line a measurement, each with the tree, the card's name and power limit
-(nvidia-smi) and ptxas's registers and spill bytes of the kernels timed:
+Builds what the rows take of ``fused4_grad.cu`` at P = 8, ``tangent.cu``
+at 8 and 16, ``adjoint.cu`` at 13 and 16 and ``onepass.cu`` at 8, and
+prints one JSON line a measurement, each with the tree, the card's name
+and power limit (nvidia-smi) and ptxas's registers and spill bytes of the
+kernels timed:
 
-- ``row5``: fused4 ``factor_bwd`` on main path C's 16-chain batch plan
-  (config[2], N = 1e5, 16 x 512 lanes of 196 steps), float64 and float32;
+- ``row5`` and ``row3``: fused4 ``factor_bwd`` and ``elem_bwd`` on main
+  path C's 16-chain batch plan (config[2], N = 1e5, 16 x 512 lanes of 196
+  steps), float64 and float32;
 - ``row18``: the tangent route's ``jac`` call on sampler_G's 4-chain plan
   (4 x 256 lanes of 391 steps, T = 7) and on main path G's 16-chain
   batch plan, float64, with the device time of each of its four launches
   from torch.profiler;
 - ``row16_17``: the split pair (``elements_jvp``, ``factor_jvp``) on main
   path G's folded batch plan of E's model (P = 16, T = 13), float64;
-- ``row9`` and ``row11``: the adjoint ``elements_bwd`` and ``factor_bwd``
-  on sampler_E's 4-chain plan and on main path E's 16-chain batch plan
-  (E's model, P = 16, 128 lanes a chain of 782 steps), float64 and
-  float32, with ptxas's figures at P = 13 and 16 and the launch's shape
-  (threads and lanes a block, dynamic shared memory, blocks an SM) where
-  the tree's ``chip_smoke.adjoint_bwd_layout`` gives it;
+- ``row9``, ``row10`` and ``row11``: the adjoint ``elements_bwd``,
+  ``factor_fwd`` and ``factor_bwd`` on sampler_E's 4-chain plan and on
+  main path E's 16-chain batch plan (E's model, P = 16, 128 lanes a chain
+  of 782 steps), float64 and float32, with ptxas's figures at P = 13 and
+  16 and, for rows 9 and 11, the launch's shape (threads and lanes a
+  block, dynamic shared memory, blocks an SM) where the tree's
+  ``chip_smoke.adjoint_bwd_layout`` gives it;
 - ``row21``: the one-pass ``sweep_bwd`` on main path H's config[2] plan,
   float64.
 
@@ -49,7 +53,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=".",
                     help="root of the tree whose celerite_torch is timed")
+    ap.add_argument("--rows", default="3,5,9,10,11,16,17,18,21",
+                    help="comma-separated rows to time")
     args = ap.parse_args()
+    rows = {int(r) for r in args.rows.split(",")}
     root = os.path.abspath(args.tree)
     sys.path.insert(0, root)
 
@@ -59,7 +66,6 @@ def main():
     import celerite_torch
     import chip_smoke as cs
     from celerite_torch import _build, terms
-    from celerite_torch.ops import adjoint, fused4, onepass, tangent
     from celerite_torch.testing import config2_kernel
 
     if not torch.cuda.is_available():
@@ -71,8 +77,11 @@ def main():
     dev = torch.device("cuda")
     smi = cs.smi_name_power()
     t0 = time.perf_counter()
-    jobs = [("fused4_grad.cu", 8), ("tangent.cu", 8), ("tangent.cu", 16),
-            ("adjoint.cu", 13), ("adjoint.cu", 16), ("onepass.cu", 8)]
+    jobs = [job for job, of in (
+        (("fused4_grad.cu", 8), {3, 5}), (("tangent.cu", 8), {18}),
+        (("tangent.cu", 16), {16, 17}), (("adjoint.cu", 13), {9, 10, 11}),
+        (("adjoint.cu", 16), {9, 10, 11}), (("onepass.cu", 8), {21}))
+        if rows & of]
     paths = _build.build([(s, {"CELERITE_P": p}) for s, p in jobs])
     ptxas = {"{0}:{1}".format(s, p): cs.ptxas_summary(
         path.with_suffix(".ptxas.txt")) for (s, p), path in zip(jobs, paths)}
@@ -104,22 +113,75 @@ def main():
     theta = torch.as_tensor(gp.get_parameter_vector(), device=dev)
     thetas = cs.path_c_thetas(theta, dev)
 
-    # Row 5 on C's 16-chain plan.
+    # Rows 5 and 3 on C's 16-chain plan.
     nc = cs.SAMPLER_CHAINS
     cfs = torch.stack([cs.packed_cf(gp, th) for th in thetas[:nc]])
-    for dt in (torch.float64, torch.float32):
+    for dt in (torch.float64, torch.float32) if rows & {3, 5} else ():
         lp = gp.build_logprob(t, y, yerr=yerr, log_prior=prior, dtype=dt)
         plan = lp.loglik.value_ok_grad_batch.folded_plan(nc)
-        kern, _ = cs.grad_kernel_calls(cfs.to(dt), plan, pr, pc)["factor_bwd"]
-        emit("row5", kernel="fused4 factor_bwd", dtype=str(dt)[6:],
-             chains=nc, lanes=plan.t.shape[1], steps=plan.t.shape[0],
-             ms=cs.sync_time_ms(kern, reps=20),
-             ptxas=pick("fused4_grad.cu", 8, "factor_bwd"))
-        del lp, plan, kern
+        calls = cs.grad_kernel_calls(cfs.to(dt), plan, pr, pc)
+        for row, name in ((5, "factor_bwd"), (3, "elem_bwd")):
+            if row in rows:
+                emit("row{0}".format(row), kernel="fused4 " + name,
+                     dtype=str(dt)[6:], chains=nc, lanes=plan.t.shape[1],
+                     steps=plan.t.shape[0],
+                     ms=cs.sync_time_ms(calls[name][0], reps=20),
+                     ptxas=pick("fused4_grad.cu", 8, name))
+        del lp, plan, calls
         torch.cuda.empty_cache()
+    gpe = celerite_torch.GP(config2_kernel(terms, modes=3))
+    thetase = cs.path_c_thetas(
+        torch.as_tensor(gpe.get_parameter_vector(), device=dev), dev)
+    if 18 in rows:
+        time_row18(cs, gp, t, y, yerr, prior, thetas, emit, pick)
+    if rows & {16, 17}:
+        time_rows16_17(cs, gpe, t, y, yerr, prior, thetase, emit, pick)
 
-    # Row 18 on sampler_G's and G's batch plans, with its launches' split.
+    # Rows 9-11 on sampler_E's 4-chain plan and E's 16-chain plan.
+    layout = getattr(cs, "adjoint_bwd_layout", None)
+    for dt in (torch.float64, torch.float32) if rows & {9, 10, 11} else ():
+        lpe = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior, dtype=dt)
+        for nce in (cs.SAMPLER_E_CHAINS, cs.SAMPLER_CHAINS):
+            plan = lpe.loglik.value_ok_grad_batch.folded_plan(nce)
+            streams = cs.lane_streams(gpe, plan, thetase[:nce])
+            calls = cs.adjoint_kernel_calls(streams,
+                                            streams[0].shape[-1] // nce)
+            for row, name in ((9, "elements_bwd"), (10, "factor_fwd"),
+                              (11, "factor_bwd")):
+                if row not in rows:
+                    continue
+                emit("row{0}".format(row), kernel="adjoint " + name,
+                     dtype=str(dt)[6:], chains=nce,
+                     lanes=streams[0].shape[-1], steps=streams[0].shape[0],
+                     ms=cs.sync_time_ms(calls[name][0], reps=10),
+                     ptxas={p: pick("adjoint.cu", p, "adjoint_" + name)
+                            for p in (13, 16)},
+                     layout=None if layout is None or row == 10
+                     else layout(name, 16, dt))
+            del plan, streams, calls
+            torch.cuda.empty_cache()
+        del lpe
+
+    # Row 21 on H's config[2] plan.
+    if 21 in rows:
+        s64 = cs.h_streams(gp, t, y, yerr, dev)
+        kern, _ = cs.onepass_kernel_calls(s64)["sweep_bwd"]
+        emit("row21", kernel="onepass sweep_bwd", dtype="float64",
+             lanes=s64[0].shape[-1], steps=s64[0].shape[0],
+             ms=cs.sync_time_ms(kern, reps=20),
+             ptxas=pick("onepass.cu", 8, "onepass_bwd"))
+    return 0
+
+
+def time_row18(cs, gp, t, y, yerr, prior, thetas, emit, pick):
+    """Row 18 on sampler_G's and G's batch plans, with its launches'
+    split."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from celerite_torch.ops import tangent
+
+    nc = cs.SAMPLER_CHAINS
     lpg = gp.build_logprob(t, y, yerr=yerr, log_prior=prior,
                            dtype=torch.float64, fast_grad="tangent")
     vog = lpg.loglik.value_ok_grad_batch
@@ -153,12 +215,14 @@ def main():
              ptxas=pick("tangent.cu", 8, "jac_"))
         del s, d
         torch.cuda.empty_cache()
-    del lpg, vog
 
-    # Rows 16-17 (the split pair) on main path G's batch plan of E's model.
-    gpe = celerite_torch.GP(config2_kernel(terms, modes=3))
-    thetase = cs.path_c_thetas(
-        torch.as_tensor(gpe.get_parameter_vector(), device=dev), dev)
+
+def time_rows16_17(cs, gpe, t, y, yerr, prior, thetase, emit, pick):
+    """Rows 16-17 (the split pair) on main path G's batch plan of E's
+    model."""
+    import torch
+
+    nc = cs.SAMPLER_CHAINS
     lpg = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior,
                             dtype=torch.float64, fast_grad="tangent")
     vog = lpg.loglik.value_ok_grad_batch
@@ -174,38 +238,6 @@ def main():
          ptxas=pick("tangent.cu", 16, "tangent_"))
     del lpg, vog, s, d, calls
     torch.cuda.empty_cache()
-
-    # Rows 9 and 11 on sampler_E's 4-chain plan and E's 16-chain plan.
-    layout = getattr(cs, "adjoint_bwd_layout", None)
-    for dt in (torch.float64, torch.float32):
-        lpe = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior, dtype=dt)
-        for nce in (cs.SAMPLER_E_CHAINS, cs.SAMPLER_CHAINS):
-            plan = lpe.loglik.value_ok_grad_batch.folded_plan(nce)
-            streams = cs.lane_streams(gpe, plan, thetase[:nce])
-            calls = cs.adjoint_kernel_calls(streams,
-                                            streams[0].shape[-1] // nce)
-            for row, name in (("row9", "elements_bwd"),
-                              ("row11", "factor_bwd")):
-                emit(row, kernel="adjoint " + name, dtype=str(dt)[6:],
-                     chains=nce, lanes=streams[0].shape[-1],
-                     steps=streams[0].shape[0],
-                     ms=cs.sync_time_ms(calls[name][0], reps=10),
-                     ptxas={p: pick("adjoint.cu", p, "adjoint_" + name)
-                            for p in (13, 16)},
-                     layout=None if layout is None
-                     else layout(name, 16, dt))
-            del plan, streams, calls
-            torch.cuda.empty_cache()
-        del lpe
-
-    # Row 21 on H's config[2] plan.
-    s64 = cs.h_streams(gp, t, y, yerr, dev)
-    kern, _ = cs.onepass_kernel_calls(s64)["sweep_bwd"]
-    emit("row21", kernel="onepass sweep_bwd", dtype="float64",
-         lanes=s64[0].shape[-1], steps=s64[0].shape[0],
-         ms=cs.sync_time_ms(kern, reps=20),
-         ptxas=pick("onepass.cu", 8, "onepass_bwd"))
-    return 0
 
 
 if __name__ == "__main__":
