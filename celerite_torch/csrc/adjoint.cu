@@ -27,14 +27,17 @@
 // P are padding that holds zeros.  Row sums are thread-local; sums over
 // rows are xor-shuffle reductions within the group (group_sum), column
 // sums and transposes go through a per-group tile in shared memory.
-// elements_fwd steps through the streams with each thread reading the
-// step's u and phi whole (lanes_common.cuh's sweep, shared with
-// pallas_solver.cu, fused.cu and tangent.cu).  factor_fwd streams instead:
-// each group copies its lane's streams three steps ahead into a ring in
-// shared memory (cp.async), sums g = (Phi M)^T u by columns through its
-// tile and hands w and g to every row through shared memory, in blocks of
-// four warps where that still gives every SM a block, else of one
-// (sampler_E's 512 lanes at P = 16: 256 blocks of 2 lanes).
+// The forward kernels stream (adjoint_common.cuh's forward sweeps): each
+// group copies its lane's streams three steps ahead into a ring in shared
+// memory (cp.async), sums uA = A^T (Phi u) or g = (Phi M)^T u by columns
+// through its tile and hands w and that sum to every row through shared
+// memory, one reciprocal of d a step, in blocks of four warps where that
+// still gives every SM a block, else of one (sampler_E's 512 lanes at P =
+// 16: 256 blocks of 2 lanes).  Both share their Riccati front
+// (riccati_fwd_front), and factor_fwd's step is fused4_grad.cu's
+// (factor_fwd_step).  pallas_solver.cu, fused.cu and tangent.cu keep
+// lanes_common.cuh's elements sweep, which reads each step's u and phi
+// whole in every thread.
 //
 // The backward kernels are a chain of dependent steps a lane, so a step's
 // latency is their time.  Each step is split in two (adjoint_common.cuh):
@@ -84,16 +87,48 @@
 
 #include "adjoint_common.cuh"
 // ---------------------------------------------------------------------------
-// elements_fwd: each lane's Riccati element (A, J, C) with saves.
+// elements_fwd: each lane's Riccati element (A, J, C) from a zero seed, with
+// saves, streamed (adjoint_common.cuh's forward sweeps): a group a lane,
+// thread r row r of Sh, A and J.  C is the zero-seeded factor recursion, A
+// a product of closed-loop transitions (I - w u^T) Phi, J a sum of rank-1
+// terms.  Each step's input [Sh, A] goes to the save stream (NSV0 words a
+// lane and step, the layout elements_bwd reads).
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+template <typename T, int W>
+__global__ void __launch_bounds__(32 * W)
 adjoint_elements_fwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
                             const T* __restrict__ ph, const T* __restrict__ a, int L, int B,
                             T* __restrict__ A_out, T* __restrict__ J_out, T* __restrict__ C_out,
                             T* __restrict__ sv) {
-    elements_sweep<true>(u, v, ph, a, L, B, A_out, J_out, C_out, sv);
+    using Ctx = FwdCtx<T, W, NRS>;
+    __shared__ T ring[Ctx::RING], tiles[Ctx::TILES], vecs[Ctx::VECS];
+    const Ctx c(B, ring, tiles, vecs);
+    const int r = c.r, l = c.l;
+    T Sh[P], A[P], J[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        Sh[j] = J[j] = T(0);
+        A[j] = j == r ? T(1) : T(0);
+    }
+    fwd_ticks(
+        c, L,
+        [&](T* st, int s) {
+            copy_streams(st, u, v, ph, a, static_cast<const T*>(nullptr), s, B, l, r);
+        },
+        [&](int s) {
+            if (!c.live) return;
+            T* svs = sv + ((size_t)s * B + l) * NSV0;
+            save_row(svs, r, Sh);
+            save_row(svs + PP, r, A);
+        },
+        [&](const T* st) {
+            elem_fwd_step(c.tile, c.wv, c.gv, r, RingStep<T, 0>(st, r), Sh, A, J);
+        });
+    if (!c.live || r >= P) return;
+    put_mat(A_out, r, B, l, A);
+    put_mat(J_out, r, B, l, J);
+    put_mat(C_out, r, B, l, Sh);
 }
 
 // ---------------------------------------------------------------------------
@@ -142,20 +177,11 @@ adjoint_elements_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
 
 // ---------------------------------------------------------------------------
 // factor_fwd: the seeded factor, affine map and statistics with saves,
-// streamed.  A block of W warps, a group of G threads a lane (LB = 32 W / G
-// lanes), thread r row r of Sh, M and Qm.  Each group copies its lane's
-// streams FWD_AHEAD steps ahead into a ring in shared memory (cp.async), so
-// a step reads u_j and phi_j there and never waits on device memory.  g =
-// (Phi M)^T u is a column sum through the group's tile, and w and g reach
-// every row through the group's vector in shared memory (one __syncwarp
-// each), so a step takes two butterflies (d and z0) and no broadcast
-// shuffles; one reciprocal of d a step.  Each step's input [Sh, M, m] goes
-// to the save stream (NSV1 words a lane and step, the layout elements_bwd
-// and factor_bwd read).
+// streamed (adjoint_common.cuh's forward sweeps): a group a lane, thread r
+// row r of Sh, M and Qm and entry r of m and qv.  Each step's input [Sh, M,
+// m] goes to the save stream (NSV1 words a lane and step, the layout
+// factor_bwd reads).
 // ---------------------------------------------------------------------------
-
-constexpr int FWD_AHEAD = 3;             // steps copied ahead of the step computed
-constexpr int FWD_RING = FWD_AHEAD + 2;  // those, the step's and the step before's
 
 template <typename T, int W>
 __global__ void __launch_bounds__(32 * W)
@@ -166,26 +192,10 @@ adjoint_factor_fwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
                           T* __restrict__ qv_out, double* __restrict__ q0_out,
                           double* __restrict__ ld_out, T* __restrict__ mind_out,
                           T* __restrict__ sv) {
-    constexpr int LB = 32 * W / G;
-    // Each lane's ring of steps, tile, and vector (w, then g).
-    __shared__ T ring[FWD_RING * LB * NRS];
-    __shared__ T tiles[LB * P * TS];
-    __shared__ T vecs[LB * 2 * P];
-    const int q = threadIdx.x / G, r = threadIdx.x % G;
-    const bool live = blockIdx.x * LB + q < B;
-    // A dead lane runs the last lane and writes nothing.
-    const int l = live ? blockIdx.x * LB + q : B - 1;
-    T* tile = tiles + q * P * TS;
-    T* wv = vecs + q * 2 * P;
-    T* gv = wv + P;
-    auto slot = [&](int s) { return ring + ((s % FWD_RING) * LB + q) * NRS; };
-    auto copy = [&](int s) {
-        if (s < L) copy_streams(slot(s), u, v, ph, a, y, s, B, l, r);
-        cp_async_commit();
-    };
-
-    // Row r of Sh, M, Qm, entry r of m and qv; the scalar statistics are
-    // kept alike in every thread of the group.
+    using Ctx = FwdCtx<T, W, NRS>;
+    __shared__ T ring[Ctx::RING], tiles[Ctx::TILES], vecs[Ctx::VECS];
+    const Ctx c(B, ring, tiles, vecs);
+    const int r = c.r, l = c.l;
     T Sh[P], M[P], Qm[P];
     get_mat(sh0, r, B, l, Sh);
 #pragma unroll
@@ -195,62 +205,20 @@ adjoint_factor_fwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
     }
     T mr = T(0), qvr = T(0), mind = T(INFINITY);
     Kahan<T> q0{T(0), T(0)}, ld{T(0), T(0)};
-    for (int k = 0; k < FWD_AHEAD; ++k) copy(k);
-    for (int s = 0; s < L; ++s) {
-        copy(s + FWD_AHEAD);
-        if (live) {
+    fwd_ticks(
+        c, L, [&](T* st, int s) { copy_streams(st, u, v, ph, a, y, s, B, l, r); },
+        [&](int s) {
+            if (!c.live) return;
             T* svs = sv + ((size_t)s * B + l) * NSV1;
             save_row(svs, r, Sh);
             save_row(svs + PP, r, M);
             if (r < P) svs[2 * PP + r] = mr;
-        }
-        cp_async_wait<FWD_AHEAD>();
-        __syncwarp();
-        const T* st = slot(s);
-        const bool in = r < P;
-        const T ur = in ? st[RU + r] : T(0), phr = in ? st[RPH + r] : T(0);
-        const T vr = in ? st[RV + r] : T(0);
-        // The Riccati step: S = Phi Sh Phi, su = S u, d = a - u.su, w =
-        // (v - su) / d, Sh <- S + d w w^T.
-        T S[P];
-        Acc4<T> sa;
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            S[j] = phr * Sh[j] * st[RPH + j];
-            sa.fma(j, S[j], st[RU + j]);
-        }
-        const T su = sa.sum(), mh = phr * mr;
-        const T d = st[RA] - group_sum(ur * su);
-        const T z0 = st[RY] - group_sum(ur * mh);
-        const T rd = T(1) / d;
-        const T wr = in ? (vr - su) * rd : T(0);
-        if (in) wv[r] = wr;
-        // M <- Phi M - w g^T with g = (Phi M)^T u, a column sum.
-#pragma unroll
-        for (int j = 0; j < P; ++j) M[j] = phr * M[j];
-        const T gr = column_sum(tile, r, [&](int j) { return M[j] * ur; });
-        if (in) gv[r] = gr;
-        const T dw = d * wr;
-#pragma unroll
-        for (int j = 0; j < P; ++j) Sh[j] = S[j] + dw * wv[j];
-        __syncwarp();
-        // M <- M - w g^T and Qm <- Qm + g g^T / d.
-        const T grd = gr * rd;
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            const T gj = gv[j];
-            M[j] = M[j] - wr * gj;
-            Qm[j] = Qm[j] + grd * gj;
-        }
-        // m <- Phi m + w z0; the Kahan-compensated quad and log-det, qv and
-        // the NaN-propagating minimum pivot (like torch.minimum).
-        mr = mh + wr * z0;
-        q0.add(z0 * z0 * rd);
-        ld.add(dlog(d));
-        qvr = qvr + (z0 * rd) * gr;
-        mind = (d < mind || d != d) ? d : mind;
-    }
-    if (!live || r >= P) return;
+        },
+        [&](const T* st) {
+            factor_fwd_step(c.tile, c.wv, c.gv, r, RingStep<T, 0>(st, r), Sh, M, Qm, mr, qvr, q0,
+                            ld, mind);
+        });
+    if (!c.live || r >= P) return;
     put_mat(M_out, r, B, l, M);
     put_mat(Qm_out, r, B, l, Qm);
     m_out[(size_t)r * B + l] = mr;
@@ -260,37 +228,6 @@ adjoint_factor_fwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
         ld_out[l] = ld.total();
         mind_out[l] = mind;
     }
-}
-
-// Warps a block of factor_fwd: four where that still gives every SM of the
-// card a block (E's 16 chains, 2048 lanes at G = 16: 256 blocks), else one
-// (sampler_E's 4 chains, 512 lanes: 256 blocks of 2 lanes).  On those two
-// plans two warps were never faster than both (PERF.md).
-static int fwd_warps(int B) {
-    static int sms = 0;
-    if (sms == 0) {
-        int dev = 0;
-        cudaGetDevice(&dev);
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    constexpr int lb = 4 * 32 / G;
-    return (B + lb - 1) / lb >= sms ? 4 : 1;
-}
-
-template <typename T>
-static int launch_factor_fwd(const T* u, const T* v, const T* ph, const T* a, const T* y,
-                             const T* sh0, int L, int B, T* M, T* m, T* Qm, T* qv, double* q0,
-                             double* ld, T* mind, T* sv, void* stream) {
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int w = fwd_warps(B), lb = 32 * w / G;
-    const dim3 grid((unsigned)((B + lb - 1) / lb));
-    if (w == 4)
-        adjoint_factor_fwd_kernel<T, 4><<<grid, 128, 0, st>>>(u, v, ph, a, y, sh0, L, B, M, m,
-                                                              Qm, qv, q0, ld, mind, sv);
-    else
-        adjoint_factor_fwd_kernel<T, 1><<<grid, 32, 0, st>>>(u, v, ph, a, y, sh0, L, B, M, m,
-                                                             Qm, qv, q0, ld, mind, sv);
-    return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -322,12 +259,11 @@ adjoint_factor_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
     int celerite_adjoint_elements_fwd_##SFX(const void* u, const void* v, const void* ph,      \
                                             const void* a, void* A, void* J, void* C,          \
                                             void* sv, int L, int B, void* stream) {            \
-        adjoint_elements_fwd_kernel<T>                                                          \
-            <<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                 \
-            static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(ph),     \
-            static_cast<const T*>(a), L, B, static_cast<T*>(A), static_cast<T*>(J),            \
-            static_cast<T*>(C), static_cast<T*>(sv));                                          \
-        return (int)cudaGetLastError();                                                        \
+        return launch_fwd(adjoint_elements_fwd_kernel<T, 4>, adjoint_elements_fwd_kernel<T, 1>, \
+                          B, stream, static_cast<const T*>(u), static_cast<const T*>(v),       \
+                          static_cast<const T*>(ph), static_cast<const T*>(a), L, B,          \
+                          static_cast<T*>(A), static_cast<T*>(J), static_cast<T*>(C),         \
+                          static_cast<T*>(sv));                                               \
     }                                                                                          \
     int celerite_adjoint_elements_bwd_##SFX(                                                   \
         const void* u, const void* v, const void* ph, const void* a, const void* sv,          \
@@ -344,12 +280,13 @@ adjoint_factor_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
         const void* u, const void* v, const void* ph, const void* a, const void* y,           \
         const void* sh0, void* M, void* m, void* Qm, void* qv, void* q0, void* ld, void* mind, \
         void* sv, int L, int B, void* stream) {                                                \
-        return launch_factor_fwd(                                                              \
+        return launch_fwd(                                                                     \
+            adjoint_factor_fwd_kernel<T, 4>, adjoint_factor_fwd_kernel<T, 1>, B, stream,       \
             static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(ph),     \
             static_cast<const T*>(a), static_cast<const T*>(y), static_cast<const T*>(sh0), L, \
             B, static_cast<T*>(M), static_cast<T*>(m), static_cast<T*>(Qm),                    \
             static_cast<T*>(qv), static_cast<double*>(q0), static_cast<double*>(ld),           \
-            static_cast<T*>(mind), static_cast<T*>(sv), stream);                               \
+            static_cast<T*>(mind), static_cast<T*>(sv));                                       \
     }                                                                                          \
     int celerite_adjoint_factor_bwd_##SFX(                                                     \
         const void* u, const void* v, const void* ph, const void* a, const void* y,           \

@@ -1,9 +1,10 @@
-// Shared device code of the reversed sweeps (adjoint.cu's elements_bwd and
-// factor_bwd, onepass.cu's sweep_bwd, fused4_grad.cu's factor_bwd and
-// elem_bwd): the transposed steps, each split into a front and a back, and
-// the pipeline that runs the streamed reversed sweeps; also the copy of a
-// step's streams into shared memory that adjoint.cu's streamed factor_fwd
-// shares with them.
+// Shared device code of the streamed sweeps: the reversed sweeps (adjoint.cu's
+// elements_bwd and factor_bwd, onepass.cu's sweep_bwd, fused4_grad.cu's
+// factor_bwd and elem_bwd), their transposed steps, each split into a front
+// and a back, and the pipeline that runs the streamed reversed sweeps; the
+// forward sweeps (adjoint.cu's elements_fwd and factor_fwd, fused4_grad.cu's
+// factor_fwd), their steps and their ring of streams (at the end); and the
+// copy of a step's streams into shared memory that both kinds share.
 //
 // A group of G threads owns a lane, thread r row r (lanes_common.cuh).  A
 // step's front is what the step computes of its saves and streams alone:
@@ -26,7 +27,12 @@
 // kernel and read their own save layout: they run the front and the back of
 // each step one after the other in their own threads (factor_bwd_step,
 // elem_bwd_step).  The streamed sweeps run them in front warps and back
-// warps (bwd_ticks below).
+// warps (bwd_ticks below).  The forward sweeps run one step of the
+// recursion a tick in a group a lane, their streams copied ahead
+// (fwd_ticks); adjoint.cu's factor_fwd and fused4_grad.cu's factor_fwd take
+// the same step (factor_fwd_step), from a ring slot (RingStep<T, 0>) or
+// from the kernel's own lowering (LowStep), and the elements sweep shares
+// its Riccati front with them (riccati_fwd_front).
 
 #pragma once
 
@@ -616,5 +622,197 @@ static int launch_bwd(K kernel, size_t bytes, int B, void* stream, A... args) {
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((unsigned)((B + BWD_LB - 1) / BWD_LB));
     kernel<<<grid, BWD_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(args...);
+    return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The streamed forward sweeps (adjoint.cu's elements_fwd and factor_fwd,
+// fused4_grad.cu's factor_fwd): a block of W warps, a group of G threads a
+// lane (32 W / G lanes a block), thread r row r of the state.  Each group
+// copies its lane's streams FWD_AHEAD steps ahead into a ring in shared
+// memory (cp.async), so that a step never waits on device memory.  A
+// step's column sum (g = (Phi M)^T u, or uA = A^T (Phi u)) goes through the
+// group's tile, and w and the column sum reach every row through the
+// group's vector in shared memory (one __syncwarp each): one butterfly for
+// d (and one for z0), no broadcast shuffles, one reciprocal of d.
+// ---------------------------------------------------------------------------
+
+constexpr int FWD_AHEAD = 3;             // steps copied ahead of the step computed
+constexpr int FWD_RING = FWD_AHEAD + 2;  // those, the step's and the step before's
+
+// Row r's view of a step lowered in the kernel (fused4_grad.cu's
+// factor_fwd): u_j and phi_j gathered from the group into registers, and
+// the row's scalars, as RingStep<T, 0> views them in a ring slot.
+template <typename T>
+struct LowStep {
+    const T (&uv)[P];
+    const T (&pv)[P];
+    T ur, phr, vr, a, y;
+    __device__ __forceinline__ T u(int j) const { return uv[j]; }
+    __device__ __forceinline__ T ph(int j) const { return pv[j]; }
+};
+
+// A forward sweep's group: its lane (q in the block, l in the launch; a
+// dead group runs the last lane and writes nothing) and row, its ring
+// slots of NW words a step, its tile and its vector (w at wv, then the
+// column sum at gv).  The kernel declares the shared arrays, RING, TILES
+// and VECS words.
+template <typename T, int W, int NW>
+struct FwdCtx {
+    static constexpr int LB = 32 * W / G;
+    static constexpr int RING = FWD_RING * LB * NW, TILES = LB * P * TS, VECS = LB * 2 * P;
+    int q, r, l;
+    bool live;
+    T *ring, *tile, *wv, *gv;
+    __device__ __forceinline__ FwdCtx(int B, T* ring_, T* tiles, T* vecs) {
+        q = threadIdx.x / G;
+        r = threadIdx.x % G;
+        const int lane = blockIdx.x * LB + q;
+        live = lane < B;
+        l = live ? lane : B - 1;
+        ring = ring_;
+        tile = tiles + q * P * TS;
+        wv = vecs + q * 2 * P;
+        gv = wv + P;
+    }
+    __device__ __forceinline__ T* slot(int s) const {
+        return ring + ((s % FWD_RING) * LB + q) * NW;
+    }
+};
+
+// The sweep's ticks: copy(slot, s) issues the cp.async of step s into its
+// slot.  At step s the group commits the copy of step s + FWD_AHEAD, runs
+// save(s) (the step's input state to device memory), waits for step s's
+// words, syncs the warp and runs step(slot).
+template <typename T, int W, int NW, class Copy, class Save, class Step>
+__device__ __forceinline__ void fwd_ticks(const FwdCtx<T, W, NW>& c, int L, Copy&& copy,
+                                          Save&& save, Step&& step) {
+    for (int k = 0; k < FWD_AHEAD; ++k) {
+        if (k < L) copy(c.slot(k), k);
+        cp_async_commit();
+    }
+    for (int s = 0; s < L; ++s) {
+        if (s + FWD_AHEAD < L) copy(c.slot(s + FWD_AHEAD), s + FWD_AHEAD);
+        cp_async_commit();
+        save(s);
+        cp_async_wait<FWD_AHEAD>();
+        __syncwarp();
+        step(c.slot(s));
+    }
+}
+
+// The forward steps' Riccati front, row r (fused4._riccati): Sh <- S = Phi
+// Sh Phi, su = S u, d = a - u.su and w_r = (v_r - su) / d, which also goes
+// to the group's vector wv, for every row to read after the caller's next
+// __syncwarp (riccati_fwd_close).  Returns 1 / d; sets d and w_r.
+template <typename T, class In>
+__device__ __forceinline__ T riccati_fwd_front(int r, const In& in, T (&Sh)[P], T* wv, T& d,
+                                               T& wr) {
+    Acc4<T> sa;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        Sh[j] = in.phr * Sh[j] * in.ph(j);
+        sa.fma(j, Sh[j], in.u(j));
+    }
+    const T su = sa.sum();
+    d = in.a - group_sum(in.ur * su);
+    const T rd = T(1) / d;
+    wr = r < P ? (in.vr - su) * rd : T(0);
+    if (r < P) wv[r] = wr;
+    return rd;
+}
+
+// ... and its close, row r: Sh <- S + d w w^T, w from the group's vector.
+template <typename T>
+__device__ __forceinline__ void riccati_fwd_close(T d, T wr, const T* wv, T (&Sh)[P]) {
+    const T dw = d * wr;
+#pragma unroll
+    for (int j = 0; j < P; ++j) Sh[j] = Sh[j] + dw * wv[j];
+}
+
+// One step of the elements sweep (elem_value_step's arithmetic), row r:
+// the Riccati step, A <- Phi A - w uA^T and J <- J - uA uA^T / d with uA =
+// A^T (Phi u), a column sum through the group's tile.
+template <typename T, class In>
+__device__ __forceinline__ void elem_fwd_step(T* tile, T* wv, T* gv, int r, const In& in,
+                                              T (&Sh)[P], T (&A)[P], T (&J)[P]) {
+    T d, wr;
+    const T rd = riccati_fwd_front(r, in, Sh, wv, d, wr);
+    const T phr = in.phr, utr = phr * in.ur;
+    const T uAr = column_sum(tile, r, [&](int j) { return A[j] * utr; });
+    if (r < P) gv[r] = uAr;
+    riccati_fwd_close(d, wr, wv, Sh);
+    __syncwarp();
+    const T uArd = uAr * rd;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        const T uj = gv[j];
+        A[j] = phr * A[j] - wr * uj;
+        J[j] = J[j] - uArd * uj;
+    }
+}
+
+// One step of the seeded factor sweep (factor_value_step's arithmetic),
+// row r: the Riccati step, M <- Phi M - w g^T with g = (Phi M)^T u (a
+// column sum through the group's tile), m <- Phi m + w z0 with z0 = y - u
+// . Phi m, Qm <- Qm + g g^T / d, qv, the Kahan-summed quad and log-det and
+// the NaN-propagating minimum pivot (like torch.minimum); the scalar
+// statistics are kept alike in every thread of the group.
+template <typename T, class In>
+__device__ __forceinline__ void factor_fwd_step(T* tile, T* wv, T* gv, int r, const In& in,
+                                                T (&Sh)[P], T (&M)[P], T (&Qm)[P], T& mr,
+                                                T& qvr, Kahan<T>& q0, Kahan<T>& ld, T& mind) {
+    const T phr = in.phr, ur = in.ur, mh = phr * mr;
+    const T z0 = in.y - group_sum(ur * mh);
+    T d, wr;
+    const T rd = riccati_fwd_front(r, in, Sh, wv, d, wr);
+#pragma unroll
+    for (int j = 0; j < P; ++j) M[j] = phr * M[j];
+    const T gr = column_sum(tile, r, [&](int j) { return M[j] * ur; });
+    if (r < P) gv[r] = gr;
+    riccati_fwd_close(d, wr, wv, Sh);
+    __syncwarp();
+    const T grd = gr * rd;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        const T gj = gv[j];
+        M[j] = M[j] - wr * gj;
+        Qm[j] = Qm[j] + grd * gj;
+    }
+    mr = mh + wr * z0;
+    q0.add(z0 * z0 * rd);
+    ld.add(dlog(d));
+    qvr = qvr + (z0 * rd) * gr;
+    mind = (d < mind || d != d) ? d : mind;
+}
+
+// Warps a block of a forward sweep: four where that still gives every SM
+// of the card a block, else one.  adjoint.cu's factor_fwd takes four on E's
+// 16 chains (2048 lanes at G = 16: 256 blocks) and one on sampler_E's 4
+// chains (512 lanes: 256 blocks of 2 lanes); on those two plans two warps
+// were never faster than both (PERF.md).
+static inline int fwd_warps(int B) {
+    static int sms = 0;
+    if (sms == 0) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    constexpr int lb = 4 * 32 / G;
+    return (B + lb - 1) / lb >= sms ? 4 : 1;
+}
+
+// A forward sweep's launch on the caller's stream: k4, its four-warp
+// instantiation, or k1, its one-warp one, by fwd_warps.  Returns
+// cudaGetLastError().
+template <typename K, typename... A>
+static int launch_fwd(K k4, K k1, int B, void* stream, A... args) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int w = fwd_warps(B), lb = 32 * w / G;
+    const dim3 grid((unsigned)((B + lb - 1) / lb));
+    if (w == 4)
+        k4<<<grid, 128, 0, st>>>(args...);
+    else
+        k1<<<grid, 32, 0, st>>>(args...);
     return (int)cudaGetLastError();
 }

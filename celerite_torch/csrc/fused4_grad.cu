@@ -17,28 +17,33 @@
 // torch glue (celerite_torch/ops/fused4.py); cotangents and seeds that come
 // from the glue arrive in float64 and are rounded to T here on load.
 //
-// Design.  elem_fwd and factor_fwd: as in the primal, one thread owns one
-// lane and loops over its L steps with the P x P state in registers,
-// THREADS lanes a block.  The backward pair carries two or three P x P
-// adjoints beside two saved matrices, more than one thread's registers hold
-// (one thread a lane spilled 7.7 KB at P = 8 in float64), so each gives a
-// lane a group of G threads (the power of two at or above P; 16 at P =
-// 9..12), thread r owning row r of every P x P state, BLOCK threads a block,
-// two blocks an SM (no spills at P <= 12; registers and spills are in
-// PERF.md).  Their steps are the adjoint and one-pass transposes'
-// (factor_bwd_step, elem_bwd_step; adjoint_common.cuh): the front and the
-// back of each step run one after the other in the group's threads,
-// through a record, a tile and a vector a group in shared memory; the
-// constant cotangent (hQm, hJ) waits in a second tile.  Thread r lowers its
-// own column of each step (u_r, v_r, phi_r; the two rows of a complex pair
-// compute their shared exp and sincos each) and the group gathers u and
-// phi by shuffles; thread r reads row r of the step's saves.  Its
-// coefficients and its share of the coefficient cotangent are its column's
-// only, in shared memory (Col), and a pair's two rows are added at the end.
-// One coefficient row per segment of `seg` lanes.  The streams and saves
-// are stored with the lane fastest, step s of lane l at s * B + l and save
-// word q at (s * NSV + q) * B + l, so a warp reads and writes neighbouring
-// words.
+// Design.  elem_fwd: as in the primal, one thread owns one lane and loops
+// over its L steps with the P x P state in registers, THREADS lanes a
+// block.  The other three carry more state than one thread's registers
+// hold (one thread a lane spilled 7.7 KB at P = 8 in float64, and
+// factor_fwd 5.4 KB), so each gives a lane a group of G threads (the power
+// of two at or above P; 16 at P = 9..12), thread r owning row r of every P
+// x P state (no spills at P <= 12; registers and spills are in PERF.md).
+// Thread r lowers its own column of each step (u_r, v_r, phi_r; the two
+// rows of a complex pair compute their shared exp and sincos each) from its
+// coefficients in shared memory (Col), and the group gathers u and phi by
+// shuffles.  factor_fwd runs adjoint.cu's forward factor step
+// (factor_fwd_step; adjoint_common.cuh), its scalar streams copied three
+// steps ahead into a ring in shared memory (cp.async), in blocks of four
+// warps where that still gives every SM a block, else of one (the one-theta
+// plan's 512 lanes at P = 8: 128 blocks of 4 lanes); a four-warp block
+// writes each step's saves together from shared memory.  The backward pair,
+// BLOCK threads a block, two blocks an SM, runs the adjoint and one-pass
+// transposes' steps (factor_bwd_step, elem_bwd_step): the front and the
+// back of each step one after the other in the group's threads, through a
+// record, a tile and a vector a group in shared memory; the constant
+// cotangent (hQm, hJ) waits in a second tile.  Thread r reads row r of the
+// step's saves; its share of the coefficient cotangent is its column's
+// only, in shared memory beside its coefficients, and a pair's two rows are
+// added at the end.  One coefficient row per segment of `seg` lanes.  The
+// streams and saves are stored with the lane fastest, step s of lane l at s
+// * B + l and save word q at (s * NSV + q) * B + l, so a warp reads and
+// writes neighbouring words.
 //
 // Bound.  Bytes: the saves, 2P^2 + (2P^2 + P) words a point, are written
 // once and read once; at config[2] (N = 1e5, P = 8, float64) that is 211 MB
@@ -61,15 +66,6 @@ __device__ __forceinline__ void store_sq(T* __restrict__ p, int B, const T (&X)[
     for (int i = 0; i < P; ++i)
 #pragma unroll
         for (int j = 0; j < P; ++j) p[(size_t)(i * P + j) * B] = X[i][j];
-}
-
-// A float64 P x P operand from the glue, rounded to T.
-template <typename T>
-__device__ __forceinline__ void load_sq64(const double* __restrict__ p, int B, T (&X)[P][P]) {
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-        for (int j = 0; j < P; ++j) X[i][j] = static_cast<T>(p[(size_t)(i * P + j) * B]);
 }
 
 // ---------------------------------------------------------------------------
@@ -128,117 +124,7 @@ elem_fwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
 }
 
 // ---------------------------------------------------------------------------
-// factor_fwd: phase 1 from the float64 seed sh0 (P, P, B), with saves
-// [Sh_in, M_in, m_in] a step.  Outputs M, m, Qm, qv, mind in T and the
-// Kahan pairs q0, ld added in float64.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-factor_fwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
-                  const T* __restrict__ tl, const T* __restrict__ dt, const T* __restrict__ dg,
-                  const T* __restrict__ msk, const T* __restrict__ y, int L, int B, int jr,
-                  const double* __restrict__ sh0, T* __restrict__ M_out, T* __restrict__ m_out,
-                  T* __restrict__ Qm_out, T* __restrict__ qv_out, double* __restrict__ q0_out,
-                  double* __restrict__ ld_out, T* __restrict__ mind_out, T* __restrict__ sv) {
-    const int l = blockIdx.x * blockDim.x + threadIdx.x;
-    if (l >= B) return;
-    Coeffs<T> k;
-    load_coeffs(cf + (size_t)(l / seg) * (2 * P + 1), jr, k);
-
-    T Sh[P][P], M[P][P], Qm[P][P], mv[P], qv[P];
-    load_sq64(sh0 + l, B, Sh);
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            M[i][j] = i == j ? T(1) : T(0);
-            Qm[i][j] = T(0);
-        }
-        mv[i] = T(0);
-        qv[i] = T(0);
-    }
-    T q0 = T(0), cq0 = T(0), ld = T(0), cld = T(0);
-    T mind = T(INFINITY);
-
-    for (int s = 0; s < L; ++s) {
-        const size_t o = (size_t)s * B + l;
-        T* sp = sv + (size_t)s * NSV1 * B + l;
-        store_sq(sp, B, Sh);
-        store_sq(sp + (size_t)PP * B, B, M);
-#pragma unroll
-        for (int i = 0; i < P; ++i) sp[(size_t)(2 * PP + i) * B] = mv[i];
-
-        T u[P], v[P], ph[P], w[P], a;
-        lower_step(k, jr, t[o], tl[o], dt[o], dg[o], msk[o], u, v, ph, a);
-        const T yo = y[o];
-        const T d = riccati_step(Sh, u, v, ph, a, w);
-
-        T g[P];
-#pragma unroll
-        for (int i = 0; i < P; ++i)
-#pragma unroll
-            for (int j = 0; j < P; ++j) M[i][j] = ph[i] * M[i][j];
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            T acc = T(0);
-#pragma unroll
-            for (int i = 0; i < P; ++i) acc += M[i][j] * u[i];
-            g[j] = acc;
-        }
-#pragma unroll
-        for (int i = 0; i < P; ++i)
-#pragma unroll
-            for (int j = 0; j < P; ++j) M[i][j] = M[i][j] - w[i] * g[j];
-
-        T um = T(0);
-#pragma unroll
-        for (int i = 0; i < P; ++i) {
-            mv[i] = ph[i] * mv[i];
-            um += u[i] * mv[i];
-        }
-        const T z0 = yo - um;
-#pragma unroll
-        for (int i = 0; i < P; ++i) mv[i] = mv[i] + w[i] * z0;
-
-        // Kahan-compensated quad and log-det accumulators.
-        const T x1 = z0 * z0 / d - cq0;
-        const T t1 = q0 + x1;
-        cq0 = (t1 - q0) - x1;
-        q0 = t1;
-        const T x2 = dlog(d) - cld;
-        const T t2 = ld + x2;
-        cld = (t2 - ld) - x2;
-        ld = t2;
-
-        const T zd = z0 / d;
-#pragma unroll
-        for (int i = 0; i < P; ++i) qv[i] = qv[i] + zd * g[i];
-#pragma unroll
-        for (int i = 0; i < P; ++i)
-#pragma unroll
-            for (int j = 0; j < P; ++j) Qm[i][j] = Qm[i][j] + g[i] * (g[j] / d);
-        // NaN-propagating min, like torch.minimum / jnp.minimum.
-        mind = (d < mind || d != d) ? d : mind;
-    }
-
-    store_sq(M_out + l, B, M);
-    store_sq(Qm_out + l, B, Qm);
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-        m_out[(size_t)i * B + l] = mv[i];
-        qv_out[(size_t)i * B + l] = qv[i];
-    }
-    q0_out[l] = static_cast<double>(q0) + static_cast<double>(cq0);
-    ld_out[l] = static_cast<double>(ld) + static_cast<double>(cld);
-    mind_out[l] = mind;
-}
-
-// ---------------------------------------------------------------------------
-// factor_bwd: reversed phase 1, a group of G threads a lane.  Cotangents of
-// the outputs (float64): hM0, hm0 seed the sweep; hQm, hqv, hq0, hld are
-// constant through it.  Writes the per-lane coefficient rows hcf (C, B),
-// the data cotangent hy (L, B) and the seed cotangent hsh0 (P, P, B).
+// The coefficients a thread lowers, and the lowering of its row
 // ---------------------------------------------------------------------------
 
 // Column r's words: its coefficients (a column of Coeffs: a real column's
@@ -246,22 +132,23 @@ factor_fwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
 // then row r's share of the coefficient cotangent (a real column's; a
 // pair's row's terms, which the pair's first row adds up at the end; the
 // total's, alike in every thread).  They wait in shared memory, a word of
-// each a thread at [f * BLOCK + threadIdx.x], out of the sweep's registers.
+// each a thread at [f * S + threadIdx.x] (S threads a block), out of the sweep's registers.
 enum { CA, CB, CC, CD, CT, GA, GB, GC, GD, GT, NCOL };
 
 // kind: 0 a real column, 1 a pair's first column, 2 its second, -1 a
 // padding row.
-template <typename T>
+template <typename T, int S = BLOCK>
 struct Col {
     T* w;
     int kind;
-    __device__ __forceinline__ T& operator[](int f) const { return w[f * BLOCK]; }
+    __device__ __forceinline__ T& operator[](int f) const { return w[f * S]; }
 };
 
-template <typename T>
-__device__ __forceinline__ Col<T> load_col(T* cols, const T* __restrict__ cf, int jr, int r) {
+// A block of S threads: thread r's column of a lane's coefficient row cf.
+template <typename T, int S = BLOCK>
+__device__ __forceinline__ Col<T, S> load_col(T* cols, const T* __restrict__ cf, int jr, int r) {
     const int jc = (P - jr) / 2;
-    Col<T> k{cols + threadIdx.x, -1};
+    Col<T, S> k{cols + threadIdx.x, -1};
 #pragma unroll
     for (int f = 0; f < NCOL; ++f) k[f] = T(0);
     if (r < jr) {
@@ -282,8 +169,8 @@ __device__ __forceinline__ Col<T> load_col(T* cols, const T* __restrict__ cf, in
 
 // Row r of lower_step: u_r, v_r, phi_r, and a pair's (cos, sin) * m (cm,
 // sm), which its coefficient chain takes; zeros on a padding row.
-template <typename T>
-__device__ __forceinline__ void lower_row(const Col<T>& k, T t, T tl, T dt, T m, T& u, T& v,
+template <typename T, int S>
+__device__ __forceinline__ void lower_row(const Col<T, S>& k, T t, T tl, T dt, T m, T& u, T& v,
                                           T& ph, T& cm, T& sm) {
     cm = sm = T(0);
     if (k.kind == 0) {
@@ -298,6 +185,122 @@ __device__ __forceinline__ void lower_row(const Col<T>& k, T t, T tl, T dt, T m,
         u = v = ph = T(0);
     }
 }
+
+// ---------------------------------------------------------------------------
+// factor_fwd: phase 1 from the float64 seed sh0 (P, P, B), with saves
+// [Sh_in, M_in, m_in] a step, streamed (adjoint_common.cuh's forward
+// sweeps): a group of G threads a lane, thread r row r of Sh, M and Qm and
+// entry r of m and qv.  Each group copies its lane's scalar streams
+// FWD_AHEAD steps ahead into a ring in shared memory (cp.async); thread r
+// lowers its own column of the step from its coefficients in shared memory
+// and the group gathers u and phi by shuffles; the step is adjoint.cu's
+// factor_fwd's (factor_fwd_step).  Outputs M, m, Qm, qv, mind in T and the
+// Kahan pairs q0, ld added in float64, written by thread 0.
+// ---------------------------------------------------------------------------
+
+// A lane's scalar streams of a step in its ring slot.
+enum { ZT, ZTL, ZDT, ZDG, ZMK, ZY, NZ };
+
+template <typename T, int W>
+__global__ void __launch_bounds__(32 * W)
+factor_fwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
+                  const T* __restrict__ tl, const T* __restrict__ dt, const T* __restrict__ dg,
+                  const T* __restrict__ msk, const T* __restrict__ y, int L, int B, int jr,
+                  const double* __restrict__ sh0, T* __restrict__ M_out, T* __restrict__ m_out,
+                  T* __restrict__ Qm_out, T* __restrict__ qv_out, double* __restrict__ q0_out,
+                  double* __restrict__ ld_out, T* __restrict__ mind_out, T* __restrict__ sv) {
+    using Ctx = FwdCtx<T, W, NZ>;
+    // Four-warp blocks pass each step's saves through shared memory (NSV1
+    // words of LB lanes, a word's lanes padded to LB + 1) and the block
+    // writes each word's LB lanes together, where a warp's own 32 / G lanes
+    // fill half of each 32-byte sector in float32 (C's 16 chains: 2.54 ->
+    // 0.60 ms in float32, 1.19 -> 0.84 in float64).  One-warp blocks write
+    // their own: the two barriers a step took 1.8x as long at one theta.
+    constexpr bool STAGE = W == 4;
+    constexpr int LB = Ctx::LB, LBP = LB + 1;
+    __shared__ T ring[Ctx::RING], tiles[Ctx::TILES], vecs[Ctx::VECS], cols[NCOL * 32 * W],
+        stage[STAGE ? NSV1 * LBP : 1];
+    const Ctx c(B, ring, tiles, vecs);
+    const int r = c.r, l = c.l;
+    const Col<T, 32 * W> k =
+        load_col<T, 32 * W>(cols, cf + (size_t)(l / seg) * (2 * P + 1), jr, r);
+    T Sh[P], M[P], Qm[P];
+    get_mat(sh0, r, B, l, Sh);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        M[j] = j == r ? T(1) : T(0);
+        Qm[j] = T(0);
+    }
+    T mr = T(0), qvr = T(0), mind = T(INFINITY);
+    Kahan<T> q0{T(0), T(0)}, ld{T(0), T(0)};
+    fwd_ticks(
+        c, L,
+        [&](T* st, int s) {
+            if (r != 0) return;
+            const size_t o = (size_t)s * B + l;
+            cp_async(st + ZT, t + o);
+            cp_async(st + ZTL, tl + o);
+            cp_async(st + ZDT, dt + o);
+            cp_async(st + ZDG, dg + o);
+            cp_async(st + ZMK, msk + o);
+            cp_async(st + ZY, y + o);
+        },
+        [&](int s) {
+            if (STAGE) {
+                __syncthreads();  // the block's write of step s - 1 has read the stage
+                if (r < P) {
+#pragma unroll
+                    for (int j = 0; j < P; ++j) {
+                        stage[(r * P + j) * LBP + c.q] = Sh[j];
+                        stage[(PP + r * P + j) * LBP + c.q] = M[j];
+                    }
+                    stage[(2 * PP + r) * LBP + c.q] = mr;
+                }
+                __syncthreads();
+                const int l0 = blockIdx.x * LB;
+                for (int i = threadIdx.x; i < NSV1 * LB; i += 32 * W) {
+                    const int w = i / LB, lk = i % LB;
+                    if (l0 + lk < B)
+                        sv[((size_t)s * NSV1 + w) * B + l0 + lk] = stage[w * LBP + lk];
+                }
+            } else if (c.live && r < P) {
+                T* sp = sv + (size_t)s * NSV1 * B + l;
+#pragma unroll
+                for (int j = 0; j < P; ++j) {
+                    sp[(size_t)(r * P + j) * B] = Sh[j];
+                    sp[(size_t)(PP + r * P + j) * B] = M[j];
+                }
+                sp[(size_t)(2 * PP + r) * B] = mr;
+            }
+        },
+        [&](const T* st) {
+            const T ms = st[ZMK];
+            T ur, vr, phr, cm, sm, uv[P], pv[P];
+            lower_row(k, st[ZT], st[ZTL], st[ZDT], ms, ur, vr, phr, cm, sm);
+            gather(ur, uv);
+            gather(phr, pv);
+            const T a = ms * (st[ZDG] + k[CT]) + (T(1) - ms);
+            factor_fwd_step(c.tile, c.wv, c.gv, r, LowStep<T>{uv, pv, ur, phr, vr, a, st[ZY]}, Sh,
+                            M, Qm, mr, qvr, q0, ld, mind);
+        });
+    if (!c.live || r >= P) return;
+    put_mat(M_out, r, B, l, M);
+    put_mat(Qm_out, r, B, l, Qm);
+    m_out[(size_t)r * B + l] = mr;
+    qv_out[(size_t)r * B + l] = qvr;
+    if (r == 0) {
+        q0_out[l] = q0.total();
+        ld_out[l] = ld.total();
+        mind_out[l] = mind;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// factor_bwd: reversed phase 1, a group of G threads a lane.  Cotangents of
+// the outputs (float64): hM0, hm0 seed the sweep; hQm, hqv, hq0, hld are
+// constant through it.  Writes the per-lane coefficient rows hcf (C, B),
+// the data cotangent hy (L, B) and the seed cotangent hsh0 (P, P, B).
+// ---------------------------------------------------------------------------
 
 // Row r of chain_step: the step's stream cotangents (hu_r, hv_r, hph_r,
 // ha) onto the coefficients.  A pair's cm, sm are its columns of v and its
@@ -499,14 +502,14 @@ static inline dim3 grid_for(int B) { return dim3((B + THREADS - 1) / THREADS); }
         const void* cf, const void* t, const void* tl, const void* dt, const void* dg,           \
         const void* m, const void* y, const void* sh0, void* M, void* mv, void* Qm, void* qv,    \
         void* q0, void* ld, void* mind, void* sv, int L, int B, int jr, int seg, void* stream) { \
-        factor_fwd_kernel<T><<<grid_for(B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(  \
+        return launch_fwd(                                                                       \
+            factor_fwd_kernel<T, 4>, factor_fwd_kernel<T, 1>, B, stream,                         \
             static_cast<const T*>(cf), seg, static_cast<const T*>(t),                            \
             static_cast<const T*>(tl), static_cast<const T*>(dt), static_cast<const T*>(dg),     \
             static_cast<const T*>(m), static_cast<const T*>(y), L, B, jr,                        \
             static_cast<const double*>(sh0), static_cast<T*>(M), static_cast<T*>(mv),            \
             static_cast<T*>(Qm), static_cast<T*>(qv), static_cast<double*>(q0),                  \
             static_cast<double*>(ld), static_cast<T*>(mind), static_cast<T*>(sv));               \
-        return (int)cudaGetLastError();                                                          \
     }                                                                                            \
     int celerite_fused4_factor_bwd_##SFX(                                                        \
         const void* cf, const void* t, const void* tl, const void* dt, const void* dg,           \

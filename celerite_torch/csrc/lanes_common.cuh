@@ -1,22 +1,23 @@
 // Shared device code of the kernels on pre-lowered (L, P, B) streams
 // (adjoint.cu, pallas_solver.cu, fused.cu, tangent.cu, onepass.cu; and
-// fused4_grad.cu's factor_bwd and elem_bwd, which lower in the kernel),
-// padded widths 1..16.
+// fused4_grad.cu's gradient sweeps, which lower in the kernel), padded
+// widths 1..16.
 //
 // A group of G threads (the power of two at or above P; fused4_common.cuh)
 // owns one lane, thread r row r of every P x P state, so a thread holds a
 // few P-vectors; rows r >= P are padding that holds zeros.  Sums over rows
-// are xor-shuffle reductions within the group (group_sum).  Every thread
-// reads the step's stream vectors (u, ph) whole; they are (L, P, B), lane
-// fastest.  Per-lane outputs are (P, P, B) and (P, B).
+// are xor-shuffle reductions within the group (group_sum).  The streams
+// are (L, P, B), lane fastest; per-lane outputs are (P, P, B) and (P, B).
 //
-// Also the elements sweep these sources run: each lane's Riccati element
-// (A, J, C) from a zero seed, with per-step saves in adjoint.cu and
-// without in pallas_solver.cu and fused.cu; and the seeded factor sweep,
-// without saves in fused.cu, and from a zero seed with its end state in
-// onepass.cu.  Each sweep's step is a value step
+// Also the sweeps whose every thread reads the step's stream vectors (u,
+// ph) whole: the elements sweep, each lane's Riccati element (A, J, C)
+// from a zero seed, without saves (pallas_solver.cu, fused.cu); and the
+// seeded factor sweep, without saves in fused.cu, and from a zero seed with
+// its end state in onepass.cu.  Each sweep's step is a value step
 // (elem_value_step, factor_value_step), which tangent.cu's sweeps with
 // tangents also take, there filling the record their tangent steps read.
+// adjoint.cu's elements_fwd and factor_fwd and fused4_grad.cu's factor_fwd
+// stream their steps through shared memory instead (adjoint_common.cuh).
 
 #pragma once
 
@@ -234,17 +235,16 @@ __device__ __forceinline__ void factor_value_step(const T (&uv)[P], const T (&pv
     }
 }
 
-// Each lane's Riccati element (A, J, C) from a zero seed (the Pallas
-// elements kernels, adjoint.py:63 and pallas_solver.py:62): C by the
-// zero-seeded factor recursion, A as a product of closed-loop transitions
-// (I - w u^T) Phi, J as a sum of rank-1 terms.  With SAVE, each step's
-// input [Sh, A] goes to the save stream sv (NSV0 words a lane and step).
-template <bool SAVE, typename T>
+// Each lane's Riccati element (A, J, C) from a zero seed, without saves
+// (the Pallas elements kernels pallas_solver.py:62 and fused.py:130's phase
+// 0): C by the zero-seeded factor recursion, A as a product of closed-loop
+// transitions (I - w u^T) Phi, J as a sum of rank-1 terms.
+template <typename T>
 __device__ __forceinline__ void elements_sweep(const T* __restrict__ u, const T* __restrict__ v,
                                                const T* __restrict__ ph,
                                                const T* __restrict__ a, int L, int B,
                                                T* __restrict__ A_out, T* __restrict__ J_out,
-                                               T* __restrict__ C_out, T* __restrict__ sv) {
+                                               T* __restrict__ C_out) {
     const Lane ln = lane_of(B);
     const int l = ln.l, r = ln.r;
     T Sh[P], A[P], J[P];
@@ -254,11 +254,6 @@ __device__ __forceinline__ void elements_sweep(const T* __restrict__ u, const T*
         A[j] = j == r ? T(1) : T(0);
     }
     for (int s = 0; s < L; ++s) {
-        if (SAVE && ln.live) {
-            T* svs = sv + ((size_t)s * B + l) * NSV0;
-            save_row(svs, r, Sh);
-            save_row(svs + PP, r, A);
-        }
         T uv[P], pv[P];
         load_vec(u, s, B, l, uv);
         load_vec(ph, s, B, l, pv);
@@ -276,8 +271,7 @@ __device__ __forceinline__ void elements_sweep(const T* __restrict__ u, const T*
 // of fused.py:130 (fused.cu).  A null sh0 is the zero seed and a non-null
 // C_out takes the end state Sh (P, P, B): the one-pass sweeps onepass.py:111
 // and, with SAVE (each step's input [Sh, M, m] to the save stream sv, NSV1
-// words a lane and step), :162 (onepass.cu).  adjoint.cu's factor_fwd
-// (adjoint.py:188) streams the same step through shared memory instead.
+// words a lane and step), :162 (onepass.cu).
 template <bool SAVE, typename T>
 __device__ __forceinline__ void factor_sweep(const T* __restrict__ u, const T* __restrict__ v,
                                              const T* __restrict__ ph,

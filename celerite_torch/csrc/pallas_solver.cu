@@ -53,7 +53,7 @@ __global__ void __launch_bounds__(BLOCK)
 solver_elements_kernel(const T* __restrict__ u, const T* __restrict__ v,
                        const T* __restrict__ ph, const T* __restrict__ a, int L, int B,
                        T* __restrict__ A_out, T* __restrict__ J_out, T* __restrict__ C_out) {
-    elements_sweep<false>(u, v, ph, a, L, B, A_out, J_out, C_out, static_cast<T*>(nullptr));
+    elements_sweep(u, v, ph, a, L, B, A_out, J_out, C_out);
 }
 
 // ---------------------------------------------------------------------------

@@ -2887,11 +2887,12 @@ def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
                        onepass_rows):
     """The kernels redesigned for this card and those sharing their code,
     with the card's name and power limit: ptxas's registers and spill bytes
-    of each at every width built, and their timings on each plan (row 5 on
-    C's 1- and 16-chain plans, and row 3, which runs row 9's transposed
-    step in row 5's layout; row 18 on G's plans, with its four launches'
-    split; rows 16-17 on E's model; rows 9, 10 and 11 on E's plans; row
-    21, which shares row 11's sweep and row 5's transposed step)."""
+    of each at every width built, and their timings on each plan (rows 5
+    and 4 on C's 1- and 16-chain plans, row 3, which runs row 9's
+    transposed step in row 5's layout, and row 4, which runs row 10's
+    step; row 18 on G's plans, with its four launches' split; rows 16-17
+    on E's model; rows 8, 9, 10 and 11 on E's plans; row 21, which shares
+    row 11's sweep and row 5's transposed step)."""
     def regs(src, prefix):
         return {p: {k: v for k, v in kerns.items() if k.startswith(prefix)}
                 for p, kerns in ptxas[src].items()}
@@ -2904,12 +2905,19 @@ def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
         "elem_bwd": {"ptxas": regs("fused4_grad.cu", "elem_bwd"),
                      "chains": {nc: rows["elem_bwd"]
                                 for nc, rows in grad_rows.items()}},
+        "factor_fwd": {"ptxas": regs("fused4_grad.cu", "factor_fwd"),
+                       "chains": {nc: rows["factor_fwd"]
+                                  for nc, rows in grad_rows.items()}},
         "jac": {"ptxas": regs("tangent.cu", "jac_"),
                 "plans": {k: v["jac"] for k, v in tangent_rows.items()
                           if "jac" in v}},
         "split_pair": {"ptxas": regs("tangent.cu", "tangent_"),
                        "plans": {k: v for k, v in tangent_rows.items()
                                  if "elements_jvp" in v}},
+        "adjoint_elements_fwd": {
+            "ptxas": regs("adjoint.cu", "adjoint_elements_fwd"),
+            "chains": {nc: rows["elements_fwd"]
+                       for nc, rows in adj_rows.items()}},
         "adjoint_elements_bwd": {
             "ptxas": regs("adjoint.cu", "adjoint_elements_bwd"),
             "chains": {nc: rows["elements_bwd"]

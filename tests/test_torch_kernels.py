@@ -220,8 +220,9 @@ def _first_lanes(plan, b):
 def test_grad_kernels_odd_shapes(jr, jc, vals, shape, dtype, cuda_device):
     """The gradient kernels at every padded width 1-12 on 12 lanes, which
     no block of factor_bwd's or elem_bwd's divides (128 / G lanes, G
-    threads a lane: the last block runs dead lanes), and on 16 lanes of one
-    step each."""
+    threads a lane: the last block runs dead lanes; factor_fwd's one-warp
+    blocks of 32 / G lanes leave dead lanes at P <= 4), and on 16 lanes of
+    one step each, fewer steps than factor_fwd's ring holds."""
     if shape == "dead_lanes":
         t, y, yerr = make_data(1499, seed=9, t_max=150.0)
         plan = _first_lanes(lanes4.make_plan4(
@@ -252,6 +253,26 @@ def test_grad_kernels_chain_folded_and_segments(dtype, cuda_device):
     plan = lanes4.make_plan4(t, y, yerr**2, 64, dtype=dtype,
                              device=cuda_device)
     _check_grad_kernels(cf, plan, jr, jc, rtol, seg=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [512, 8192])
+@pytest.mark.parametrize("cut", [0, 2])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_grad_kernels_block_widths(lanes, cut, dtype, cuda_device):
+    """factor_fwd's two block widths at P = 8: 512 lanes (main path C's
+    one-theta plan) take blocks of one warp, since blocks of four would
+    leave most of an H100's 132 SMs without one, and 8192 lanes (its
+    16-chain plan) blocks of four; with ``cut`` lanes fewer the last block
+    runs dead lanes.  Six steps a lane."""
+    jr, jc, vals = CASES[3]
+    n = 6 * lanes - 5
+    t, y, yerr = make_data(n, seed=12, t_max=n / 10.0)
+    plan = _first_lanes(lanes4.make_plan4(t, y, yerr**2, lanes, dtype=dtype,
+                                          device=cuda_device), lanes - cut)
+    cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device)
+    _check_grad_kernels(cf, plan, jr, jc,
+                        1e-10 if dtype == torch.float64 else GRAD_F32_RTOL)
 
 
 @pytest.mark.cuda
@@ -365,9 +386,9 @@ def test_adjoint_kernels_match_plain(width, dtype, n_chain, cuda_device):
     """Each of the four adjoint kernels equals its plain version on the
     same streams, every output: 1e-10 in float64, ADJ_F32_RTOL in
     float32; one chain, and 4, 16 and 32 chains folded onto the lanes
-    (64 lanes a chain: at P = 13-16 factor_fwd takes blocks of one warp
-    up to 1024 lanes and of four at 2048 on an H100's 132 SMs); groups of
-    G = 2, 8 and 16 threads a lane."""
+    (64 lanes a chain: at P = 13-16 elements_fwd and factor_fwd take
+    blocks of one warp up to 1024 lanes and of four at 2048 on an H100's
+    132 SMs); groups of G = 2, 8 and 16 threads a lane."""
     streams = _wide_streams(width, dtype, cuda_device, n_chain)
     errs = compare_adjoint_kernels(*streams, seg=64)
     rtol = 1e-10 if dtype == torch.float64 else ADJ_F32_RTOL
@@ -381,7 +402,7 @@ def test_adjoint_kernels_match_plain(width, dtype, n_chain, cuda_device):
 @pytest.mark.parametrize("shape", ["dead_lanes", "one_step", "short",
                                    "one_lane"])
 def test_adjoint_kernels_odd_shapes(width, dtype, shape, cuda_device):
-    """The adjoint kernels on lane counts that no backward or factor_fwd
+    """The adjoint kernels on lane counts that no backward or forward
     block divides (32 / G lanes a block: its last block runs dead lanes)
     and on lanes shorter than the kernels' rings of steps: 63 lanes of 65
     steps, 7 lanes of one step, 5 lanes of three steps, one lane of 17

@@ -1,41 +1,47 @@
 #!/usr/bin/env python
-"""Time one tree's kernels of rows 3, 5, 9-11, 16-18 and 21 (PERF.md
+"""Time one tree's kernels of rows 3-5, 8-12, 15-18 and 21 (PERF.md
 section 6) on the plans chip_smoke.py times them on, so that two trees can
 be compared on one card.
 
 Usage (on a machine with an NVIDIA H100), from the root of a checkout:
 
-    python3 tools/kernel_ab.py [--tree DIR] [--rows 3,10]
+    python3 tools/kernel_ab.py [--tree DIR] [--rows 4,8]
 
 ``DIR`` (default: this checkout) is the root of a tree whose
 ``celerite_torch`` and ``chip_smoke.py`` are imported; an older commit
 unpacked with ``git archive`` into a git-ignored directory (``build/``)
 serves.  Run the trees in turns in one command (old, new, new, old) to
-compare them on one card.  ``--rows`` times only the rows named (3, 5, 9,
-10, 11, 16, 17, 18, 21; 9-11 run together, as do 16-17 and 3 and 5).
+compare them on one card.  ``--rows`` times only the rows named (3, 4,
+5, 8, 9, 10, 11, 12, 15, 16, 17, 18, 21; 3-5 build together, as do 8-11
+and 16-17).
 
 Builds what the rows take of ``fused4_grad.cu`` at P = 8, ``tangent.cu``
-at 8 and 16, ``adjoint.cu`` at 13 and 16 and ``onepass.cu`` at 8, and
-prints one JSON line a measurement, each with the tree, the card's name
-and power limit (nvidia-smi) and ptxas's registers and spill bytes of the
-kernels timed:
+at 8 and 16, ``adjoint.cu`` at 13 and 16, ``pallas_solver.cu`` at 16,
+``fused.cu`` and ``onepass.cu`` at 8, and prints one JSON line a
+measurement, each with the tree, the card's name and power limit
+(nvidia-smi) and ptxas's registers and spill bytes of the kernels timed:
 
-- ``row5`` and ``row3``: fused4 ``factor_bwd`` and ``elem_bwd`` on main
-  path C's 16-chain batch plan (config[2], N = 1e5, 16 x 512 lanes of 196
-  steps), float64 and float32;
+- ``row5``, ``row3`` and ``row4``: fused4 ``factor_bwd``, ``elem_bwd`` and
+  ``factor_fwd`` on main path C's 16-chain batch plan (config[2], N = 1e5,
+  16 x 512 lanes of 196 steps), and ``row4`` also on its one-theta plan
+  (512 lanes), float64 and float32;
 - ``row18``: the tangent route's ``jac`` call on sampler_G's 4-chain plan
   (4 x 256 lanes of 391 steps, T = 7) and on main path G's 16-chain
   batch plan, float64, with the device time of each of its four launches
   from torch.profiler;
 - ``row16_17``: the split pair (``elements_jvp``, ``factor_jvp``) on main
   path G's folded batch plan of E's model (P = 16, T = 13), float64;
-- ``row9``, ``row10`` and ``row11``: the adjoint ``elements_bwd``,
-  ``factor_fwd`` and ``factor_bwd`` on sampler_E's 4-chain plan and on
-  main path E's 16-chain batch plan (E's model, P = 16, 128 lanes a chain
-  of 782 steps), float64 and float32, with ptxas's figures at P = 13 and
-  16 and, for rows 9 and 11, the launch's shape (threads and lanes a
-  block, dynamic shared memory, blocks an SM) where the tree's
-  ``chip_smoke.adjoint_bwd_layout`` gives it;
+- ``row8``, ``row9``, ``row10`` and ``row11``: the adjoint
+  ``elements_fwd``, ``elements_bwd``, ``factor_fwd`` and ``factor_bwd`` on
+  sampler_E's 4-chain plan and on main path E's 16-chain batch plan (E's
+  model, P = 16, 128 lanes a chain of 782 steps), float64 and float32,
+  with ptxas's figures at P = 13 and 16 and, for rows 9 and 11, the
+  launch's shape (threads and lanes a block, dynamic shared memory, blocks
+  an SM) where the tree's ``chip_smoke.adjoint_bwd_layout`` gives it;
+- ``row12``: the three-pass ``elements`` on main path F's value plan of
+  E's model (one theta, P = 16), float64;
+- ``row15``: the single-sweep kernel on main path G's value plan of
+  config[2] (one theta, P = 8), float64;
 - ``row21``: the one-pass ``sweep_bwd`` on main path H's config[2] plan,
   float64.
 
@@ -53,7 +59,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=".",
                     help="root of the tree whose celerite_torch is timed")
-    ap.add_argument("--rows", default="3,5,9,10,11,16,17,18,21",
+    ap.add_argument("--rows", default="3,4,5,8,9,10,11,12,15,16,17,18,21",
                     help="comma-separated rows to time")
     args = ap.parse_args()
     rows = {int(r) for r in args.rows.split(",")}
@@ -66,6 +72,7 @@ def main():
     import celerite_torch
     import chip_smoke as cs
     from celerite_torch import _build, terms
+    from celerite_torch.ops import fused, pallas_solver
     from celerite_torch.testing import config2_kernel
 
     if not torch.cuda.is_available():
@@ -78,9 +85,12 @@ def main():
     smi = cs.smi_name_power()
     t0 = time.perf_counter()
     jobs = [job for job, of in (
-        (("fused4_grad.cu", 8), {3, 5}), (("tangent.cu", 8), {18}),
-        (("tangent.cu", 16), {16, 17}), (("adjoint.cu", 13), {9, 10, 11}),
-        (("adjoint.cu", 16), {9, 10, 11}), (("onepass.cu", 8), {21}))
+        (("fused4_grad.cu", 8), {3, 4, 5}), (("tangent.cu", 8), {18}),
+        (("tangent.cu", 16), {16, 17}),
+        (("adjoint.cu", 13), {8, 9, 10, 11}),
+        (("adjoint.cu", 16), {8, 9, 10, 11}),
+        (("pallas_solver.cu", 16), {12}), (("fused.cu", 8), {15}),
+        (("onepass.cu", 8), {21}))
         if rows & of]
     paths = _build.build([(s, {"CELERITE_P": p}) for s, p in jobs])
     ptxas = {"{0}:{1}".format(s, p): cs.ptxas_summary(
@@ -113,41 +123,46 @@ def main():
     theta = torch.as_tensor(gp.get_parameter_vector(), device=dev)
     thetas = cs.path_c_thetas(theta, dev)
 
-    # Rows 5 and 3 on C's 16-chain plan.
+    # Rows 5, 3 and 4 on C's 16-chain plan, row 4 also on its one-theta
+    # plan.
     nc = cs.SAMPLER_CHAINS
     cfs = torch.stack([cs.packed_cf(gp, th) for th in thetas[:nc]])
-    for dt in (torch.float64, torch.float32) if rows & {3, 5} else ():
+    for dt in (torch.float64, torch.float32) if rows & {3, 4, 5} else ():
         lp = gp.build_logprob(t, y, yerr=yerr, log_prior=prior, dtype=dt)
-        plan = lp.loglik.value_ok_grad_batch.folded_plan(nc)
-        calls = cs.grad_kernel_calls(cfs.to(dt), plan, pr, pc)
-        for row, name in ((5, "factor_bwd"), (3, "elem_bwd")):
-            if row in rows:
-                emit("row{0}".format(row), kernel="fused4 " + name,
-                     dtype=str(dt)[6:], chains=nc, lanes=plan.t.shape[1],
-                     steps=plan.t.shape[0],
-                     ms=cs.sync_time_ms(calls[name][0], reps=20),
-                     ptxas=pick("fused4_grad.cu", 8, name))
-        del lp, plan, calls
-        torch.cuda.empty_cache()
+        for ncc in (nc, 1) if 4 in rows else (nc,):
+            plan = lp.loglik.value_ok_grad_batch.folded_plan(ncc)
+            cf = cfs if ncc > 1 else cs.packed_cf(gp, theta)
+            calls = cs.grad_kernel_calls(cf.to(dt), plan, pr, pc)
+            for row, name in ((5, "factor_bwd"), (3, "elem_bwd"),
+                              (4, "factor_fwd")):
+                if row in rows and (ncc > 1 or row == 4):
+                    emit("row{0}".format(row), kernel="fused4 " + name,
+                         dtype=str(dt)[6:], chains=ncc,
+                         lanes=plan.t.shape[1], steps=plan.t.shape[0],
+                         ms=cs.sync_time_ms(calls[name][0], reps=20),
+                         ptxas=pick("fused4_grad.cu", 8, name))
+            del plan, calls
+            torch.cuda.empty_cache()
+        del lp
     gpe = celerite_torch.GP(config2_kernel(terms, modes=3))
-    thetase = cs.path_c_thetas(
-        torch.as_tensor(gpe.get_parameter_vector(), device=dev), dev)
+    thetae = torch.as_tensor(gpe.get_parameter_vector(), device=dev)
+    thetase = cs.path_c_thetas(thetae, dev)
     if 18 in rows:
         time_row18(cs, gp, t, y, yerr, prior, thetas, emit, pick)
     if rows & {16, 17}:
         time_rows16_17(cs, gpe, t, y, yerr, prior, thetase, emit, pick)
 
-    # Rows 9-11 on sampler_E's 4-chain plan and E's 16-chain plan.
+    # Rows 8-11 on sampler_E's 4-chain plan and E's 16-chain plan.
     layout = getattr(cs, "adjoint_bwd_layout", None)
-    for dt in (torch.float64, torch.float32) if rows & {9, 10, 11} else ():
+    for dt in (torch.float64, torch.float32) if rows & {8, 9, 10, 11} else ():
         lpe = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior, dtype=dt)
         for nce in (cs.SAMPLER_E_CHAINS, cs.SAMPLER_CHAINS):
             plan = lpe.loglik.value_ok_grad_batch.folded_plan(nce)
             streams = cs.lane_streams(gpe, plan, thetase[:nce])
             calls = cs.adjoint_kernel_calls(streams,
                                             streams[0].shape[-1] // nce)
-            for row, name in ((9, "elements_bwd"), (10, "factor_fwd"),
-                              (11, "factor_bwd")):
+            for row, name in ((8, "elements_fwd"), (9, "elements_bwd"),
+                              (10, "factor_fwd"), (11, "factor_bwd")):
                 if row not in rows:
                     continue
                 emit("row{0}".format(row), kernel="adjoint " + name,
@@ -156,11 +171,34 @@ def main():
                      ms=cs.sync_time_ms(calls[name][0], reps=10),
                      ptxas={p: pick("adjoint.cu", p, "adjoint_" + name)
                             for p in (13, 16)},
-                     layout=None if layout is None or row == 10
+                     layout=None if layout is None or row in (8, 10)
                      else layout(name, 16, dt))
             del plan, streams, calls
             torch.cuda.empty_cache()
         del lpe
+
+    # Row 12 on F's value plan of E's model, row 15 on G's of config[2].
+    if 12 in rows:
+        lpe = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior,
+                                dtype=torch.float64)
+        s = cs.lane_streams(gpe, lpe.loglik.value_plan, thetae)
+        emit("row12", kernel="pallas_solver elements", dtype="float64",
+             lanes=s[0].shape[-1], steps=s[0].shape[0],
+             ms=cs.sync_time_ms(lambda: pallas_solver.elements_cuda(*s[:4]),
+                                reps=10),
+             ptxas=pick("pallas_solver.cu", 16, "solver_elements"))
+        del lpe, s
+    if 15 in rows:
+        lpg = gp.build_logprob(t, y, yerr=yerr, log_prior=prior,
+                               dtype=torch.float64, fast_grad="tangent")
+        s = cs.lane_streams(gp, lpg.loglik.plan, theta)
+        b = s[0].shape[-1]
+        emit("row15", kernel="fused kernel", dtype="float64", lanes=b,
+             steps=s[0].shape[0],
+             ms=cs.sync_time_ms(lambda: fused.kernel_cuda(*s, b), reps=10),
+             ptxas=pick("fused.cu", 8, "fused_"))
+        del lpg, s
+    torch.cuda.empty_cache()
 
     # Row 21 on H's config[2] plan.
     if 21 in rows:
