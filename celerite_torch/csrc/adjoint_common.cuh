@@ -3,7 +3,7 @@
 // factor_bwd and elem_bwd), their transposed steps, each split into a front
 // and a back, and the pipeline that runs the streamed reversed sweeps; the
 // forward sweeps (adjoint.cu's elements_fwd and factor_fwd, fused4_grad.cu's
-// factor_fwd), their steps and their ring of streams (at the end); and the
+// elem_fwd and factor_fwd), their steps and their ring of streams (at the end); and the
 // copy of a step's streams into shared memory that both kinds share.
 //
 // A group of G threads owns a lane, thread r row r (lanes_common.cuh).  A
@@ -30,9 +30,11 @@
 // warps (bwd_ticks below).  The forward sweeps run one step of the
 // recursion a tick in a group a lane, their streams copied ahead
 // (fwd_ticks); adjoint.cu's factor_fwd and fused4_grad.cu's factor_fwd take
-// the same step (factor_fwd_step), from a ring slot (RingStep<T, 0>) or
-// from the kernel's own lowering (LowStep), and the elements sweep shares
-// its Riccati front with them (riccati_fwd_front).
+// the same step (factor_fwd_step), adjoint.cu's elements_fwd and
+// fused4_grad.cu's elem_fwd the same elements step (elem_fwd_step), each
+// from a ring slot (RingStep<T, 0>) or from the kernel's own lowering
+// (LowStep), and the two steps share their Riccati front
+// (riccati_fwd_front).
 
 #pragma once
 
@@ -627,7 +629,7 @@ static int launch_bwd(K kernel, size_t bytes, int B, void* stream, A... args) {
 
 // ---------------------------------------------------------------------------
 // The streamed forward sweeps (adjoint.cu's elements_fwd and factor_fwd,
-// fused4_grad.cu's factor_fwd): a block of W warps, a group of G threads a
+// fused4_grad.cu's elem_fwd and factor_fwd): a block of W warps, a group of G threads a
 // lane (32 W / G lanes a block), thread r row r of the state.  Each group
 // copies its lane's streams FWD_AHEAD steps ahead into a ring in shared
 // memory (cp.async), so that a step never waits on device memory.  A
@@ -641,7 +643,7 @@ constexpr int FWD_AHEAD = 3;             // steps copied ahead of the step compu
 constexpr int FWD_RING = FWD_AHEAD + 2;  // those, the step's and the step before's
 
 // Row r's view of a step lowered in the kernel (fused4_grad.cu's
-// factor_fwd): u_j and phi_j gathered from the group into registers, and
+// elem_fwd and factor_fwd): u_j and phi_j gathered from the group into registers, and
 // the row's scalars, as RingStep<T, 0> views them in a ring slot.
 template <typename T>
 struct LowStep {

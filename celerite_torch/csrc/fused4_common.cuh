@@ -8,10 +8,10 @@
 // per-lane coefficient load, the in-kernel lowering of one step
 // (fused4._lower_step) and the Riccati step both phases share; for the
 // exact-mode kernels also the raw-jitter coefficient load and the decoding
-// of a tangent's seed.  In fused4's primal and elem_fwd one thread owns
-// one lane, THREADS lanes a block; in the row-parallel kernels (fused4's
-// factor_fwd, factor_bwd and elem_bwd among them) a group of G threads owns
-// one lane, a row of the state each.
+// of a tangent's seed.  In fused4's primal one thread owns one lane,
+// THREADS lanes a block; in the row-parallel kernels (fused4's gradient
+// kernels among them) a group of G threads owns one lane, a row of the
+// state each.
 //
 // Numerics.  No --use_fast_math.  two_prod takes its exact error from one
 // fma.  In float32, exp and sincos are evaluated in float64 and rounded

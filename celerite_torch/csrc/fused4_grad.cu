@@ -17,18 +17,17 @@
 // torch glue (celerite_torch/ops/fused4.py); cotangents and seeds that come
 // from the glue arrive in float64 and are rounded to T here on load.
 //
-// Design.  elem_fwd: as in the primal, one thread owns one lane and loops
-// over its L steps with the P x P state in registers, THREADS lanes a
-// block.  The other three carry more state than one thread's registers
-// hold (one thread a lane spilled 7.7 KB at P = 8 in float64, and
-// factor_fwd 5.4 KB), so each gives a lane a group of G threads (the power
+// Design.  Each kernel carries more state than one thread's registers hold
+// (one thread a lane spilled 7.2 KB at P = 8 in float64 in elem_fwd, 5.4
+// KB in factor_fwd), so each gives a lane a group of G threads (the power
 // of two at or above P; 16 at P = 9..12), thread r owning row r of every P
 // x P state (no spills at P <= 12; registers and spills are in PERF.md).
 // Thread r lowers its own column of each step (u_r, v_r, phi_r; the two
 // rows of a complex pair compute their shared exp and sincos each) from its
 // coefficients in shared memory (Col), and the group gathers u and phi by
-// shuffles.  factor_fwd runs adjoint.cu's forward factor step
-// (factor_fwd_step; adjoint_common.cuh), its scalar streams copied three
+// shuffles.  The forward pair runs adjoint.cu's forward steps (elem_fwd
+// runs elements_fwd's elem_fwd_step, factor_fwd factor_fwd's
+// factor_fwd_step; adjoint_common.cuh), their scalar streams copied three
 // steps ahead into a ring in shared memory (cp.async), in blocks of four
 // warps where that still gives every SM a block, else of one (the one-theta
 // plan's 512 lanes at P = 8: 128 blocks of 4 lanes); a four-warp block
@@ -59,69 +58,6 @@
 #include "adjoint_common.cuh"
 
 static_assert(P <= 12, "padded width must be in [1, 12]");
-
-template <typename T>
-__device__ __forceinline__ void store_sq(T* __restrict__ p, int B, const T (&X)[P][P]) {
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-        for (int j = 0; j < P; ++j) p[(size_t)(i * P + j) * B] = X[i][j];
-}
-
-// ---------------------------------------------------------------------------
-// elem_fwd: phase 0 with saves.  Outputs A, J, C at (i * P + j) * B + l;
-// saves [Sh_in, A_in] a step.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-elem_fwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
-                const T* __restrict__ tl, const T* __restrict__ dt, const T* __restrict__ dg,
-                const T* __restrict__ msk, int L, int B, int jr, T* __restrict__ A_out,
-                T* __restrict__ J_out, T* __restrict__ C_out, T* __restrict__ sv) {
-    const int l = blockIdx.x * blockDim.x + threadIdx.x;
-    if (l >= B) return;
-    Coeffs<T> k;
-    load_coeffs(cf + (size_t)(l / seg) * (2 * P + 1), jr, k);
-
-    T Sh[P][P], A[P][P], J[P][P];
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            Sh[i][j] = T(0);
-            A[i][j] = i == j ? T(1) : T(0);
-            J[i][j] = T(0);
-        }
-
-    for (int s = 0; s < L; ++s) {
-        const size_t o = (size_t)s * B + l;
-        T* sp = sv + (size_t)s * NSV0 * B + l;
-        store_sq(sp, B, Sh);
-        store_sq(sp + (size_t)PP * B, B, A);
-        T u[P], v[P], ph[P], w[P], a;
-        lower_step(k, jr, t[o], tl[o], dt[o], dg[o], msk[o], u, v, ph, a);
-        const T d = riccati_step(Sh, u, v, ph, a, w);
-        T uA[P];
-#pragma unroll
-        for (int j = 0; j < P; ++j) {
-            T acc = T(0);
-#pragma unroll
-            for (int i = 0; i < P; ++i) acc += A[i][j] * (ph[i] * u[i]);
-            uA[j] = acc;
-        }
-#pragma unroll
-        for (int i = 0; i < P; ++i)
-#pragma unroll
-            for (int j = 0; j < P; ++j) {
-                A[i][j] = ph[i] * A[i][j] - w[i] * uA[j];
-                J[i][j] = J[i][j] - uA[i] * (uA[j] / d);
-            }
-    }
-    store_sq(A_out + l, B, A);
-    store_sq(J_out + l, B, J);
-    store_sq(C_out + l, B, Sh);
-}
 
 // ---------------------------------------------------------------------------
 // The coefficients a thread lowers, and the lowering of its row
@@ -186,6 +122,107 @@ __device__ __forceinline__ void lower_row(const Col<T, S>& k, T t, T tl, T dt, T
     }
 }
 
+// A lane's scalar streams of a step in its ring slot.
+enum { ZT, ZTL, ZDT, ZDG, ZMK, ZY, NZ };
+
+// Step s's saves of a forward kernel: rows r of X and Y at words r * P + j
+// and PP + r * P + j of NS, and, where NS > 2 PP, z at word 2 PP + r; word
+// q of lane l at (s * NS + q) * B + l.  Four-warp blocks pass them through
+// shared memory (NS words of LB lanes, a word's lanes padded to LB + 1) and
+// the block writes each word's LB lanes together, where a warp's own 32 / G
+// lanes fill half of each 32-byte sector in float32 (C's 16 chains, row 4:
+// 2.54 -> 0.60 ms in float32, 1.19 -> 0.84 in float64).  One-warp blocks
+// write their own: the two barriers a step took 1.8x as long at one theta.
+template <int NS, int W, typename T, class Ctx>
+__device__ __forceinline__ void put_saves(const Ctx& c, T* stage, T* __restrict__ sv, int s,
+                                          int B, const T (&X)[P], const T (&Y)[P], T z) {
+    constexpr int LB = Ctx::LB, LBP = LB + 1;
+    const int r = c.r;
+    if (W == 4) {
+        __syncthreads();  // the block's write of step s - 1 has read the stage
+        if (r < P) {
+#pragma unroll
+            for (int j = 0; j < P; ++j) {
+                stage[(r * P + j) * LBP + c.q] = X[j];
+                stage[(PP + r * P + j) * LBP + c.q] = Y[j];
+            }
+            if (NS > 2 * PP) stage[(2 * PP + r) * LBP + c.q] = z;
+        }
+        __syncthreads();
+        const int l0 = blockIdx.x * LB;
+        for (int i = threadIdx.x; i < NS * LB; i += 32 * W) {
+            const int w = i / LB, lk = i % LB;
+            if (l0 + lk < B) sv[((size_t)s * NS + w) * B + l0 + lk] = stage[w * LBP + lk];
+        }
+    } else if (c.live && r < P) {
+        T* sp = sv + (size_t)s * NS * B + c.l;
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+            sp[(size_t)(r * P + j) * B] = X[j];
+            sp[(size_t)(PP + r * P + j) * B] = Y[j];
+        }
+        if (NS > 2 * PP) sp[(size_t)(2 * PP + r) * B] = z;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// elem_fwd: phase 0 with saves [Sh_in, A_in] a step (NSV0 words), streamed
+// as factor_fwd below: a group of G threads a lane, thread r row r of Sh,
+// A and J, its five scalar streams (ZT .. ZMK; no y) in the cp.async ring
+// FWD_AHEAD steps ahead, its own column of the step lowered from shared
+// memory and u, phi gathered by shuffles; the step is adjoint.cu's
+// elements_fwd's (elem_fwd_step): one reciprocal of d, uA = A^T (Phi u) a
+// column sum through the group's tile.  Outputs A, J, C at (i * P + j) * B
+// + l, written by row.
+// ---------------------------------------------------------------------------
+
+template <typename T, int W>
+__global__ void __launch_bounds__(32 * W)
+elem_fwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
+                const T* __restrict__ tl, const T* __restrict__ dt, const T* __restrict__ dg,
+                const T* __restrict__ msk, int L, int B, int jr, T* __restrict__ A_out,
+                T* __restrict__ J_out, T* __restrict__ C_out, T* __restrict__ sv) {
+    using Ctx = FwdCtx<T, W, ZY>;
+    __shared__ T ring[Ctx::RING], tiles[Ctx::TILES], vecs[Ctx::VECS], cols[NCOL * 32 * W],
+        stage[W == 4 ? NSV0 * (Ctx::LB + 1) : 1];
+    const Ctx c(B, ring, tiles, vecs);
+    const int r = c.r, l = c.l;
+    const Col<T, 32 * W> k =
+        load_col<T, 32 * W>(cols, cf + (size_t)(l / seg) * (2 * P + 1), jr, r);
+    T Sh[P], A[P], J[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        Sh[j] = J[j] = T(0);
+        A[j] = j == r ? T(1) : T(0);
+    }
+    fwd_ticks(
+        c, L,
+        [&](T* st, int s) {
+            if (r != 0) return;
+            const size_t o = (size_t)s * B + l;
+            cp_async(st + ZT, t + o);
+            cp_async(st + ZTL, tl + o);
+            cp_async(st + ZDT, dt + o);
+            cp_async(st + ZDG, dg + o);
+            cp_async(st + ZMK, msk + o);
+        },
+        [&](int s) { put_saves<NSV0, W>(c, stage, sv, s, B, Sh, A, T(0)); },
+        [&](const T* st) {
+            const T ms = st[ZMK];
+            T ur, vr, phr, cm, sm, uv[P], pv[P];
+            lower_row(k, st[ZT], st[ZTL], st[ZDT], ms, ur, vr, phr, cm, sm);
+            gather(ur, uv);
+            gather(phr, pv);
+            const T a = ms * (st[ZDG] + k[CT]) + (T(1) - ms);
+            elem_fwd_step(c.tile, c.wv, c.gv, r, LowStep<T>{uv, pv, ur, phr, vr, a, T(0)}, Sh, A,
+                          J);
+        });
+    if (!c.live || r >= P) return;
+    put_mat(A_out, r, B, l, A);
+    put_mat(J_out, r, B, l, J);
+    put_mat(C_out, r, B, l, Sh);
+}
+
 // ---------------------------------------------------------------------------
 // factor_fwd: phase 1 from the float64 seed sh0 (P, P, B), with saves
 // [Sh_in, M_in, m_in] a step, streamed (adjoint_common.cuh's forward
@@ -198,9 +235,6 @@ __device__ __forceinline__ void lower_row(const Col<T, S>& k, T t, T tl, T dt, T
 // Kahan pairs q0, ld added in float64, written by thread 0.
 // ---------------------------------------------------------------------------
 
-// A lane's scalar streams of a step in its ring slot.
-enum { ZT, ZTL, ZDT, ZDG, ZMK, ZY, NZ };
-
 template <typename T, int W>
 __global__ void __launch_bounds__(32 * W)
 factor_fwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
@@ -210,16 +244,8 @@ factor_fwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
                   T* __restrict__ Qm_out, T* __restrict__ qv_out, double* __restrict__ q0_out,
                   double* __restrict__ ld_out, T* __restrict__ mind_out, T* __restrict__ sv) {
     using Ctx = FwdCtx<T, W, NZ>;
-    // Four-warp blocks pass each step's saves through shared memory (NSV1
-    // words of LB lanes, a word's lanes padded to LB + 1) and the block
-    // writes each word's LB lanes together, where a warp's own 32 / G lanes
-    // fill half of each 32-byte sector in float32 (C's 16 chains: 2.54 ->
-    // 0.60 ms in float32, 1.19 -> 0.84 in float64).  One-warp blocks write
-    // their own: the two barriers a step took 1.8x as long at one theta.
-    constexpr bool STAGE = W == 4;
-    constexpr int LB = Ctx::LB, LBP = LB + 1;
     __shared__ T ring[Ctx::RING], tiles[Ctx::TILES], vecs[Ctx::VECS], cols[NCOL * 32 * W],
-        stage[STAGE ? NSV1 * LBP : 1];
+        stage[W == 4 ? NSV1 * (Ctx::LB + 1) : 1];
     const Ctx c(B, ring, tiles, vecs);
     const int r = c.r, l = c.l;
     const Col<T, 32 * W> k =
@@ -245,34 +271,7 @@ factor_fwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
             cp_async(st + ZMK, msk + o);
             cp_async(st + ZY, y + o);
         },
-        [&](int s) {
-            if (STAGE) {
-                __syncthreads();  // the block's write of step s - 1 has read the stage
-                if (r < P) {
-#pragma unroll
-                    for (int j = 0; j < P; ++j) {
-                        stage[(r * P + j) * LBP + c.q] = Sh[j];
-                        stage[(PP + r * P + j) * LBP + c.q] = M[j];
-                    }
-                    stage[(2 * PP + r) * LBP + c.q] = mr;
-                }
-                __syncthreads();
-                const int l0 = blockIdx.x * LB;
-                for (int i = threadIdx.x; i < NSV1 * LB; i += 32 * W) {
-                    const int w = i / LB, lk = i % LB;
-                    if (l0 + lk < B)
-                        sv[((size_t)s * NSV1 + w) * B + l0 + lk] = stage[w * LBP + lk];
-                }
-            } else if (c.live && r < P) {
-                T* sp = sv + (size_t)s * NSV1 * B + l;
-#pragma unroll
-                for (int j = 0; j < P; ++j) {
-                    sp[(size_t)(r * P + j) * B] = Sh[j];
-                    sp[(size_t)(PP + r * P + j) * B] = M[j];
-                }
-                sp[(size_t)(2 * PP + r) * B] = mr;
-            }
-        },
+        [&](int s) { put_saves<NSV1, W>(c, stage, sv, s, B, Sh, M, mr); },
         [&](const T* st) {
             const T ms = st[ZMK];
             T ur, vr, phr, cm, sm, uv[P], pv[P];
@@ -484,19 +483,17 @@ elem_bwd_kernel(const T* __restrict__ cf, int seg, const T* __restrict__ t,
 // lanes.  Each returns cudaGetLastError() after its launch.
 // ---------------------------------------------------------------------------
 
-static inline dim3 grid_for(int B) { return dim3((B + THREADS - 1) / THREADS); }
-
 #define CELERITE_GRAD_ENTRIES(T, SFX)                                                            \
     int celerite_fused4_elem_fwd_##SFX(const void* cf, const void* t, const void* tl,           \
                                        const void* dt, const void* dg, const void* m, void* A,   \
                                        void* J, void* C, void* sv, int L, int B, int jr,         \
                                        int seg, void* stream) {                                  \
-        elem_fwd_kernel<T><<<grid_for(B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(    \
+        return launch_fwd(                                                                       \
+            elem_fwd_kernel<T, 4>, elem_fwd_kernel<T, 1>, B, stream,                             \
             static_cast<const T*>(cf), seg, static_cast<const T*>(t),                            \
             static_cast<const T*>(tl), static_cast<const T*>(dt), static_cast<const T*>(dg),     \
             static_cast<const T*>(m), L, B, jr, static_cast<T*>(A), static_cast<T*>(J),          \
             static_cast<T*>(C), static_cast<T*>(sv));                                            \
-        return (int)cudaGetLastError();                                                          \
     }                                                                                            \
     int celerite_fused4_factor_fwd_##SFX(                                                        \
         const void* cf, const void* t, const void* tl, const void* dt, const void* dg,           \

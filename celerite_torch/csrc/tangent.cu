@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas kernels of celerite_tpu/ops/tangent.py:
 //   tangent_elements_kernel <- _elements_jvp_kernel (tangent.py:71)
-//   tangent_factor_kernel   <- _factor_jvp_kernel   (tangent.py:138)
+//   jac_factor_kernel       <- _factor_jvp_kernel   (tangent.py:138)
 //   jac_* (four launches)   <- _jac_kernel          (tangent.py:591)
 // The first two are the split pair of wide models (the port runs them at
 // padded width 9-16): each lane's Riccati element (A, J, C) with its T
@@ -27,30 +27,36 @@
 // tangent step (elem_tan_step, factor_tan_step below) reads that record and
 // its own tangent streams.  The two layouts differ in who runs the value:
 //
-// - The jac sweeps (jac_elements_kernel, jac_factor_kernel) carry the
-//   value once a lane.  A block holds LB = 32 / G lanes (4 at P = 8):
-//   warp 0 is the value warp, warp 1 + j direction j of the block's chunk
-//   of at most TCH = 7 directions (more directions take more chunks,
-//   blockIdx.y, each redoing the value once).  Steps go by tiles of KT =
-//   4: each warp copies its streams of a tile (the value's u, v, phi, a,
-//   y; a direction's tangents of them) into its own ring with cp.async two
+// - The jac sweeps (jac_elements_kernel, jac_factor_kernel; the factor
+//   sweep is also the split pair's factor_jvp) carry the value once a lane
+//   and chunk of directions.  A block holds LB = 32 / G lanes (4 at P = 8,
+//   2 at P = 9-16): warp 0 is the value warp, warp 1 + j direction j of
+//   the block's chunk of at most TCH = 7 directions (more directions take
+//   more chunks, blockIdx.y, each redoing the value once; T = 13 runs
+//   chunks of 7 and 6).  Steps go by tiles of KT (4 at P <= 8, 2 at 9-16):
+//   each warp copies its streams of a tile (the value's u, v, phi, a, y; a
+//   direction's tangents of them) into its own ring with cp.async two
 //   tiles ahead; the value warp sweeps tile k and writes its records into
 //   the record ring, which a named barrier hands to the direction warps,
 //   which sweep tile k while the value warp goes on with k + 1.  Each
 //   output is written once, the value's by the value warp of chunk 0, a
 //   direction's by its warp.  A sweep's lanes are chains of dependent
 //   steps, each bound by its latency (the value warp's: a tangent warp's
-//   step reads the value's record and needs no division), so two blocks
-//   share an SM: 128 registers a thread (the launch bound) and ~99 KiB of
-//   shared memory a block at P = 8 in float64, for which the value warp's
-//   factor rows of Qm, only accumulated, wait in shared memory.
-// - The split pair (tangent_elements_kernel, tangent_factor_kernel; padded
-//   width 9-16, T = 13 on the models that take it) keeps a group of G
-//   threads a (lane, direction) item, BLOCK threads a block: each item
-//   steps its lane's value into its group's record in shared memory, then
-//   its direction's tangent from it, so the value runs once a direction.
-//   At P = 16 a block of the jac layout would hold 2 lanes and 14 warps,
-//   with ~0.3 MB of rings at KT = 8.
+//   step reads the value's record and needs no division).  At P <= 8 two
+//   blocks share an SM: 128 registers a thread (the launch bound) and ~99
+//   KiB of shared memory a block in float64, for which the value warp's
+//   factor rows of Qm, only accumulated, wait in shared memory.  At P =
+//   9-16 a thread's rows take up to 255 registers, so one block of eight
+//   warps fills an SM's registers; its shared memory, two tiles of records
+//   of NQ words (~2P^2 + 7P, 611 at P = 16) for 2 lanes and each warp's
+//   two tiles of NF = 3P + 2 stream words a lane, is ~67 KiB at P = 16 in
+//   float64 (KT = 2; the split pair's own layout had put the jac sweeps'
+//   rings at ~0.3 MB, sizing them for KT = 8 and fourteen warps).
+// - The elements sweep of the split pair (tangent_elements_kernel) keeps a
+//   group of G threads a (lane, direction) item, BLOCK threads a block:
+//   each item steps its lane's value into its group's record in shared
+//   memory, then its direction's tangent from it, so the value runs once a
+//   direction.
 //
 // Bound.  Bytes: each input read once (the value streams and the T tangent
 // streams, (3P + 1)(1 + T) words a point for the elements, (3P + 2)(1 + T)
@@ -232,8 +238,9 @@ __device__ __forceinline__ void factor_tan_step(Rec<T, S> rec, Rec<T, SI> in, in
 }
 
 // ---------------------------------------------------------------------------
-// The split pair's layout: a group of G threads a (lane, direction) item,
-// the value stepped into the group's record, then the direction's tangent.
+// The elements sweep of the split pair: a group of G threads a (lane,
+// direction) item, the value stepped into the group's record, then the
+// direction's tangent.
 // ---------------------------------------------------------------------------
 
 constexpr int ITEM_GROUPS = BLOCK / G;
@@ -247,24 +254,20 @@ __device__ __forceinline__ Rec<T, 1> item_rec(T* recs) {
 }
 
 // Direction k's streams of step s into the group's words: row r of du,
-// dv, dph, and da (dy, unless null) from thread 0.
+// dv, dph, and da from thread 0.
 template <typename T>
 __device__ __forceinline__ Rec<T, 1> item_in(T* recs, int r, int s, int k, int nT, int B, int l,
                                              const T* __restrict__ du,
                                              const T* __restrict__ dv,
                                              const T* __restrict__ dph,
-                                             const T* __restrict__ da,
-                                             const T* __restrict__ dy) {
+                                             const T* __restrict__ da) {
     const Rec<T, 1> in{recs + (threadIdx.x / G) * ITEM_WORDS + NQ};
     if (r < P) {
         in[FU + r] = tvec_row(du, s, k, nT, B, l, r);
         in[FV + r] = tvec_row(dv, s, k, nT, B, l, r);
         in[FPH + r] = tvec_row(dph, s, k, nT, B, l, r);
     }
-    if (r == 0) {
-        in[FA] = tscal(da, s, k, nT, B, l);
-        if (dy != nullptr) in[FY] = tscal(dy, s, k, nT, B, l);
-    }
+    if (r == 0) in[FA] = tscal(da, s, k, nT, B, l);
     return in;
 }
 
@@ -289,8 +292,7 @@ __device__ __forceinline__ void elements_jvp_items(
         load_vec(u, s, B, l, uv);
         load_vec(ph, s, B, l, pv);
         const T vr = r < P ? v[((size_t)s * P + r) * B + l] : T(0);
-        const Rec<T, 1> in = item_in(recs, r, s, k, nT, B, l, du, dv, dph, da,
-                                     static_cast<const T*>(nullptr));
+        const Rec<T, 1> in = item_in(recs, r, s, k, nT, B, l, du, dv, dph, da);
         elem_value_step<true>(uv, pv, vr, a[(size_t)s * B + l], r, Sh, A, J, rec);
         __syncwarp();
         elem_tan_step(rec, in, r, dSh, dA, dJ);
@@ -307,80 +309,28 @@ __device__ __forceinline__ void elements_jvp_items(
     put_tmat(DC_out, k, r, B, l, dSh);
 }
 
-template <typename T>
-__device__ __forceinline__ void factor_jvp_items(
-    T* recs, const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
-    const T* __restrict__ a, const T* __restrict__ y, const T* __restrict__ du,
-    const T* __restrict__ dv, const T* __restrict__ dph, const T* __restrict__ da,
-    const T* __restrict__ dy, const T* __restrict__ sh0, const T* __restrict__ dsh0, int L,
-    int B, int nT, T* __restrict__ M_out, T* __restrict__ m_out, T* __restrict__ Qm_out,
-    T* __restrict__ qv_out, double* __restrict__ q0_out, double* __restrict__ ld_out,
-    T* __restrict__ mind_out, T* __restrict__ DM_out, T* __restrict__ Dm_out,
-    T* __restrict__ DQm_out, T* __restrict__ Dqv_out, double* __restrict__ Dq0_out,
-    double* __restrict__ Dld_out) {
-    const Item it = item_of(B, nT);
-    const int l = it.l, k = it.k, r = it.r;
-    const Rec<T, 1> rec = item_rec(recs);
-    // Row r of Sh, M, Qm, entry r of m and qv, and their tangents; the
-    // scalar statistics are kept alike in every thread of the group.
-    T Sh[P], dSh[P], M[P], dM[P], Qm[P], dQm[P];
-    get_mat(sh0, r, B, l, Sh);
-    get_tmat(dsh0, k, r, B, l, dSh);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-        M[j] = j == r ? T(1) : T(0);
-        dM[j] = Qm[j] = dQm[j] = T(0);
-    }
-    T mr = T(0), dmr = T(0), qvr = T(0), dqvr = T(0), mind = T(INFINITY);
-    Kahan<T> q0{T(0), T(0)}, ld{T(0), T(0)}, dq0{T(0), T(0)}, dld{T(0), T(0)};
-    for (int s = 0; s < L; ++s) {
-        T uv[P], pv[P];
-        load_vec(u, s, B, l, uv);
-        load_vec(ph, s, B, l, pv);
-        const size_t o = (size_t)s * B + l;
-        const T vr = r < P ? v[((size_t)s * P + r) * B + l] : T(0);
-        const Rec<T, 1> in = item_in(recs, r, s, k, nT, B, l, du, dv, dph, da, dy);
-        factor_value_step<true>(uv, pv, vr, a[o], y[o], r, Sh, M, Qm, mr, qvr, q0, ld, mind,
-                                rec);
-        __syncwarp();
-        factor_tan_step(rec, in, r, dSh, dM, dQm, dmr, dqvr, dq0, dld);
-        __syncwarp();
-    }
-    if (!it.live || r >= P) return;
-    if (k == 0) {
-        put_mat(M_out, r, B, l, M);
-        put_mat(Qm_out, r, B, l, Qm);
-        m_out[(size_t)r * B + l] = mr;
-        qv_out[(size_t)r * B + l] = qvr;
-        if (r == 0) {
-            q0_out[l] = q0.total();
-            ld_out[l] = ld.total();
-            mind_out[l] = mind;
-        }
-    }
-    put_tmat(DM_out, k, r, B, l, dM);
-    put_tmat(DQm_out, k, r, B, l, dQm);
-    Dm_out[((size_t)k * P + r) * B + l] = dmr;
-    Dqv_out[((size_t)k * P + r) * B + l] = dqvr;
-    if (r == 0) {
-        Dq0_out[(size_t)k * B + l] = dq0.total();
-        Dld_out[(size_t)k * B + l] = dld.total();
-    }
-}
-
 // ---------------------------------------------------------------------------
 // The jac sweeps' layout: a block of LB lanes, a value warp and a warp a
 // direction of the block's chunk, tiles of KT steps through shared rings.
 // ---------------------------------------------------------------------------
 
 constexpr int LB = 32 / G;      // lanes a block
-constexpr int KT = 4;           // steps a tile
-constexpr int TCH = 7;          // most directions a block
+// Steps a tile: four at P <= 8, two at P = 9-16, where a record is ~2P²
+// words and two tiles of them for two lanes take ~40 KB in float64.
+constexpr int KT = P <= 8 ? 4 : 2;
+// Most directions a block.
+constexpr int TCH = 7;
 constexpr int JAC_THREADS = 32 * (1 + TCH);
+// Blocks an SM the launch bound asks for: two at P <= 8 (128 registers a
+// thread), one at P = 9-16, where a value warp's rows of Sh and M and the
+// step's u, phi, w and g, and a direction warp's rows of dSh, dM, dQm and
+// dg, take up to 255 registers a thread.
+constexpr int JAC_BLOCKS = P <= 8 ? 2 : 1;
 // Shared memory in words of T: the value warp's rows of Qm (the factor's;
 // P + 1 words a thread, against bank conflicts), two tiles of records,
 // then each warp's two tiles of streams: 101,376 bytes at P = 8, T >= 7 in
-// float64 (94,720 at T = 16, three chunks of 6, 6 and 4).
+// float64 (94,720 at T = 16, three chunks of 6, 6 and 4); 69,056 at P = 16
+// (KT = 2: records of NQ = 611 words for 2 lanes) and 51,392 at P = 13.
 constexpr int SM_QM = 32 * (P + 1);
 constexpr int SM_PUB = KT * NQ * LB;
 constexpr int SM_STR = KT * NF * LB;
@@ -499,7 +449,7 @@ __device__ __forceinline__ void jac_pass(const JacCtx& c, T* ring, const T* x0, 
 }
 
 template <typename T>
-__global__ void __launch_bounds__(JAC_THREADS, 2)
+__global__ void __launch_bounds__(JAC_THREADS, JAC_BLOCKS)
 jac_elements_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
                     const T* __restrict__ a, const T* __restrict__ du, const T* __restrict__ dv,
                     const T* __restrict__ dph, const T* __restrict__ da, int L, int B, int nT,
@@ -557,7 +507,7 @@ jac_elements_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* _
 }
 
 template <typename T>
-__global__ void __launch_bounds__(JAC_THREADS, 2)
+__global__ void __launch_bounds__(JAC_THREADS, JAC_BLOCKS)
 jac_factor_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
                   const T* __restrict__ a, const T* __restrict__ y, const T* __restrict__ du,
                   const T* __restrict__ dv, const T* __restrict__ dph, const T* __restrict__ da,
@@ -637,7 +587,7 @@ jac_factor_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __r
 }
 
 // ---------------------------------------------------------------------------
-// The split pair's kernels and the jac scans.
+// The split pair's elements kernel and the jac scans.
 // ---------------------------------------------------------------------------
 
 #define ELEMENTS_JVP_PARAMS                                                                    \
@@ -657,20 +607,11 @@ jac_factor_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __r
         T *__restrict__ qv, double *__restrict__ q0, double *__restrict__ ld,                 \
         T *__restrict__ mind, T *__restrict__ DM, T *__restrict__ Dm, T *__restrict__ DQm,    \
         T *__restrict__ Dqv, double *__restrict__ Dq0, double *__restrict__ Dld
-#define FACTOR_JVP_ARGS                                                                        \
-    u, v, ph, a, y, du, dv, dph, da, dy, sh0, dsh0, L, B, nT, M, m, Qm, qv, q0, ld, mind, DM, \
-        Dm, DQm, Dqv, Dq0, Dld
 
 template <typename T>
 __global__ void __launch_bounds__(BLOCK) tangent_elements_kernel(ELEMENTS_JVP_PARAMS) {
     __shared__ T recs[ITEM_GROUPS * ITEM_WORDS];
     elements_jvp_items(recs, ELEMENTS_JVP_ARGS);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(BLOCK) tangent_factor_kernel(FACTOR_JVP_PARAMS) {
-    __shared__ T recs[ITEM_GROUPS * ITEM_WORDS];
-    factor_jvp_items(recs, FACTOR_JVP_ARGS);
 }
 
 template <typename T>
@@ -705,15 +646,49 @@ jac_assemble_kernel(const T* __restrict__ M, const T* __restrict__ m, const T* _
 // factor: in those, y (L, 1, B), dy (L, T, 1, B), sh0 (P, P, B), dsh0
 //   (T, P, P, B); out M, Qm (P, P, B), m, qv (P, B), q0, ld (B,) float64,
 //   mind (B,), DM, DQm (T, P, P, B), Dm, Dqv (T, P, B), Dq0, Dld (T, B)
-//   float64.
+//   float64: the jac factor sweep's layout (jac_factor_kernel) at every
+//   padded width 1-16.
 // jac: the elements' and the factor's inputs; as scratch their outputs
 //   (w[0..5] the elements', w[6..7] sh0 and dsh0, w[8..20] the factor's);
 //   out quad, ld (B / seg,) float64, mind (B / seg,), dquad, dld
-//   (T, B / seg) float64.  Its sweeps take the T directions in chunks of
-//   at most TCH, as even as they go, one row of blocks a chunk, with
-//   jac_smem_words of dynamic shared memory (above the default 48 KB at
-//   P = 8), so it raises both sweeps' limit first; padded widths 1-8.
+//   (T, B / seg) float64; padded widths 1-8.
+// The sweeps take the T directions in chunks of at most TCH, as even as
+// they go, one row of blocks a chunk, with jac_smem_words of dynamic shared
+// memory (above the default 48 KB at P = 8 and 13-16), so each launch
+// raises its sweep's limit first.
 // ---------------------------------------------------------------------------
+
+// A sweep's launch shape for B lanes and nT directions.
+struct JacGrid {
+    dim3 blocks, threads;
+    int tch;
+    size_t bytes;
+};
+
+template <typename T>
+static JacGrid jac_grid(int B, int nT) {
+    const int nch = (nT + TCH - 1) / TCH, tch = (nT + nch - 1) / nch;
+    return JacGrid{dim3((unsigned)((B + LB - 1) / LB), (unsigned)nch),
+                   dim3((unsigned)(32 * (1 + tch))), tch,
+                   sizeof(T) * (size_t)jac_smem_words(tch)};
+}
+
+template <typename K>
+static int jac_prepare(K kernel, size_t bytes) {
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)bytes);
+}
+
+template <typename T>
+static int factor_launch(FACTOR_JVP_PARAMS, cudaStream_t st) {
+    if (nT < 1) return (int)cudaErrorInvalidValue;
+    const JacGrid g = jac_grid<T>(B, nT);
+    if (const int err = jac_prepare(jac_factor_kernel<T>, g.bytes)) return err;
+    jac_factor_kernel<T><<<g.blocks, g.threads, g.bytes, st>>>(
+        u, v, ph, a, y, du, dv, dph, da, dy, sh0, dsh0, L, B, nT, g.tch, M, m, Qm, qv, q0, ld,
+        mind, DM, Dm, DQm, Dqv, Dq0, Dld);
+    return (int)cudaGetLastError();
+}
 
 template <typename T>
 static int jac_launch(const T* u, const T* v, const T* ph, const T* a, const T* y, const T* du,
@@ -727,29 +702,18 @@ static int jac_launch(const T* u, const T* v, const T* ph, const T* a, const T* 
       *DQm = (T*)w[17], *Dqv = (T*)w[18];
     double *q0 = (double*)w[12], *ld = (double*)w[13], *Dq0 = (double*)w[19],
            *Dld = (double*)w[20];
-    const int nch = (nT + TCH - 1) / TCH, tch = (nT + nch - 1) / nch;
-    const dim3 sweep((unsigned)((B + LB - 1) / LB), (unsigned)nch),
-        threads((unsigned)(32 * (1 + tch))), scans((unsigned)(B / seg), (unsigned)nT);
-    const size_t bytes = sizeof(T) * (size_t)jac_smem_words(tch);
+    const JacGrid g = jac_grid<T>(B, nT);
+    const dim3 scans((unsigned)(B / seg), (unsigned)nT);
     int err;
-    if ((err = (int)cudaFuncSetAttribute(jac_elements_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes)))
-        return err;
-    if ((err = (int)cudaFuncSetAttribute(jac_factor_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes)))
-        return err;
-    jac_elements_kernel<T><<<sweep, threads, bytes, st>>>(u, v, ph, a, du, dv, dph, da, L, B,
-                                                          nT, tch, A, J, C, DA, DJ, DC);
+    if ((err = jac_prepare(jac_elements_kernel<T>, g.bytes))) return err;
+    jac_elements_kernel<T><<<g.blocks, g.threads, g.bytes, st>>>(
+        u, v, ph, a, du, dv, dph, da, L, B, nT, g.tch, A, J, C, DA, DJ, DC);
     if ((err = (int)cudaGetLastError())) return err;
     jac_seed_kernel<T><<<scans, SCAN_THREADS, 0, st>>>(A, J, C, DA, DJ, DC, B, seg, sh0, dsh0);
     if ((err = (int)cudaGetLastError())) return err;
-    jac_factor_kernel<T><<<sweep, threads, bytes, st>>>(u, v, ph, a, y, du, dv, dph, da, dy,
-                                                        sh0, dsh0, L, B, nT, tch, M, m, Qm, qv,
-                                                        q0, ld, mind, DM, Dm, DQm, Dqv, Dq0,
-                                                        Dld);
-    if ((err = (int)cudaGetLastError())) return err;
+    if ((err = factor_launch<T>(u, v, ph, a, y, du, dv, dph, da, dy, sh0, dsh0, L, B, nT, M, m,
+                                Qm, qv, q0, ld, mind, DM, Dm, DQm, Dqv, Dq0, Dld, st)))
+        return err;
     jac_assemble_kernel<T><<<scans, P, 0, st>>>(M, m, Qm, qv, q0, ld, mind, DM, Dm, DQm, Dqv,
                                                 Dq0, Dld, B, seg, quad, ldo, mindo, dquad,
                                                 dldo);
@@ -775,14 +739,12 @@ static int jac_launch(const T* u, const T* v, const T* ph, const T* a, const T* 
         const void* sh0, const void* dsh0, void* M, void* m, void* Qm, void* qv, void* q0,   \
         void* ld, void* mind, void* DM, void* Dm, void* DQm, void* Dqv, void* Dq0, void* Dld, \
         int L, int B, int nT, void* stream) {                                                 \
-        tangent_factor_kernel<T>                                                              \
-            <<<grid_for(B * nT, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(           \
+        return factor_launch<T>(                                                              \
             (const T*)u, (const T*)v, (const T*)ph, (const T*)a, (const T*)y, (const T*)du,   \
             (const T*)dv, (const T*)dph, (const T*)da, (const T*)dy, (const T*)sh0,           \
             (const T*)dsh0, L, B, nT, (T*)M, (T*)m, (T*)Qm, (T*)qv, (double*)q0,              \
             (double*)ld, (T*)mind, (T*)DM, (T*)Dm, (T*)DQm, (T*)Dqv, (double*)Dq0,            \
-            (double*)Dld);                                                                    \
-        return (int)cudaGetLastError();                                                       \
+            (double*)Dld, static_cast<cudaStream_t>(stream));                                 \
     }                                                                                         \
     int celerite_tangent_jac_##SFX(const void* u, const void* v, const void* ph,              \
                                    const void* a, const void* y, const void* du,              \

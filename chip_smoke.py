@@ -13,7 +13,8 @@ kernels (celerite_torch/csrc/adjoint.cu), the three three-pass kernels
 (celerite_torch/csrc/fused.cu), the three tangent kernels
 (celerite_torch/csrc/tangent.cu) and the three one-pass kernels
 (celerite_torch/csrc/onepass.cu) with nvcc for every padded width it
-uses, one nvcc process per library, all at once; holds each kernel against
+uses (the gradient kernels at every width 1-12, for ptxas's figures), one
+nvcc process per library, all at once; holds each kernel against
 its plain PyTorch version on the card; then drives the port's main paths
 through the entry points a user calls:
 
@@ -143,6 +144,9 @@ from celerite_torch.testing import (CASES, bench_kernel, blocked_streams,
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 WIDTHS = (1, 2, 4, 8)           # padded widths this script runs
+# fused4_grad.cu is also built at every other width it takes, for ptxas's
+# figures in the redesigned_kernels line.
+GRAD_PTXAS_WIDTHS = tuple(range(1, 13))
 F64_RTOL = 1e-10                # f64 kernel against f64 plain
 F32_RTOL = 1e-4                 # f32 against f64 (input-quantization floor)
 F32_PLAIN_RTOL = 2e-5           # f32 kernel against f32 plain, same plan
@@ -200,7 +204,7 @@ PORT_KERNELS = ("elem_kernel", "elem_round", "factor_kernel", "affine_round",
     "solver_" + k + "_kernel" for k in pallas_solver.SOLVER_KERNELS) + tuple(
     "fused_" + k + "_kernel" for k in ("elements", "seed", "factor",
                                        "assemble")) + (
-    "tangent_elements_kernel", "tangent_factor_kernel") + tuple(
+    "tangent_elements_kernel",) + tuple(
     "jac_" + k + "_kernel" for k in ("elements", "seed", "factor",
                                      "assemble")) + (
     "onepass_sweep_kernel", "onepass_fwd_kernel", "onepass_bwd_kernel")
@@ -2081,7 +2085,8 @@ def tangent_bound_ms(name, u, T, nseg=1):
     few words a segment.  Operations, counted from csrc/tangent.cu and
     lanes_common.cuh: a sweep's value step is ~15 P^2 a point and each
     direction's tangent step ~41 P^2 (the value counted once, not once a
-    direction as the kernels run it); the seed scan ~12 P^3 a lane and
+    direction as the elements kernel runs it or once a chunk of at most
+    seven directions as the factor kernel does); the seed scan ~12 P^3 a lane and
     ~16 P^3 a lane and direction, the assembly ~4 P^2 and ~8 P^2.
     """
     L, p, b = u.shape
@@ -2887,33 +2892,36 @@ def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
                        onepass_rows):
     """The kernels redesigned for this card and those sharing their code,
     with the card's name and power limit: ptxas's registers and spill bytes
-    of each at every width built, and their timings on each plan (rows 5
-    and 4 on C's 1- and 16-chain plans, row 3, which runs row 9's
-    transposed step in row 5's layout, and row 4, which runs row 10's
-    step; row 18 on G's plans, with its four launches' split; rows 16-17
-    on E's model; rows 8, 9, 10 and 11 on E's plans; row 21, which shares
-    row 11's sweep and row 5's transposed step)."""
-    def regs(src, prefix):
+    of each at every width built, and their timings on each plan (rows 2,
+    5 and 4 on C's 1- and 16-chain plans, row 3, which runs row 9's
+    transposed step in row 5's layout, rows 2 and 4, which run rows 8's
+    and 10's steps; row 18 on G's plans, with its four launches' split;
+    rows 16 and 17 on E's model, row 17 in row 18's layout at P = 13 and
+    16; rows 8, 9, 10 and 11 on E's plans; row 21, which shares row 11's
+    sweep and row 5's transposed step)."""
+    def regs(src, prefix, widths=None):
         return {p: {k: v for k, v in kerns.items() if k.startswith(prefix)}
-                for p, kerns in ptxas[src].items()}
+                for p, kerns in ptxas[src].items()
+                if widths is None or p in widths}
+
+    def grad(name):
+        return {"ptxas": regs("fused4_grad.cu", name),
+                "chains": {nc: rows[name] for nc, rows in grad_rows.items()}}
+
+    def tan(name, prefix, widths):
+        return {"ptxas": regs("tangent.cu", prefix, widths),
+                "plans": {k: v[name] for k, v in tangent_rows.items()
+                          if name in v}}
 
     return {
         "card": smi,
-        "factor_bwd": {"ptxas": regs("fused4_grad.cu", "factor_bwd"),
-                       "chains": {nc: rows["factor_bwd"]
-                                  for nc, rows in grad_rows.items()}},
-        "elem_bwd": {"ptxas": regs("fused4_grad.cu", "elem_bwd"),
-                     "chains": {nc: rows["elem_bwd"]
-                                for nc, rows in grad_rows.items()}},
-        "factor_fwd": {"ptxas": regs("fused4_grad.cu", "factor_fwd"),
-                       "chains": {nc: rows["factor_fwd"]
-                                  for nc, rows in grad_rows.items()}},
-        "jac": {"ptxas": regs("tangent.cu", "jac_"),
-                "plans": {k: v["jac"] for k, v in tangent_rows.items()
-                          if "jac" in v}},
-        "split_pair": {"ptxas": regs("tangent.cu", "tangent_"),
-                       "plans": {k: v for k, v in tangent_rows.items()
-                                 if "elements_jvp" in v}},
+        "elem_fwd": grad("elem_fwd"),
+        "factor_bwd": grad("factor_bwd"),
+        "elem_bwd": grad("elem_bwd"),
+        "factor_fwd": grad("factor_fwd"),
+        "jac": tan("jac", "jac_", None),
+        "split_pair": tan("elements_jvp", "tangent_elements", None),
+        "factor_jvp": tan("factor_jvp", "jac_factor", (13, 16)),
         "adjoint_elements_fwd": {
             "ptxas": regs("adjoint.cu", "adjoint_elements_fwd"),
             "chains": {nc: rows["elements_fwd"]
@@ -2957,7 +2965,7 @@ def main():
          nvidia_smi=smi)
 
     t0 = time.perf_counter()
-    widths = {"fused4_primal.cu": WIDTHS, "fused4_grad.cu": WIDTHS,
+    widths = {"fused4_primal.cu": WIDTHS, "fused4_grad.cu": GRAD_PTXAS_WIDTHS,
               "dsfused.cu": WIDTHS, "adjoint.cu": WIDE_WIDTHS,
               "pallas_solver.cu": SOLVER_WIDTHS, "fused.cu": FUSED_WIDTHS,
               "tangent.cu": TANGENT_WIDTHS, "onepass.cu": ONEPASS_WIDTHS}

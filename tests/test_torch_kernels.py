@@ -215,23 +215,25 @@ def _first_lanes(plan, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("jr,jc,vals", CASES + WIDE_CASES)
-@pytest.mark.parametrize("shape", ["dead_lanes", "one_step"])
+@pytest.mark.parametrize("shape", ["dead_lanes", "one_step", "two_steps"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_grad_kernels_odd_shapes(jr, jc, vals, shape, dtype, cuda_device):
     """The gradient kernels at every padded width 1-12 on 12 lanes, which
     no block of factor_bwd's or elem_bwd's divides (128 / G lanes, G
-    threads a lane: the last block runs dead lanes; factor_fwd's one-warp
-    blocks of 32 / G lanes leave dead lanes at P <= 4), and on 16 lanes of
-    one step each, fewer steps than factor_fwd's ring holds."""
+    threads a lane: the last block runs dead lanes; the forward pair's
+    one-warp blocks of 32 / G lanes leave dead lanes at P <= 4), and on 16
+    lanes of one step and of two steps each, fewer steps than the forward
+    pair's ring holds."""
     if shape == "dead_lanes":
         t, y, yerr = make_data(1499, seed=9, t_max=150.0)
         plan = _first_lanes(lanes4.make_plan4(
             t, y, yerr**2, 16, dtype=dtype, device=cuda_device), 12)
     else:
-        t, y, yerr = make_data(16, seed=9, t_max=2.0)
+        steps = 1 if shape == "one_step" else 2
+        t, y, yerr = make_data(16 * steps, seed=9, t_max=2.0 * steps)
         plan = lanes4.make_plan4(t, y, yerr**2, 16, dtype=dtype,
                                  device=cuda_device)
-        assert plan.t.shape[0] == 1
+        assert plan.t.shape[0] == steps
     cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device)
     _check_grad_kernels(cf, plan, jr, jc,
                         1e-10 if dtype == torch.float64 else GRAD_F32_RTOL)
@@ -260,11 +262,12 @@ def test_grad_kernels_chain_folded_and_segments(dtype, cuda_device):
 @pytest.mark.parametrize("cut", [0, 2])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_grad_kernels_block_widths(lanes, cut, dtype, cuda_device):
-    """factor_fwd's two block widths at P = 8: 512 lanes (main path C's
-    one-theta plan) take blocks of one warp, since blocks of four would
-    leave most of an H100's 132 SMs without one, and 8192 lanes (its
-    16-chain plan) blocks of four; with ``cut`` lanes fewer the last block
-    runs dead lanes.  Six steps a lane."""
+    """The forward pair's (elem_fwd's and factor_fwd's) two block widths
+    at P = 8: 512 lanes (main path C's one-theta plan) take blocks of one
+    warp, since blocks of four would leave most of an H100's 132 SMs
+    without one, and 8192 lanes (its 16-chain plan) blocks of four; with
+    ``cut`` lanes fewer the last block runs dead lanes.  Six steps a
+    lane."""
     jr, jc, vals = CASES[3]
     n = 6 * lanes - 5
     t, y, yerr = make_data(n, seed=12, t_max=n / 10.0)
@@ -273,6 +276,58 @@ def test_grad_kernels_block_widths(lanes, cut, dtype, cuda_device):
     cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device)
     _check_grad_kernels(cf, plan, jr, jc,
                         1e-10 if dtype == torch.float64 else GRAD_F32_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,seg", [(8160, 24), (510, 6)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_grad_kernels_segments_inside_blocks(lanes, seg, dtype, cuda_device):
+    """A coefficient row a segment, with segment boundaries inside the
+    forward pair's blocks at P = 8: 24-lane segments over four-warp blocks
+    of 16 lanes (8160 lanes), 6-lane segments over one-warp blocks of 4
+    (510 lanes).  Each row scales config[2]'s coefficients by its own
+    factor, so a lane that read its neighbour segment's row would show."""
+    jr, jc, vals = CASES[3]
+    full = 2 ** math.ceil(math.log2(lanes))
+    n = 6 * full - 5
+    t, y, yerr = make_data(n, seed=13, t_max=n / 10.0)
+    plan = _first_lanes(lanes4.make_plan4(t, y, yerr**2, full, dtype=dtype,
+                                          device=cuda_device), lanes)
+    cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device)
+    nseg = lanes // seg
+    cfs = torch.stack([cf * (0.9 + 0.3 * i / nseg) for i in range(nseg)])
+    _check_grad_kernels(cfs, plan, jr, jc,
+                        1e-10 if dtype == torch.float64 else GRAD_F32_RTOL,
+                        seg=seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [512, 8192])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_elem_bwd_on_elem_fwd_kernel_saves(lanes, dtype, cuda_device):
+    """elem_bwd (the transpose) on the saves elem_fwd's kernel wrote, in
+    both of elem_fwd's block widths, equals the plain pipeline: the plain
+    transpose on the plain forward's saves, the coefficient cotangent
+    summed over the lanes as the pipeline returns it."""
+    from celerite_torch.testing import _errors
+
+    jr, jc, vals = CASES[3]
+    p = jr + 2 * jc
+    n = 6 * lanes - 5
+    t, y, yerr = make_data(n, seed=14, t_max=n / 10.0)
+    plan = lanes4.make_plan4(t, y, yerr**2, lanes, dtype=dtype,
+                             device=cuda_device)
+    cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    cots = [torch.randn(p, p, lanes, generator=gen, dtype=torch.float64,
+                        device=cuda_device) for _ in range(3)]
+    saves = fused4.elem_fwd_cuda(cf, plan, jr, jc)[3]
+    got = fused4.elem_bwd_cuda(cf, plan, jr, jc, saves, *cots)
+    want = fused4.elem_bwd_reference(
+        cf, plan, jr, jc, fused4.elem_fwd_reference(cf, plan, jr, jc)[3],
+        *cots)
+    _, rel = _errors(got, want, summed=True, seg=lanes)
+    assert rel <= (1e-10 if dtype == torch.float64 else GRAD_F32_RTOL), rel
 
 
 @pytest.mark.cuda
@@ -637,6 +692,52 @@ def test_tangent_jac_kernel_directions(width, ndir, cuda_device):
     errs = compare_tangent_kernels(s, d, seg=10, kernels=("jac",))
     assert tangent.jac_cuda.launches == before + 1
     assert errs["jac"]["max_rel_err"] <= 1e-10, errs
+
+
+def _wide_jvp_model(terms, width):
+    """A model of padded width 9 (a RealTerm and config[2]'s model), 13
+    or 16."""
+    from celerite_torch.testing import config2_kernel
+
+    if width == 9:
+        return terms.RealTerm(log_a=-0.5, log_c=-1.0) + config2_kernel(terms)
+    return width_kernel(terms, width)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [9, 13, 16])
+@pytest.mark.parametrize("ndir", [1, 7, 8, 13, 16])
+@pytest.mark.parametrize("shape", ["dead_lanes", "one_step"])
+def test_tangent_factor_kernel_directions(width, ndir, shape, cuda_device):
+    """factor_jvp along ndir directions (random combinations of the
+    parameters' basis tangents, numpy seed) at padded widths 9-16, where a
+    block holds 2 lanes and at most seven directions: one chunk (1, 7),
+    a full one and one of one (8), two uneven ones (13: seven and six) and
+    three (16: six, five and five).  ``dead_lanes``: 31 lanes of 125 steps
+    (the last block holds a dead lane; no multiple of the 2-step tile);
+    ``one_step``: 16 lanes of one step.  Every output and tangent, dq0 and
+    dld included, float64, against the plain version at 1e-10."""
+    from celerite_torch import terms
+    from celerite_torch.ops import tangent
+
+    model = _wide_jvp_model(terms, width)
+    n, lanes = (2000, 32) if shape == "dead_lanes" else (16, 16)
+    t, y, yerr = make_data(n, seed=3, t_max=n / 10.0)
+    s, d = lane_tangent_streams(model, t, y, yerr, lanes,
+                                device=cuda_device)
+    if shape == "dead_lanes":
+        s = tuple(x[..., :31].contiguous() for x in s)
+        d = tuple(x[..., :31].contiguous() for x in d)
+    assert s[0].shape[0] == (63 if shape == "dead_lanes" else 1)
+    assert s[0].shape[1] == width
+    mix = torch.as_tensor(np.random.default_rng(ndir).standard_normal(
+        (ndir, d[0].shape[1])), device=cuda_device)
+    d = tuple(torch.einsum("kt,ltpb->lkpb", mix, x).contiguous() for x in d)
+    before = tangent.factor_jvp_cuda.launches
+    errs = compare_tangent_kernels(s, d, seg=s[0].shape[-1],
+                                   kernels=("factor_jvp",))
+    assert tangent.factor_jvp_cuda.launches == before + 1
+    assert errs["factor_jvp"]["max_rel_err"] <= 1e-10, errs
 
 
 @pytest.mark.cuda

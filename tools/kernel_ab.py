@@ -1,36 +1,41 @@
 #!/usr/bin/env python
-"""Time one tree's kernels of rows 3-5, 8-12, 15-18 and 21 (PERF.md
+"""Time one tree's kernels of rows 2-5, 8-12, 15-18 and 21 (PERF.md
 section 6) on the plans chip_smoke.py times them on, so that two trees can
 be compared on one card.
 
 Usage (on a machine with an NVIDIA H100), from the root of a checkout:
 
-    python3 tools/kernel_ab.py [--tree DIR] [--rows 4,8]
+    python3 tools/kernel_ab.py [--tree DIR] [--rows 4,8] [--call-c]
 
 ``DIR`` (default: this checkout) is the root of a tree whose
 ``celerite_torch`` and ``chip_smoke.py`` are imported; an older commit
 unpacked with ``git archive`` into a git-ignored directory (``build/``)
 serves.  Run the trees in turns in one command (old, new, new, old) to
-compare them on one card.  ``--rows`` times only the rows named (3, 4,
-5, 8, 9, 10, 11, 12, 15, 16, 17, 18, 21; 3-5 build together, as do 8-11
-and 16-17).
+compare them on one card.  ``--rows`` times only the rows named (2, 3, 4,
+5, 8, 9, 10, 11, 12, 15, 16, 17, 18, 21; 2-5 build together, as do 8-11
+and 16-17; ``--rows ""`` none).  ``--call-c`` also times main path C's
+calls.
 
-Builds what the rows take of ``fused4_grad.cu`` at P = 8, ``tangent.cu``
-at 8 and 16, ``adjoint.cu`` at 13 and 16, ``pallas_solver.cu`` at 16,
-``fused.cu`` and ``onepass.cu`` at 8, and prints one JSON line a
-measurement, each with the tree, the card's name and power limit
-(nvidia-smi) and ptxas's registers and spill bytes of the kernels timed:
+Builds what the rows take of ``fused4_grad.cu`` at P = 8 (at every P =
+1-12 for row 2's ptxas figures), ``tangent.cu`` at 8 and 16,
+``adjoint.cu`` at 13 and 16, ``pallas_solver.cu`` at 16, ``fused.cu`` and
+``onepass.cu`` at 8, and prints one JSON line a measurement, each with the
+tree, the card's name and power limit (nvidia-smi) and ptxas's registers
+and spill bytes of the kernels timed:
 
-- ``row5``, ``row3`` and ``row4``: fused4 ``factor_bwd``, ``elem_bwd`` and
-  ``factor_fwd`` on main path C's 16-chain batch plan (config[2], N = 1e5,
-  16 x 512 lanes of 196 steps), and ``row4`` also on its one-theta plan
-  (512 lanes), float64 and float32;
+- ``row2``, ``row5``, ``row3`` and ``row4``: fused4 ``elem_fwd``,
+  ``factor_bwd``, ``elem_bwd`` and ``factor_fwd`` on main path C's
+  16-chain batch plan (config[2], N = 1e5, 16 x 512 lanes of 196 steps),
+  and rows 2 and 4 also on its one-theta plan (512 lanes), float64 and
+  float32;
 - ``row18``: the tangent route's ``jac`` call on sampler_G's 4-chain plan
   (4 x 256 lanes of 391 steps, T = 7) and on main path G's 16-chain
   batch plan, float64, with the device time of each of its four launches
   from torch.profiler;
-- ``row16_17``: the split pair (``elements_jvp``, ``factor_jvp``) on main
-  path G's folded batch plan of E's model (P = 16, T = 13), float64;
+- ``row16`` and ``row17``: the split pair's ``elements_jvp`` and
+  ``factor_jvp`` on main path G's folded batch plan of E's model (P = 16,
+  T = 13), and ``row17`` also on its one-theta plan, float64, with
+  ptxas's figures at P = 13 and 16;
 - ``row8``, ``row9``, ``row10`` and ``row11``: the adjoint
   ``elements_fwd``, ``elements_bwd``, ``factor_fwd`` and ``factor_bwd`` on
   sampler_E's 4-chain plan and on main path E's 16-chain batch plan (E's
@@ -43,7 +48,12 @@ measurement, each with the tree, the card's name and power limit
 - ``row15``: the single-sweep kernel on main path G's value plan of
   config[2] (one theta, P = 8), float64;
 - ``row21``: the one-pass ``sweep_bwd`` on main path H's config[2] plan,
-  float64.
+  float64;
+- ``callC`` (``--call-c``): main path C's ``value_and_grad`` at one theta
+  and ``value_and_grad_batch`` at 16, float64, the host clock's median,
+  p10 and p90 ms a call (``chip_smoke.eval_spread_ms``) and a profile's
+  device-busy ms, idle share, the port's kernels' ms and the glue's
+  (``chip_smoke.profile_evals``).
 
 Times are the mean of CUDA events around back-to-back calls.
 """
@@ -59,10 +69,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=".",
                     help="root of the tree whose celerite_torch is timed")
-    ap.add_argument("--rows", default="3,4,5,8,9,10,11,12,15,16,17,18,21",
+    ap.add_argument("--rows", default="2,3,4,5,8,9,10,11,12,15,16,17,18,21",
                     help="comma-separated rows to time")
+    ap.add_argument("--call-c", action="store_true",
+                    help="also time main path C's calls")
     args = ap.parse_args()
-    rows = {int(r) for r in args.rows.split(",")}
+    rows = {int(r) for r in args.rows.split(",") if r}
     root = os.path.abspath(args.tree)
     sys.path.insert(0, root)
 
@@ -85,13 +97,15 @@ def main():
     smi = cs.smi_name_power()
     t0 = time.perf_counter()
     jobs = [job for job, of in (
-        (("fused4_grad.cu", 8), {3, 4, 5}), (("tangent.cu", 8), {18}),
-        (("tangent.cu", 16), {16, 17}),
+        (("fused4_grad.cu", 8), {2, 3, 4, 5}), (("tangent.cu", 8), {18}),
+        (("tangent.cu", 13), {17}), (("tangent.cu", 16), {16, 17}),
         (("adjoint.cu", 13), {8, 9, 10, 11}),
         (("adjoint.cu", 16), {8, 9, 10, 11}),
         (("pallas_solver.cu", 16), {12}), (("fused.cu", 8), {15}),
         (("onepass.cu", 8), {21}))
         if rows & of]
+    if 2 in rows:
+        jobs += [("fused4_grad.cu", p) for p in range(1, 13) if p != 8]
     paths = _build.build([(s, {"CELERITE_P": p}) for s, p in jobs])
     ptxas = {"{0}:{1}".format(s, p): cs.ptxas_summary(
         path.with_suffix(".ptxas.txt")) for (s, p), path in zip(jobs, paths)}
@@ -122,25 +136,29 @@ def main():
 
     theta = torch.as_tensor(gp.get_parameter_vector(), device=dev)
     thetas = cs.path_c_thetas(theta, dev)
+    if args.call_c:
+        time_call_c(cs, gp, t, y, yerr, prior, theta, thetas, emit)
 
-    # Rows 5, 3 and 4 on C's 16-chain plan, row 4 also on its one-theta
-    # plan.
+    # Rows 2, 5, 3 and 4 on C's 16-chain plan, rows 2 and 4 also on its
+    # one-theta plan.
     nc = cs.SAMPLER_CHAINS
     cfs = torch.stack([cs.packed_cf(gp, th) for th in thetas[:nc]])
-    for dt in (torch.float64, torch.float32) if rows & {3, 4, 5} else ():
+    for dt in (torch.float64, torch.float32) if rows & {2, 3, 4, 5} else ():
         lp = gp.build_logprob(t, y, yerr=yerr, log_prior=prior, dtype=dt)
-        for ncc in (nc, 1) if 4 in rows else (nc,):
+        for ncc in (nc, 1) if rows & {2, 4} else (nc,):
             plan = lp.loglik.value_ok_grad_batch.folded_plan(ncc)
             cf = cfs if ncc > 1 else cs.packed_cf(gp, theta)
             calls = cs.grad_kernel_calls(cf.to(dt), plan, pr, pc)
-            for row, name in ((5, "factor_bwd"), (3, "elem_bwd"),
-                              (4, "factor_fwd")):
-                if row in rows and (ncc > 1 or row == 4):
+            for row, name in ((2, "elem_fwd"), (5, "factor_bwd"),
+                              (3, "elem_bwd"), (4, "factor_fwd")):
+                if row in rows and (ncc > 1 or row in (2, 4)):
                     emit("row{0}".format(row), kernel="fused4 " + name,
                          dtype=str(dt)[6:], chains=ncc,
                          lanes=plan.t.shape[1], steps=plan.t.shape[0],
                          ms=cs.sync_time_ms(calls[name][0], reps=20),
-                         ptxas=pick("fused4_grad.cu", 8, name))
+                         ptxas={p: pick("fused4_grad.cu", p, name)
+                                for p in (range(1, 13) if row == 2
+                                          else (8,))})
             del plan, calls
             torch.cuda.empty_cache()
         del lp
@@ -150,7 +168,8 @@ def main():
     if 18 in rows:
         time_row18(cs, gp, t, y, yerr, prior, thetas, emit, pick)
     if rows & {16, 17}:
-        time_rows16_17(cs, gpe, t, y, yerr, prior, thetase, emit, pick)
+        time_rows16_17(cs, gpe, t, y, yerr, prior, thetase, emit, pick,
+                       rows)
 
     # Rows 8-11 on sampler_E's 4-chain plan and E's 16-chain plan.
     layout = getattr(cs, "adjoint_bwd_layout", None)
@@ -211,6 +230,27 @@ def main():
     return 0
 
 
+def time_call_c(cs, gp, t, y, yerr, prior, theta, thetas, emit):
+    """Main path C's two calls in float64, on the host clock and profiled."""
+    import torch
+
+    lp = gp.build_logprob(t, y, yerr=yerr, log_prior=prior,
+                          dtype=torch.float64)
+    for call, fn, arg, batches, per_batch in (
+            ("single", lp.value_and_grad, theta, 15, 10),
+            ("batch16", lp.value_and_grad_batch, thetas, 15, 5)):
+        ms = cs.eval_spread_ms(fn, arg, batches=batches, per_batch=per_batch)
+        prof = cs.profile_evals(fn, arg)
+        emit("callC", call=call, dtype="float64", ms=ms,
+             busy_ms=prof["device_busy_ms_per_eval"],
+             idle_share=prof["device_idle_share"],
+             kernel_ms=prof["kernel_ms_per_eval"],
+             glue_ms=prof["glue_ms_per_eval"],
+             glue_launches=prof["glue_launches_per_eval"])
+    del lp
+    torch.cuda.empty_cache()
+
+
 def time_row18(cs, gp, t, y, yerr, prior, thetas, emit, pick):
     """Row 18 on sampler_G's and G's batch plans, with its launches'
     split."""
@@ -255,27 +295,35 @@ def time_row18(cs, gp, t, y, yerr, prior, thetas, emit, pick):
         torch.cuda.empty_cache()
 
 
-def time_rows16_17(cs, gpe, t, y, yerr, prior, thetase, emit, pick):
-    """Rows 16-17 (the split pair) on main path G's batch plan of E's
-    model."""
+def time_rows16_17(cs, gpe, t, y, yerr, prior, thetase, emit, pick, rows):
+    """Rows 16 and 17 (the split pair) on main path G's batch plan of E's
+    model, row 17 also on its one-theta plan."""
     import torch
 
     nc = cs.SAMPLER_CHAINS
     lpg = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior,
                             dtype=torch.float64, fast_grad="tangent")
     vog = lpg.loglik.value_ok_grad_batch
-    ncg = min(nc, vog.fold_cap)
-    s, d = cs.path_tangent_streams(gpe, vog.folded_plan(ncg), thetase[:ncg])
-    calls = cs.tangent_kernel_calls(s, d, s[0].shape[-1] // ncg,
-                                    ("elements_jvp", "factor_jvp"))
-    emit("row16_17", kernel="tangent elements_jvp, factor_jvp",
-         dtype="float64", chains=ncg, lanes=s[0].shape[-1],
-         steps=s[0].shape[0], directions=d[0].shape[1],
-         ms={k: cs.sync_time_ms(kern, reps=3) for k, (kern, _) in
-             calls.items()},
-         ptxas=pick("tangent.cu", 16, "tangent_"))
-    del lpg, vog, s, d, calls
-    torch.cuda.empty_cache()
+    for ncg in (min(nc, vog.fold_cap), 1):
+        s, d = cs.path_tangent_streams(gpe, vog.folded_plan(ncg),
+                                       thetase[:ncg])
+        calls = cs.tangent_kernel_calls(s, d, s[0].shape[-1] // ncg,
+                                        ("elements_jvp", "factor_jvp"))
+        for row, name in ((16, "elements_jvp"), (17, "factor_jvp")):
+            if row not in rows or (ncg == 1 and row == 16):
+                continue
+            # Row 17 is tangent_factor_kernel in a tree whose factor_jvp
+            # keeps the split pair's own layout, else the jac factor sweep.
+            ptxas = {p: pick("tangent.cu", p, "tangent_" + name[:-4]) or
+                     pick("tangent.cu", p, "jac_factor")
+                     for p in ((16,) if row == 16 else (13, 16))}
+            emit("row{0}".format(row), kernel="tangent " + name,
+                 dtype="float64", chains=ncg, lanes=s[0].shape[-1],
+                 steps=s[0].shape[0], directions=d[0].shape[1],
+                 ms=cs.sync_time_ms(calls[name][0], reps=5), ptxas=ptxas)
+        del s, d, calls
+        torch.cuda.empty_cache()
+    del lpg, vog
 
 
 if __name__ == "__main__":
