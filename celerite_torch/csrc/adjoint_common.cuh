@@ -3,8 +3,9 @@
 // factor_bwd and elem_bwd), their transposed steps, each split into a front
 // and a back, and the pipeline that runs the streamed reversed sweeps; the
 // forward sweeps (adjoint.cu's elements_fwd and factor_fwd, fused4_grad.cu's
-// elem_fwd and factor_fwd), their steps and their ring of streams (at the end); and the
-// copy of a step's streams into shared memory that both kinds share.
+// elem_fwd and factor_fwd, pallas_solver.cu's factor), their steps and their
+// ring of streams (at the end); and the copy of a step's streams into
+// shared memory that both kinds share.
 //
 // A group of G threads owns a lane, thread r row r (lanes_common.cuh).  A
 // step's front is what the step computes of its saves and streams alone:
@@ -30,7 +31,8 @@
 // warps (bwd_ticks below).  The forward sweeps run one step of the
 // recursion a tick in a group a lane, their streams copied ahead
 // (fwd_ticks); adjoint.cu's factor_fwd and fused4_grad.cu's factor_fwd take
-// the same step (factor_fwd_step), adjoint.cu's elements_fwd and
+// the same step (factor_fwd_step; pallas_solver.cu's factor takes it
+// without the statistics), adjoint.cu's elements_fwd and
 // fused4_grad.cu's elem_fwd the same elements step (elem_fwd_step), each
 // from a ring slot (RingStep<T, 0>) or from the kernel's own lowering
 // (LowStep), and the two steps share their Riccati front
@@ -629,8 +631,9 @@ static int launch_bwd(K kernel, size_t bytes, int B, void* stream, A... args) {
 
 // ---------------------------------------------------------------------------
 // The streamed forward sweeps (adjoint.cu's elements_fwd and factor_fwd,
-// fused4_grad.cu's elem_fwd and factor_fwd): a block of W warps, a group of G threads a
-// lane (32 W / G lanes a block), thread r row r of the state.  Each group
+// fused4_grad.cu's elem_fwd and factor_fwd, pallas_solver.cu's factor): a
+// block of W warps, a group of G threads a lane (32 W / G lanes a block),
+// thread r row r of the state.  Each group
 // copies its lane's streams FWD_AHEAD steps ahead into a ring in shared
 // memory (cp.async), so that a step never waits on device memory.  A
 // step's column sum (g = (Phi M)^T u, or uA = A^T (Phi u)) goes through the
@@ -706,8 +709,10 @@ __device__ __forceinline__ void fwd_ticks(const FwdCtx<T, W, NW>& c, int L, Copy
 // The forward steps' Riccati front, row r (fused4._riccati): Sh <- S = Phi
 // Sh Phi, su = S u, d = a - u.su and w_r = (v_r - su) / d, which also goes
 // to the group's vector wv, for every row to read after the caller's next
-// __syncwarp (riccati_fwd_close).  Returns 1 / d; sets d and w_r.
-template <typename T, class In>
+// __syncwarp (riccati_fwd_close).  Returns 1 / d; sets d and w_r, which
+// is (v_r - su) times 1 / d, or with DIV divided by d as the plain
+// versions do.
+template <bool DIV = false, typename T, class In>
 __device__ __forceinline__ T riccati_fwd_front(int r, const In& in, T (&Sh)[P], T* wv, T& d,
                                                T& wr) {
     Acc4<T> sa;
@@ -719,7 +724,7 @@ __device__ __forceinline__ T riccati_fwd_front(int r, const In& in, T (&Sh)[P], 
     const T su = sa.sum();
     d = in.a - group_sum(in.ur * su);
     const T rd = T(1) / d;
-    wr = r < P ? (in.vr - su) * rd : T(0);
+    wr = r < P ? (DIV ? (in.vr - su) / d : (in.vr - su) * rd) : T(0);
     if (r < P) wv[r] = wr;
     return rd;
 }
@@ -759,15 +764,23 @@ __device__ __forceinline__ void elem_fwd_step(T* tile, T* wv, T* gv, int r, cons
 // column sum through the group's tile), m <- Phi m + w z0 with z0 = y - u
 // . Phi m, Qm <- Qm + g g^T / d, qv, the Kahan-summed quad and log-det and
 // the NaN-propagating minimum pivot (like torch.minimum); the scalar
-// statistics are kept alike in every thread of the group.
-template <typename T, class In>
-__device__ __forceinline__ void factor_fwd_step(T* tile, T* wv, T* gv, int r, const In& in,
-                                                T (&Sh)[P], T (&M)[P], T (&Qm)[P], T& mr,
-                                                T& qvr, Kahan<T>& q0, Kahan<T>& ld, T& mind) {
+// statistics are kept alike in every thread of the group.  Without STATS
+// (pallas_solver.cu's factor, whose d and w streams are outputs) the
+// statistics are left as they are, m rounds as that kernel's plain
+// version, (mh - w (u . mh)) + w y, and in float32 so does w, (v - su) /
+// d: a w one ulp apart moved float32 m by 1.8e-3 of its largest value on
+// bench.py's blocks of 512 steps at N = 1e6, while float64 stays within
+// 2e-13 of plain multiplying by 1 / d, which a division would slow by up
+// to 20% (PERF.md).  Returns d; w stays in the group's vector wv until the
+// next step's front.
+template <bool STATS = true, typename T, class In>
+__device__ __forceinline__ T factor_fwd_step(T* tile, T* wv, T* gv, int r, const In& in,
+                                             T (&Sh)[P], T (&M)[P], T (&Qm)[P], T& mr, T& qvr,
+                                             Kahan<T>& q0, Kahan<T>& ld, T& mind) {
     const T phr = in.phr, ur = in.ur, mh = phr * mr;
-    const T z0 = in.y - group_sum(ur * mh);
+    const T umh = group_sum(ur * mh), z0 = in.y - umh;
     T d, wr;
-    const T rd = riccati_fwd_front(r, in, Sh, wv, d, wr);
+    const T rd = riccati_fwd_front<!STATS && sizeof(T) == 4>(r, in, Sh, wv, d, wr);
 #pragma unroll
     for (int j = 0; j < P; ++j) M[j] = phr * M[j];
     const T gr = column_sum(tile, r, [&](int j) { return M[j] * ur; });
@@ -779,13 +792,28 @@ __device__ __forceinline__ void factor_fwd_step(T* tile, T* wv, T* gv, int r, co
     for (int j = 0; j < P; ++j) {
         const T gj = gv[j];
         M[j] = M[j] - wr * gj;
-        Qm[j] = Qm[j] + grd * gj;
+        if (STATS) Qm[j] = Qm[j] + grd * gj;
+    }
+    if (!STATS) {
+        mr = (mh - wr * umh) + wr * in.y;
+        return d;
     }
     mr = mh + wr * z0;
     q0.add(z0 * z0 * rd);
     ld.add(dlog(d));
     qvr = qvr + (z0 * rd) * gr;
     mind = (d < mind || d != d) ? d : mind;
+    return d;
+}
+
+// ... and the step without its statistics (pallas_solver.cu's factor):
+// Sh, M and m.  Returns d.
+template <typename T, class In>
+__device__ __forceinline__ T factor_fwd_step(T* tile, T* wv, T* gv, int r, const In& in,
+                                             T (&Sh)[P], T (&M)[P], T& mr) {
+    T Qm[P], qvr, mind;  // never read or written
+    Kahan<T> q0, ld;
+    return factor_fwd_step<false>(tile, wv, gv, r, in, Sh, M, Qm, mr, qvr, q0, ld, mind);
 }
 
 // Warps a block of a forward sweep: four where that still gives every SM

@@ -16,8 +16,9 @@
 // its end state in onepass.cu.  Each sweep's step is a value step
 // (elem_value_step, factor_value_step), which tangent.cu's sweeps with
 // tangents also take, there filling the record their tangent steps read.
-// adjoint.cu's elements_fwd and factor_fwd and fused4_grad.cu's elem_fwd
-// and factor_fwd stream their steps through shared memory instead (adjoint_common.cuh).
+// adjoint.cu's elements_fwd and factor_fwd, fused4_grad.cu's elem_fwd and
+// factor_fwd and pallas_solver.cu's factor stream their steps through
+// shared memory instead (adjoint_common.cuh).
 
 #pragma once
 

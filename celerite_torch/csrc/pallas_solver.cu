@@ -18,13 +18,20 @@
 //
 // Design.  elements and factor carry P x P state (Sh with A and J, or with
 // M): a group of G threads a lane, a row of every state each, as in
-// adjoint.cu (lanes_common.cuh; elements is that file's elements sweep
-// without its saves).  subst carries a P-vector and two Kahan pairs, on
-// the same groups, a row of h a thread: on one thread a lane with all of h
-// (each row's loads coalesced across lanes, G times fewer threads) it took
-// 1.4-3.1 times as long on every plan chip_smoke.py timed (PERF.md).
-// Threads of a group past the last lane run lane 0 for the shuffles and
-// write nothing.
+// adjoint.cu.  elements is lanes_common.cuh's elements sweep without
+// saves.  factor is adjoint.cu's streamed forward sweep (adjoint_common.cuh)
+// without its saves and statistics: each group copies its lane's streams
+// FWD_AHEAD steps ahead into a cp.async ring in shared memory, so that no
+// step waits on device memory; g = (Phi M)^T u is a column sum through the
+// group's tile, w and g reach every row through its vector, one reciprocal
+// (float32: division) of d a step (factor_fwd_step<false>); step s's d and
+// w go out at step s + 1's hook; blocks of four warps where that still
+// gives every SM a block, else of one (launch_fwd).  subst carries a
+// P-vector and two Kahan pairs, on lanes_common.cuh's groups, a row of h a
+// thread: on one thread a lane with all of h (each row's loads coalesced
+// across lanes, G times fewer threads) it took 1.4-3.1 times as long on
+// every plan chip_smoke.py timed (PERF.md).  Threads of a group past the
+// last lane run a live lane for the shuffles and write nothing.
 //
 // Bound.  Bytes, per point: elements reads u, v, ph, a (3P + 1 words),
 // factor those and y and writes d and w (3P + 2 read, P + 1 written),
@@ -33,16 +40,20 @@
 // ~0.021 and ~0.012 ms at 3.35 TB/s; the operations (~11 P^2 a point for
 // elements and factor, ~5 P for subst) take less at 34 TFLOP/s.  The
 // kernels are bound instead by the latency of each lane's chain of L
-// dependent steps, each with a few dozen shuffle reductions.
+// dependent steps (782 on F's value plan of 128 lanes, which fill a
+// fraction of the card).
 //
 // Rounding: -fmad=false (_build.SOURCE_FLAGS): the compensated sums of
 // subst break under fma contraction, and float32 then rounds as the plain
 // versions (ops/blocked.py), which keep every multiply and add separate;
-// sums over rows run in another order than theirs.
+// sums over rows run in another order than theirs, factor's in four
+// partial sums (float64: fused multiply-adds); factor's m rounds as
+// theirs, and in float32 its w too (factor_fwd_step<false>), since m
+// carries a 1-ulp change of w far in float32.
 //
 // Compiled once per padded width: nvcc -DCELERITE_P=<P> (1 <= P <= 16).
 
-#include "lanes_common.cuh"
+#include "adjoint_common.cuh"
 
 // ---------------------------------------------------------------------------
 // elements: each lane's Riccati element (A, J, C), no saves.
@@ -57,50 +68,43 @@ solver_elements_kernel(const T* __restrict__ u, const T* __restrict__ v,
 }
 
 // ---------------------------------------------------------------------------
-// factor: the seeded factor, its (d, w) streams and the lane's affine map.
+// factor: the seeded factor, its (d, w) streams and the lane's affine map,
+// streamed (adjoint_common.cuh's forward sweeps): thread r row r of Sh and
+// M and entry r of m.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+template <typename T, int W>
+__global__ void __launch_bounds__(32 * W)
 solver_factor_kernel(const T* __restrict__ u, const T* __restrict__ v,
                      const T* __restrict__ ph, const T* __restrict__ a,
                      const T* __restrict__ y, const T* __restrict__ sh0, int L, int B,
                      T* __restrict__ d_out, T* __restrict__ w_out, T* __restrict__ M_out,
                      T* __restrict__ m_out) {
-    const Lane ln = lane_of(B);
-    const int l = ln.l, r = ln.r;
-    // Row r of Sh and M, entry r of m.
+    using Ctx = FwdCtx<T, W, NRS>;
+    __shared__ T ring[Ctx::RING], tiles[Ctx::TILES], vecs[Ctx::VECS];
+    const Ctx c(B, ring, tiles, vecs);
+    const int r = c.r, l = c.l;
     T Sh[P], M[P];
     get_mat(sh0, r, B, l, Sh);
 #pragma unroll
     for (int j = 0; j < P; ++j) M[j] = j == r ? T(1) : T(0);
-    T mr = T(0);
-    for (int s = 0; s < L; ++s) {
-        T uv[P], pv[P], w[P], g[P], su, wr;
-        load_vec(u, s, B, l, uv);
-        load_vec(ph, s, B, l, pv);
-        const size_t o = ((size_t)s * P + r) * B + l, o1 = (size_t)s * B + l;
-        const T vr = r < P ? v[o] : T(0);
-        const T d = front_row(Sh, uv, pv, vr, a[o1], r, Sh, su, wr, w);
-#pragma unroll
-        for (int j = 0; j < P; ++j) Sh[j] = Sh[j] + d * wr * w[j];
-        // M <- Phi M - w g^T with g = (Phi M)^T u.
-        const T phr = pick(pv, r), ur = pick(uv, r);
-#pragma unroll
-        for (int j = 0; j < P; ++j) M[j] = phr * M[j];
-#pragma unroll
-        for (int j = 0; j < P; ++j) g[j] = group_sum(ur * M[j]);
-#pragma unroll
-        for (int j = 0; j < P; ++j) M[j] = M[j] - wr * g[j];
-        // m <- (mh - w (u . mh)) + w y with mh = Phi m.
-        const T mh = phr * mr;
-        mr = (mh - wr * group_sum(ur * mh)) + wr * y[o1];
-        if (ln.live) {
-            if (r < P) w_out[o] = wr;
-            if (r == 0) d_out[o1] = d;
-        }
-    }
-    if (!ln.live || r >= P) return;
+    T mr = T(0), d = T(0);
+    // Step s's pivot and gain, w_r where the step left it in the vector.
+    const auto put_dw = [&](int s) {
+        if (!c.live) return;
+        if (r < P) w_out[((size_t)s * P + r) * B + l] = c.wv[r];
+        if (r == 0) d_out[(size_t)s * B + l] = d;
+    };
+    fwd_ticks(
+        c, L, [&](T* st, int s) { copy_streams(st, u, v, ph, a, y, s, B, l, r); },
+        [&](int s) {
+            if (s > 0) put_dw(s - 1);
+        },
+        [&](const T* st) {
+            d = factor_fwd_step(c.tile, c.wv, c.gv, r, RingStep<T, 0>(st, r), Sh, M, mr);
+        });
+    if (L > 0) put_dw(L - 1);
+    if (!c.live || r >= P) return;
     put_mat(M_out, r, B, l, M);
     m_out[(size_t)r * B + l] = mr;
 }
@@ -151,7 +155,8 @@ solver_subst_kernel(const T* __restrict__ u, const T* __restrict__ ph,
 
 // ---------------------------------------------------------------------------
 // Host entry points: one launch each on the caller's stream, nothing
-// allocated.  Each returns cudaGetLastError() after its launch.
+// allocated.  Each returns cudaGetLastError() after its launch (factor's
+// block shape chosen by launch_fwd).
 // ---------------------------------------------------------------------------
 
 #define CELERITE_SOLVER_ENTRIES(T, SFX)                                                         \
@@ -168,13 +173,12 @@ solver_subst_kernel(const T* __restrict__ u, const T* __restrict__ ph,
     int celerite_solver_factor_##SFX(const void* u, const void* v, const void* ph,             \
                                      const void* a, const void* y, const void* sh0, void* d,   \
                                      void* w, void* M, void* m, int L, int B, void* stream) {  \
-        solver_factor_kernel<T>                                                                 \
-            <<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                 \
+        return launch_fwd(                                                                     \
+            solver_factor_kernel<T, 4>, solver_factor_kernel<T, 1>, B, stream,                 \
             static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(ph),     \
             static_cast<const T*>(a), static_cast<const T*>(y), static_cast<const T*>(sh0), L, \
             B, static_cast<T*>(d), static_cast<T*>(w), static_cast<T*>(M),                     \
             static_cast<T*>(m));                                                               \
-        return (int)cudaGetLastError();                                                        \
     }                                                                                          \
     int celerite_solver_subst_##SFX(const void* u, const void* ph, const void* w,              \
                                     const void* y, const void* d, const void* h0, void* quad,  \

@@ -2,7 +2,7 @@
 // (sm_90a), on pre-lowered streams and their tangent streams.
 //
 // Replaces the Pallas kernels of celerite_tpu/ops/tangent.py:
-//   tangent_elements_kernel <- _elements_jvp_kernel (tangent.py:71)
+//   jac_elements_kernel     <- _elements_jvp_kernel (tangent.py:71)
 //   jac_factor_kernel       <- _factor_jvp_kernel   (tangent.py:138)
 //   jac_* (four launches)   <- _jac_kernel          (tangent.py:591)
 // The first two are the split pair of wide models (the port runs them at
@@ -25,38 +25,34 @@
 // record of what the tangents read of it (the step's start rows of Sh and
 // of A or M, d, z0, and rows of su, w, u, phi, uA or g); a direction's
 // tangent step (elem_tan_step, factor_tan_step below) reads that record and
-// its own tangent streams.  The two layouts differ in who runs the value:
+// its own tangent streams.
 //
-// - The jac sweeps (jac_elements_kernel, jac_factor_kernel; the factor
-//   sweep is also the split pair's factor_jvp) carry the value once a lane
-//   and chunk of directions.  A block holds LB = 32 / G lanes (4 at P = 8,
-//   2 at P = 9-16): warp 0 is the value warp, warp 1 + j direction j of
-//   the block's chunk of at most TCH = 7 directions (more directions take
-//   more chunks, blockIdx.y, each redoing the value once; T = 13 runs
-//   chunks of 7 and 6).  Steps go by tiles of KT (4 at P <= 8, 2 at 9-16):
-//   each warp copies its streams of a tile (the value's u, v, phi, a, y; a
-//   direction's tangents of them) into its own ring with cp.async two
-//   tiles ahead; the value warp sweeps tile k and writes its records into
-//   the record ring, which a named barrier hands to the direction warps,
-//   which sweep tile k while the value warp goes on with k + 1.  Each
-//   output is written once, the value's by the value warp of chunk 0, a
-//   direction's by its warp.  A sweep's lanes are chains of dependent
-//   steps, each bound by its latency (the value warp's: a tangent warp's
-//   step reads the value's record and needs no division).  At P <= 8 two
-//   blocks share an SM: 128 registers a thread (the launch bound) and ~99
-//   KiB of shared memory a block in float64, for which the value warp's
-//   factor rows of Qm, only accumulated, wait in shared memory.  At P =
-//   9-16 a thread's rows take up to 255 registers, so one block of eight
-//   warps fills an SM's registers; its shared memory, two tiles of records
-//   of NQ words (~2P^2 + 7P, 611 at P = 16) for 2 lanes and each warp's
-//   two tiles of NF = 3P + 2 stream words a lane, is ~67 KiB at P = 16 in
-//   float64 (KT = 2; the split pair's own layout had put the jac sweeps'
-//   rings at ~0.3 MB, sizing them for KT = 8 and fourteen warps).
-// - The elements sweep of the split pair (tangent_elements_kernel) keeps a
-//   group of G threads a (lane, direction) item, BLOCK threads a block:
-//   each item steps its lane's value into its group's record in shared
-//   memory, then its direction's tangent from it, so the value runs once a
-//   direction.
+// The two sweeps (jac_elements_kernel, jac_factor_kernel) carry the value
+// once a lane and chunk of directions, at every padded width.  A block
+// holds LB = 32 / G lanes (4 at P = 8, 2 at P = 9-16): warp 0 is the value
+// warp, warp 1 + j direction j of the block's chunk of at most TCH = 7
+// directions (more directions take more chunks, blockIdx.y, each redoing
+// the value once; T = 13 runs chunks of 7 and 6).  Steps go by tiles of KT
+// (4 at P <= 8, 2 at 9-16): each warp copies its streams of a tile (the
+// value's u, v, phi, a, y; a direction's tangents of them) into its own
+// ring with cp.async two tiles ahead; the value warp sweeps tile k and
+// writes its records into the record ring, which a named barrier hands to
+// the direction warps, which sweep tile k while the value warp goes on with
+// k + 1.  Each output is written once, the value's by the value warp of
+// chunk 0, a direction's by its warp.  A sweep's lanes are chains of
+// dependent steps, each bound by its latency (the value warp's: a tangent
+// warp's step reads the value's record and needs no division).  At P <= 8
+// two blocks share an SM: 128 registers a thread (the launch bound) and
+// ~99 KiB of shared memory a block in float64, for which the value warp's
+// factor rows of Qm, only accumulated, wait in shared memory.  At P = 9-16
+// a thread's rows take up to 255 registers, so one block of eight warps
+// fills an SM's registers, and the value warp's rows of J (the elements
+// sweep's, only accumulated too) wait in shared memory as Qm's do; a
+// direction step there sums by columns through its group's tile and hands
+// dw and the sums to every row through its vector (TAN_TILE).  Its shared
+// memory, two tiles of records of NQ words (~2P^2 + 7P, 611 at P = 16) for
+// 2 lanes, each warp's two tiles of NF = 3P + 2 stream words a lane and
+// the direction groups' tiles, is ~101 KiB at P = 16 in float64 (KT = 2).
 //
 // Bound.  Bytes: each input read once (the value streams and the T tangent
 // streams, (3P + 1)(1 + T) words a point for the elements, (3P + 2)(1 + T)
@@ -79,39 +75,8 @@
 //
 // Compiled once per padded width: nvcc -DCELERITE_P=<P> (1 <= P <= 16).
 
-#include "lanes_common.cuh"
+#include "adjoint_common.cuh"
 #include "prefix_common.cuh"
-
-// The (lane, direction) item of this thread's group; threads past the
-// launch's items run item 0 for the group's shuffles and write nothing.
-struct Item {
-    int l, k, r;
-    bool live;
-};
-
-__device__ __forceinline__ Item item_of(int B, int nT) {
-    const size_t g = ((size_t)blockIdx.x * BLOCK + threadIdx.x) / G;
-    Item it;
-    it.live = g < (size_t)B * nT;
-    const size_t gi = it.live ? g : 0;
-    it.l = (int)(gi % B);
-    it.k = (int)(gi / B);
-    it.r = (int)(threadIdx.x % G);
-    return it;
-}
-
-// Entry r of x[s, k, :, l] (0 for r >= P), and x[s, k, 0, l] of an
-// (L, T, 1, B) stream.
-template <typename T>
-__device__ __forceinline__ T tvec_row(const T* __restrict__ x, int s, int k, int nT, int B,
-                                      int l, int r) {
-    return r < P ? x[(((size_t)s * nT + k) * P + r) * B + l] : T(0);
-}
-
-template <typename T>
-__device__ __forceinline__ T tscal(const T* __restrict__ x, int s, int k, int nT, int B, int l) {
-    return x[((size_t)s * nT + k) * B + l];
-}
 
 // Row r of direction k of a (T, P, P, B) array.
 template <typename T>
@@ -138,12 +103,21 @@ __device__ __forceinline__ void get_tmat(const T* __restrict__ in, int k, int r,
 // A step's stream fields: u (or du), v, phi (P each), a, y.
 constexpr int FU = 0, FV = P, FPH = 2 * P, FA = 3 * P, FY = 3 * P + 1, NF = 3 * P + 2;
 
+// At P = 9-16 a direction step sums duA (or dg) by columns through its
+// group's tile, and dw and those sums reach every row through the group's
+// vector (adjoint_common.cuh's column_sum, as elem_fwd_step does), in place
+// of P butterflies and P broadcast shuffles: rows 16 and 17 1-2% faster in
+// float64, row 16 20-22% in float32 (PERF.md).  At P <= 8 the tiles would
+// not leave room for two blocks an SM: the shuffles stay.
+constexpr bool TAN_TILE = P > 8;
+
 // The tangent of the Riccati step Sh <- Phi Sh Phi + d w w^T.  Returns dd;
-// leaves d, 1 / d, w_r and dw_r.  The tangent steps multiply by the value's
-// 1 / d where the plain versions divide by d (a few ulp, far inside the
-// float64 bar): divisions were most of a tangent step's instructions.
+// leaves d, 1 / d, w_r and dw_r (in `vec` too at P = 9-16).  The tangent
+// steps multiply by the value's 1 / d where the plain versions divide by d
+// (a few ulp, far inside the float64 bar): divisions were most of a
+// tangent step's instructions.
 template <typename T, int S, int SI>
-__device__ __forceinline__ T riccati_tangent_row(Rec<T, S> rec, Rec<T, SI> in, int r,
+__device__ __forceinline__ T riccati_tangent_row(Rec<T, S> rec, Rec<T, SI> in, int r, T* vec,
                                                  T (&dSh)[P], T& d, T& rd, T& wr, T& dwr) {
     const bool row = r < P;
     const T phr = row ? rec[QPH + r] : T(0), ur = row ? rec[QU + r] : T(0);
@@ -163,32 +137,51 @@ __device__ __forceinline__ T riccati_tangent_row(Rec<T, S> rec, Rec<T, SI> in, i
     const T dd = in[FA] - group_sum(dur * su + ur * dsu);
     wr = row ? rec[QW + r] : T(0);
     dwr = row ? ((dvr - dsu) - wr * dd) * rd : T(0);
+    if (TAN_TILE) {
+        if (row) vec[r] = dwr;
+        __syncwarp();
+    }
 #pragma unroll
     for (int j = 0; j < P; ++j) {
         const T wj = rec[QW + j];
-        const T dwj = __shfl_sync(0xffffffffu, dwr, j, G);
+        const T dwj = TAN_TILE ? vec[j] : __shfl_sync(0xffffffffu, dwr, j, G);
         dSh[j] = dSh[j] + dd * wr * wj + d * (dwr * wj + wr * dwj);
     }
     return dd;
 }
 
-// The elements sweep's tangent step: (dSh, dA, dJ).
+// The elements sweep's tangent step: (dSh, dA, dJ); `tile` is the group's
+// tile and then its vector (P words for dw, P for the column sums), used
+// at P = 9-16.
 template <typename T, int S, int SI>
-__device__ __forceinline__ void elem_tan_step(Rec<T, S> rec, Rec<T, SI> in, int r, T (&dSh)[P],
-                                              T (&dA)[P], T (&dJ)[P]) {
+__device__ __forceinline__ void elem_tan_step(Rec<T, S> rec, Rec<T, SI> in, int r, T* tile,
+                                              T (&dSh)[P], T (&dA)[P], T (&dJ)[P]) {
     T d, rd, wr, dwr, duA[P];
-    const T dd = riccati_tangent_row(rec, in, r, dSh, d, rd, wr, dwr);
+    T* vec = tile + P * TS;
+    const T dd = riccati_tangent_row(rec, in, r, vec, dSh, d, rd, wr, dwr);
     const bool row = r < P;
     const T phr = row ? rec[QPH + r] : T(0), ur = row ? rec[QU + r] : T(0);
     const T dphr = row ? in[FPH + r] : T(0), dur = row ? in[FU + r] : T(0);
     // uA = A^T (Phi u) and its tangent, sums over rows for every column.
     const T utr = phr * ur, dutr = dphr * ur + phr * dur;
+    T duAr;
+    if (TAN_TILE) {
+        duAr = column_sum(tile, r, [&](int j) {
+            return dA[j] * utr + rec[QA + j * P + r] * dutr;
+        });
+        if (row) vec[P + r] = duAr;
+        __syncwarp();
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-        const T aj = row ? rec[QA + j * P + r] : T(0);
-        duA[j] = group_sum(dA[j] * utr + aj * dutr);
+        for (int j = 0; j < P; ++j) duA[j] = vec[P + j];
+    } else {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+            const T aj = row ? rec[QA + j * P + r] : T(0);
+            duA[j] = group_sum(dA[j] * utr + aj * dutr);
+        }
+        duAr = pick(duA, r);
     }
-    const T uAr = row ? rec[QG + r] : T(0), duAr = pick(duA, r);
+    const T uAr = row ? rec[QG + r] : T(0);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
         const T aj = row ? rec[QA + j * P + r] : T(0);
@@ -202,21 +195,37 @@ __device__ __forceinline__ void elem_tan_step(Rec<T, S> rec, Rec<T, SI> in, int 
 // the Kahan-summed tangents of the quad and the log-det accumulated.
 template <typename T, int S, int SI>
 __device__ __forceinline__ void factor_tan_step(Rec<T, S> rec, Rec<T, SI> in, int r,
-                                                T (&dSh)[P], T (&dM)[P], T (&dQm)[P], T& dmr,
-                                                T& dqvr, Kahan<T>& dq0, Kahan<T>& dld) {
+                                                T* tile, T (&dSh)[P], T (&dM)[P], T (&dQm)[P],
+                                                T& dmr, T& dqvr, Kahan<T>& dq0, Kahan<T>& dld) {
     T d, rd, wr, dwr, dg[P];
-    const T dd = riccati_tangent_row(rec, in, r, dSh, d, rd, wr, dwr);
+    T* vec = tile + P * TS;
+    const T dd = riccati_tangent_row(rec, in, r, vec, dSh, d, rd, wr, dwr);
     const bool row = r < P;
     const T phr = row ? rec[QPH + r] : T(0), ur = row ? rec[QU + r] : T(0);
     const T dphr = row ? in[FPH + r] : T(0), dur = row ? in[FU + r] : T(0);
     // M <- Phi M - w g^T with g = (Phi M)^T u: the tangents of Phi M and g.
+    T dgr;
+    if (TAN_TILE) {
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-        const T mj = row ? rec[QA + j * P + r] : T(0);
-        dM[j] = dphr * mj + phr * dM[j];
-        dg[j] = group_sum(dM[j] * ur + phr * mj * dur);
+        for (int j = 0; j < P; ++j)
+            dM[j] = dphr * (row ? rec[QA + j * P + r] : T(0)) + phr * dM[j];
+        dgr = column_sum(tile, r, [&](int j) {
+            return dM[j] * ur + phr * rec[QA + j * P + r] * dur;
+        });
+        if (row) vec[P + r] = dgr;
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < P; ++j) dg[j] = vec[P + j];
+    } else {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+            const T mj = row ? rec[QA + j * P + r] : T(0);
+            dM[j] = dphr * mj + phr * dM[j];
+            dg[j] = group_sum(dM[j] * ur + phr * mj * dur);
+        }
+        dgr = pick(dg, r);
     }
-    const T gr = row ? rec[QG + r] : T(0), dgr = pick(dg, r);
+    const T gr = row ? rec[QG + r] : T(0);
 #pragma unroll
     for (int j = 0; j < P; ++j) dM[j] = dM[j] - dwr * rec[QG + j] - wr * dg[j];
     // m <- Phi m + w z0 with z0 = y - u . Phi m.
@@ -238,78 +247,6 @@ __device__ __forceinline__ void factor_tan_step(Rec<T, S> rec, Rec<T, SI> in, in
 }
 
 // ---------------------------------------------------------------------------
-// The elements sweep of the split pair: a group of G threads a (lane,
-// direction) item, the value stepped into the group's record, then the
-// direction's tangent.
-// ---------------------------------------------------------------------------
-
-constexpr int ITEM_GROUPS = BLOCK / G;
-// A group's words of shared memory: the value's record, then the step's
-// tangent streams.
-constexpr int ITEM_WORDS = NQ + NF;
-
-template <typename T>
-__device__ __forceinline__ Rec<T, 1> item_rec(T* recs) {
-    return Rec<T, 1>{recs + (threadIdx.x / G) * ITEM_WORDS};
-}
-
-// Direction k's streams of step s into the group's words: row r of du,
-// dv, dph, and da from thread 0.
-template <typename T>
-__device__ __forceinline__ Rec<T, 1> item_in(T* recs, int r, int s, int k, int nT, int B, int l,
-                                             const T* __restrict__ du,
-                                             const T* __restrict__ dv,
-                                             const T* __restrict__ dph,
-                                             const T* __restrict__ da) {
-    const Rec<T, 1> in{recs + (threadIdx.x / G) * ITEM_WORDS + NQ};
-    if (r < P) {
-        in[FU + r] = tvec_row(du, s, k, nT, B, l, r);
-        in[FV + r] = tvec_row(dv, s, k, nT, B, l, r);
-        in[FPH + r] = tvec_row(dph, s, k, nT, B, l, r);
-    }
-    if (r == 0) in[FA] = tscal(da, s, k, nT, B, l);
-    return in;
-}
-
-template <typename T>
-__device__ __forceinline__ void elements_jvp_items(
-    T* recs, const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
-    const T* __restrict__ a, const T* __restrict__ du, const T* __restrict__ dv,
-    const T* __restrict__ dph, const T* __restrict__ da, int L, int B, int nT,
-    T* __restrict__ A_out, T* __restrict__ J_out, T* __restrict__ C_out, T* __restrict__ DA_out,
-    T* __restrict__ DJ_out, T* __restrict__ DC_out) {
-    const Item it = item_of(B, nT);
-    const int l = it.l, k = it.k, r = it.r;
-    const Rec<T, 1> rec = item_rec(recs);
-    T Sh[P], A[P], J[P], dSh[P], dA[P], dJ[P];
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-        Sh[j] = J[j] = dSh[j] = dA[j] = dJ[j] = T(0);
-        A[j] = j == r ? T(1) : T(0);
-    }
-    for (int s = 0; s < L; ++s) {
-        T uv[P], pv[P];
-        load_vec(u, s, B, l, uv);
-        load_vec(ph, s, B, l, pv);
-        const T vr = r < P ? v[((size_t)s * P + r) * B + l] : T(0);
-        const Rec<T, 1> in = item_in(recs, r, s, k, nT, B, l, du, dv, dph, da);
-        elem_value_step<true>(uv, pv, vr, a[(size_t)s * B + l], r, Sh, A, J, rec);
-        __syncwarp();
-        elem_tan_step(rec, in, r, dSh, dA, dJ);
-        __syncwarp();
-    }
-    if (!it.live || r >= P) return;
-    if (k == 0) {
-        put_mat(A_out, r, B, l, A);
-        put_mat(J_out, r, B, l, J);
-        put_mat(C_out, r, B, l, Sh);
-    }
-    put_tmat(DA_out, k, r, B, l, dA);
-    put_tmat(DJ_out, k, r, B, l, dJ);
-    put_tmat(DC_out, k, r, B, l, dSh);
-}
-
-// ---------------------------------------------------------------------------
 // The jac sweeps' layout: a block of LB lanes, a value warp and a warp a
 // direction of the block's chunk, tiles of KT steps through shared rings.
 // ---------------------------------------------------------------------------
@@ -322,20 +259,24 @@ constexpr int KT = P <= 8 ? 4 : 2;
 constexpr int TCH = 7;
 constexpr int JAC_THREADS = 32 * (1 + TCH);
 // Blocks an SM the launch bound asks for: two at P <= 8 (128 registers a
-// thread), one at P = 9-16, where a value warp's rows of Sh and M and the
-// step's u, phi, w and g, and a direction warp's rows of dSh, dM, dQm and
-// dg, take up to 255 registers a thread.
+// thread), one at P = 9-16, where a value warp's rows of Sh and M (or A)
+// and the step's u, phi, w and g (or uA), and a direction warp's rows of
+// dSh, dM and dQm (or dA and dJ) and dg (or duA), take up to 255 registers
+// a thread.
 constexpr int JAC_BLOCKS = P <= 8 ? 2 : 1;
-// Shared memory in words of T: the value warp's rows of Qm (the factor's;
-// P + 1 words a thread, against bank conflicts), two tiles of records,
-// then each warp's two tiles of streams: 101,376 bytes at P = 8, T >= 7 in
-// float64 (94,720 at T = 16, three chunks of 6, 6 and 4); 69,056 at P = 16
-// (KT = 2: records of NQ = 611 words for 2 lanes) and 51,392 at P = 13.
+// Shared memory in words of T: the value warp's rows of Qm (the factor's)
+// or J (the elements', at P = 9-16; P + 1 words a thread, against bank
+// conflicts), two tiles of records, each warp's two tiles of streams, and
+// at P = 9-16 each direction group's tile and vector: 101,376 bytes at P =
+// 8, T >= 7 in float64 (94,720 at T = 16, three chunks of 6, 6 and 4);
+// 103,104 at P = 16 (KT = 2: records of NQ = 611 words for 2 lanes) and
+// 74,688 at P = 13, T >= 7.
 constexpr int SM_QM = 32 * (P + 1);
 constexpr int SM_PUB = KT * NQ * LB;
 constexpr int SM_STR = KT * NF * LB;
+constexpr int SM_TAN = TAN_TILE ? LB * (P * TS + 2 * P) : 0;
 __host__ __device__ constexpr int jac_smem_words(int tch) {
-    return SM_QM + 2 * SM_PUB + (1 + tch) * 2 * SM_STR;
+    return SM_QM + 2 * SM_PUB + (1 + tch) * 2 * SM_STR + tch * SM_TAN;
 }
 
 extern __shared__ __align__(16) unsigned char jac_smem[];
@@ -343,9 +284,9 @@ extern __shared__ __align__(16) unsigned char jac_smem[];
 // This thread's place: its warp (0 the value, 1 + j direction j), its lane
 // in the block (q; global l, read as lc, which dead lanes past B clamp to
 // B - 1 and never write) and row r, and the block's chunk of directions
-// (k0, tc of them).
+// (k0, tc of them; tch the launch's chunk, which sizes its rings).
 struct JacCtx {
-    int warp, q, r, l, lc, l0, k0, tc;
+    int warp, q, r, l, lc, l0, k0, tc, tch;
     bool live;
 };
 
@@ -360,7 +301,22 @@ __device__ __forceinline__ JacCtx jac_ctx(int B, int nT, int tch) {
     c.lc = c.live ? c.l : B - 1;
     c.k0 = blockIdx.y * tch;
     c.tc = min(tch, nT - c.k0);
+    c.tch = tch;
     return c;
+}
+
+// The value warp's thread's P words of shared memory for a state only
+// accumulated (the factor's Qm, the elements' J at P = 9-16).
+template <typename T>
+__device__ __forceinline__ T (&jac_rows())[P] {
+    return *reinterpret_cast<T(*)[P]>(reinterpret_cast<T*>(jac_smem) + threadIdx.x * (P + 1));
+}
+
+// A direction warp's group's tile and vector (at P = 9-16).
+template <typename T>
+__device__ __forceinline__ T* jac_tan(const JacCtx& c) {
+    return reinterpret_cast<T*>(jac_smem) + SM_QM + 2 * SM_PUB + (1 + c.tch) * 2 * SM_STR +
+           ((c.warp - 1) * LB + c.q) * (P * TS + 2 * P);
 }
 
 template <typename T>
@@ -460,7 +416,9 @@ jac_elements_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* _
     const int r = c.r;
     T* ring = jac_ring<T>(c.warp);
     if (c.warp == 0) {
-        T Sh[P], A[P], J[P];
+        // J is only accumulated: at P = 9-16 its rows wait in shared memory.
+        T Sh[P], A[P], Jr[P];
+        T(&J)[P] = P > 8 ? jac_rows<T>() : Jr;
 #pragma unroll
         for (int j = 0; j < P; ++j) {
             Sh[j] = J[j] = T(0);
@@ -497,7 +455,7 @@ jac_elements_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* _
                     [&](int tile, int n) {
                         for (int s = 0; s < n; ++s)
                             elem_tan_step(jac_rec<T>(c, tile, s), ring_step(c, ring, tile, s),
-                                          r, dSh, dA, dJ);
+                                          r, jac_tan<T>(c), dSh, dA, dJ);
                     });
     if (c.live && r < P) {
         put_tmat(DA_out, kk, r, B, c.l, dA);
@@ -524,8 +482,7 @@ jac_factor_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __r
     T* ring = jac_ring<T>(c.warp);
     if (c.warp == 0) {
         // Qm is only accumulated: its rows wait in shared memory.
-        T(&Qm)[P] = *reinterpret_cast<T(*)[P]>(reinterpret_cast<T*>(jac_smem) +
-                                                threadIdx.x * (P + 1));
+        T(&Qm)[P] = jac_rows<T>();
         T Sh[P], M[P];
         get_mat(sh0, r, B, c.lc, Sh);
 #pragma unroll
@@ -571,8 +528,8 @@ jac_factor_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __r
     Kahan<T> dq0{T(0), T(0)}, dld{T(0), T(0)};
     jac_pass<false>(c, ring, du, dv, dph, da, dy, nT, kk, L, B, [&](int tile, int n) {
         for (int s = 0; s < n; ++s)
-            factor_tan_step(jac_rec<T>(c, tile, s), ring_step(c, ring, tile, s), r, dSh, dM,
-                            dQm, dmr, dqvr, dq0, dld);
+            factor_tan_step(jac_rec<T>(c, tile, s), ring_step(c, ring, tile, s), r,
+                            jac_tan<T>(c), dSh, dM, dQm, dmr, dqvr, dq0, dld);
     });
     if (c.live && r < P) {
         put_tmat(DM_out, kk, r, B, c.l, dM);
@@ -587,7 +544,7 @@ jac_factor_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __r
 }
 
 // ---------------------------------------------------------------------------
-// The split pair's elements kernel and the jac scans.
+// The jac scans.
 // ---------------------------------------------------------------------------
 
 #define ELEMENTS_JVP_PARAMS                                                                    \
@@ -596,8 +553,6 @@ jac_factor_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __r
         const T *__restrict__ dph, const T *__restrict__ da, int L, int B, int nT,            \
         T *__restrict__ A, T *__restrict__ J, T *__restrict__ C, T *__restrict__ DA,          \
         T *__restrict__ DJ, T *__restrict__ DC
-#define ELEMENTS_JVP_ARGS u, v, ph, a, du, dv, dph, da, L, B, nT, A, J, C, DA, DJ, DC
-
 #define FACTOR_JVP_PARAMS                                                                      \
     const T *__restrict__ u, const T *__restrict__ v, const T *__restrict__ ph,               \
         const T *__restrict__ a, const T *__restrict__ y, const T *__restrict__ du,           \
@@ -607,12 +562,6 @@ jac_factor_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __r
         T *__restrict__ qv, double *__restrict__ q0, double *__restrict__ ld,                 \
         T *__restrict__ mind, T *__restrict__ DM, T *__restrict__ Dm, T *__restrict__ DQm,    \
         T *__restrict__ Dqv, double *__restrict__ Dq0, double *__restrict__ Dld
-
-template <typename T>
-__global__ void __launch_bounds__(BLOCK) tangent_elements_kernel(ELEMENTS_JVP_PARAMS) {
-    __shared__ T recs[ITEM_GROUPS * ITEM_WORDS];
-    elements_jvp_items(recs, ELEMENTS_JVP_ARGS);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(SCAN_THREADS)
@@ -643,11 +592,13 @@ jac_assemble_kernel(const T* __restrict__ M, const T* __restrict__ m, const T* _
 //
 // elements: in u, v, ph (L, P, B), a (L, 1, B), du, dv, dph (L, T, P, B),
 //   da (L, T, 1, B); out A, J, C (P, P, B), DA, DJ, DC (T, P, P, B).
+//   The jac elements sweep (jac_elements_kernel) at every padded width
+//   1-16.
 // factor: in those, y (L, 1, B), dy (L, T, 1, B), sh0 (P, P, B), dsh0
 //   (T, P, P, B); out M, Qm (P, P, B), m, qv (P, B), q0, ld (B,) float64,
 //   mind (B,), DM, DQm (T, P, P, B), Dm, Dqv (T, P, B), Dq0, Dld (T, B)
-//   float64: the jac factor sweep's layout (jac_factor_kernel) at every
-//   padded width 1-16.
+//   float64: the jac factor sweep (jac_factor_kernel) at every padded
+//   width 1-16.
 // jac: the elements' and the factor's inputs; as scratch their outputs
 //   (w[0..5] the elements', w[6..7] sh0 and dsh0, w[8..20] the factor's);
 //   out quad, ld (B / seg,) float64, mind (B / seg,), dquad, dld
@@ -680,6 +631,16 @@ static int jac_prepare(K kernel, size_t bytes) {
 }
 
 template <typename T>
+static int elements_launch(ELEMENTS_JVP_PARAMS, cudaStream_t st) {
+    if (nT < 1) return (int)cudaErrorInvalidValue;
+    const JacGrid g = jac_grid<T>(B, nT);
+    if (const int err = jac_prepare(jac_elements_kernel<T>, g.bytes)) return err;
+    jac_elements_kernel<T><<<g.blocks, g.threads, g.bytes, st>>>(
+        u, v, ph, a, du, dv, dph, da, L, B, nT, g.tch, A, J, C, DA, DJ, DC);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
 static int factor_launch(FACTOR_JVP_PARAMS, cudaStream_t st) {
     if (nT < 1) return (int)cudaErrorInvalidValue;
     const JacGrid g = jac_grid<T>(B, nT);
@@ -702,13 +663,11 @@ static int jac_launch(const T* u, const T* v, const T* ph, const T* a, const T* 
       *DQm = (T*)w[17], *Dqv = (T*)w[18];
     double *q0 = (double*)w[12], *ld = (double*)w[13], *Dq0 = (double*)w[19],
            *Dld = (double*)w[20];
-    const JacGrid g = jac_grid<T>(B, nT);
     const dim3 scans((unsigned)(B / seg), (unsigned)nT);
     int err;
-    if ((err = jac_prepare(jac_elements_kernel<T>, g.bytes))) return err;
-    jac_elements_kernel<T><<<g.blocks, g.threads, g.bytes, st>>>(
-        u, v, ph, a, du, dv, dph, da, L, B, nT, g.tch, A, J, C, DA, DJ, DC);
-    if ((err = (int)cudaGetLastError())) return err;
+    if ((err = elements_launch<T>(u, v, ph, a, du, dv, dph, da, L, B, nT, A, J, C, DA, DJ, DC,
+                                  st)))
+        return err;
     jac_seed_kernel<T><<<scans, SCAN_THREADS, 0, st>>>(A, J, C, DA, DJ, DC, B, seg, sh0, dsh0);
     if ((err = (int)cudaGetLastError())) return err;
     if ((err = factor_launch<T>(u, v, ph, a, y, du, dv, dph, da, dy, sh0, dsh0, L, B, nT, M, m,
@@ -726,12 +685,10 @@ static int jac_launch(const T* u, const T* v, const T* ph, const T* a, const T* 
                                         const void* dph, const void* da, void* A, void* J,     \
                                         void* C, void* DA, void* DJ, void* DC, int L, int B,   \
                                         int nT, void* stream) {                                \
-        tangent_elements_kernel<T>                                                             \
-            <<<grid_for(B * nT, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(           \
-            (const T*)u, (const T*)v, (const T*)ph, (const T*)a, (const T*)du, (const T*)dv,  \
-            (const T*)dph, (const T*)da, L, B, nT, (T*)A, (T*)J, (T*)C, (T*)DA, (T*)DJ,       \
-            (T*)DC);                                                                          \
-        return (int)cudaGetLastError();                                                       \
+        return elements_launch<T>((const T*)u, (const T*)v, (const T*)ph, (const T*)a,       \
+                                  (const T*)du, (const T*)dv, (const T*)dph, (const T*)da, L, \
+                                  B, nT, (T*)A, (T*)J, (T*)C, (T*)DA, (T*)DJ, (T*)DC,        \
+                                  static_cast<cudaStream_t>(stream));                        \
     }                                                                                         \
     int celerite_tangent_factor_##SFX(                                                        \
         const void* u, const void* v, const void* ph, const void* a, const void* y,          \

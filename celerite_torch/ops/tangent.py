@@ -35,11 +35,11 @@ chunk from a TPU's scoped-VMEM budget (``_VMEM_BUDGET``,
 ``_fused_per_lane``); none of those constants means anything here.  The
 port's rule: P <= 8 the single-sweep kernel, 9..16 the split pair; every
 call takes all T directions (``max_tangents`` still splits them into
-pipeline runs).  The split pair gives each (lane, direction) item its own
-group of threads, whatever T is; the jac sweeps give a block of lanes a
-value warp and a warp a direction, and the host entry of
-``csrc/tangent.cu`` splits T into chunks of at most eight directions, one
-row of blocks a chunk, each redoing the value once.  The lanes a chain
+pipeline runs).  The split pair's two kernels are the jac call's two
+sweeps, which give a block of lanes a value warp and a warp a direction;
+the host entries of ``csrc/tangent.cu`` split T into chunks of at most
+seven directions, one row of blocks a chunk, each redoing the value once.
+The lanes a chain
 (:func:`default_jac_blocks`) on the card are ``_CUDA_LANES``, from
 chip_smoke.py's lane_sweep_G (PERF.md), and on the CPU
 ``fused.default_num_blocks``.

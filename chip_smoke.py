@@ -203,8 +203,7 @@ PORT_KERNELS = ("elem_kernel", "elem_round", "factor_kernel", "affine_round",
     "adjoint_" + k + "_kernel" for k in adjoint.ADJOINT_KERNELS) + tuple(
     "solver_" + k + "_kernel" for k in pallas_solver.SOLVER_KERNELS) + tuple(
     "fused_" + k + "_kernel" for k in ("elements", "seed", "factor",
-                                       "assemble")) + (
-    "tangent_elements_kernel",) + tuple(
+                                       "assemble")) + tuple(
     "jac_" + k + "_kernel" for k in ("elements", "seed", "factor",
                                      "assemble")) + (
     "onepass_sweep_kernel", "onepass_fwd_kernel", "onepass_bwd_kernel")
@@ -2889,16 +2888,17 @@ def main_path_i(t, y, yerr, dev):
 
 
 def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
-                       onepass_rows):
+                       onepass_rows, solver_rows):
     """The kernels redesigned for this card and those sharing their code,
     with the card's name and power limit: ptxas's registers and spill bytes
     of each at every width built, and their timings on each plan (rows 2,
     5 and 4 on C's 1- and 16-chain plans, row 3, which runs row 9's
     transposed step in row 5's layout, rows 2 and 4, which run rows 8's
     and 10's steps; row 18 on G's plans, with its four launches' split;
-    rows 16 and 17 on E's model, row 17 in row 18's layout at P = 13 and
-    16; rows 8, 9, 10 and 11 on E's plans; row 21, which shares row 11's
-    sweep and row 5's transposed step)."""
+    rows 16 and 17 on E's model, both in row 18's layout at P = 13 and 16;
+    rows 8, 9, 10 and 11 on E's plans; row 21, which shares row 11's sweep
+    and row 5's transposed step; row 13, which runs row 10's step without
+    its statistics, on F's plans)."""
     def regs(src, prefix, widths=None):
         return {p: {k: v for k, v in kerns.items() if k.startswith(prefix)}
                 for p, kerns in ptxas[src].items()
@@ -2920,7 +2920,7 @@ def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
         "elem_bwd": grad("elem_bwd"),
         "factor_fwd": grad("factor_fwd"),
         "jac": tan("jac", "jac_", None),
-        "split_pair": tan("elements_jvp", "tangent_elements", None),
+        "split_pair": tan("elements_jvp", "jac_elements", (13, 16)),
         "factor_jvp": tan("factor_jvp", "jac_factor", (13, 16)),
         "adjoint_elements_fwd": {
             "ptxas": regs("adjoint.cu", "adjoint_elements_fwd"),
@@ -2942,6 +2942,9 @@ def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
             "ptxas": regs("onepass.cu", "onepass_bwd"),
             "models": {m: rows["sweep_bwd"]
                        for m, rows in onepass_rows.items()}},
+        "solver_factor": {
+            "ptxas": regs("pallas_solver.cu", "solver_factor"),
+            "plans": {k: rows["factor"] for k, rows in solver_rows.items()}},
     }
 
 
@@ -3383,7 +3386,8 @@ def main():
             "library_ms": None,
         })
     emit("redesigned_kernels", **redesigned_summary(
-        smi, ptxas, grad_rows, tangent_rows, adj_rows, onepass_rows))
+        smi, ptxas, grad_rows, tangent_rows, adj_rows, onepass_rows,
+        solver_rows))
     emit("done", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

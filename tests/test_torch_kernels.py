@@ -525,6 +525,41 @@ def test_solver_kernels_match_plain(width, dtype, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 8, 13, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", ["one_step", "two_steps", "dead_lane",
+                                   "four_warps"])
+def test_solver_factor_kernel_shapes(width, dtype, shape, cuda_device):
+    """The three pallas_solver kernels, factor's streamed sweep above all,
+    on the shapes its ring and its blocks meet: lanes of one and two steps
+    (fewer than the three the ring copies ahead), 37 lanes;
+    ``dead_lane``: four one-warp blocks of 32 / G lanes but one, 96 steps;
+    ``four_warps``: enough lanes (three past 128 / G a block on every SM)
+    for the four-warp blocks, whose last block holds dead lanes, 4 steps.
+    Every output against its plain version: 1e-10 in float64,
+    SOLVER_F32_RTOL in float32."""
+    from celerite_torch import terms
+    from celerite_torch.ops import pallas_solver
+
+    g = 1 << (width - 1).bit_length()   # threads a lane
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    steps, lanes = {"one_step": (1, 37), "two_steps": (2, 37),
+                    "dead_lane": (96, 4 * 32 // g - 1),
+                    "four_warps": (4, sms * 128 // g + 3)}[shape]
+    n = steps * lanes
+    t, y, yerr = make_data(n, seed=5, t_max=n / 20.0)
+    streams = blocked_streams(width_kernel(terms, width), t, y, yerr, steps,
+                              dtype=dtype, device=cuda_device)
+    assert streams[0].shape == (steps, width, lanes)
+    before = pallas_solver.factor_cuda.launches
+    errs = compare_solver_kernels(*streams)
+    assert pallas_solver.factor_cuda.launches == before + 1
+    rtol = 1e-10 if dtype == torch.float64 else SOLVER_F32_RTOL
+    bad = {k: e["outputs"] for k, e in errs.items() if e["max_rel_err"] > rtol}
+    assert not bad, bad
+
+
+@pytest.mark.cuda
 def test_solver_subst_kernel_keeps_compensation(cuda_device):
     """800 float32 steps of positive terms (u = 0, phi = 1, w = 0): the
     kernel's Kahan sums stay within two float32 ulps of the float64 sums
@@ -708,15 +743,19 @@ def _wide_jvp_model(terms, width):
 @pytest.mark.parametrize("width", [9, 13, 16])
 @pytest.mark.parametrize("ndir", [1, 7, 8, 13, 16])
 @pytest.mark.parametrize("shape", ["dead_lanes", "one_step"])
-def test_tangent_factor_kernel_directions(width, ndir, shape, cuda_device):
-    """factor_jvp along ndir directions (random combinations of the
-    parameters' basis tangents, numpy seed) at padded widths 9-16, where a
-    block holds 2 lanes and at most seven directions: one chunk (1, 7),
-    a full one and one of one (8), two uneven ones (13: seven and six) and
-    three (16: six, five and five).  ``dead_lanes``: 31 lanes of 125 steps
-    (the last block holds a dead lane; no multiple of the 2-step tile);
-    ``one_step``: 16 lanes of one step.  Every output and tangent, dq0 and
-    dld included, float64, against the plain version at 1e-10."""
+@pytest.mark.parametrize("kernel", ["elements_jvp", "factor_jvp"])
+def test_tangent_factor_kernel_directions(width, ndir, shape, kernel,
+                                          cuda_device):
+    """The split pair (elements_jvp, then factor_jvp on the plain
+    elements' seeds), each on the jac sweeps' layout, along ndir
+    directions (random combinations of the parameters' basis tangents,
+    numpy seed) at padded widths 9-16, where a block holds 2 lanes and at
+    most seven directions: one chunk (1, 7), a full one and one of one
+    (8), two uneven ones (13: seven and six) and three (16: six, five and
+    five).  ``dead_lanes``: 31 lanes of 63 steps (the last block holds a
+    dead lane; no multiple of the 2-step tile); ``one_step``: 16 lanes of
+    one step.  Every output and tangent (factor_jvp's dq0 and dld
+    included), float64, against the plain version at 1e-10."""
     from celerite_torch import terms
     from celerite_torch.ops import tangent
 
@@ -733,11 +772,12 @@ def test_tangent_factor_kernel_directions(width, ndir, shape, cuda_device):
     mix = torch.as_tensor(np.random.default_rng(ndir).standard_normal(
         (ndir, d[0].shape[1])), device=cuda_device)
     d = tuple(torch.einsum("kt,ltpb->lkpb", mix, x).contiguous() for x in d)
-    before = tangent.factor_jvp_cuda.launches
+    wrapper = getattr(tangent, kernel + "_cuda")
+    before = wrapper.launches
     errs = compare_tangent_kernels(s, d, seg=s[0].shape[-1],
-                                   kernels=("factor_jvp",))
-    assert tangent.factor_jvp_cuda.launches == before + 1
-    assert errs["factor_jvp"]["max_rel_err"] <= 1e-10, errs
+                                   kernels=(kernel,))
+    assert wrapper.launches == before + 1
+    assert errs[kernel]["max_rel_err"] <= 1e-10, errs
 
 
 @pytest.mark.cuda

@@ -1,24 +1,24 @@
 #!/usr/bin/env python
-"""Time one tree's kernels of rows 2-5, 8-12, 15-18 and 21 (PERF.md
+"""Time one tree's kernels of rows 2-5, 8-13, 15-18 and 21 (PERF.md
 section 6) on the plans chip_smoke.py times them on, so that two trees can
 be compared on one card.
 
 Usage (on a machine with an NVIDIA H100), from the root of a checkout:
 
-    python3 tools/kernel_ab.py [--tree DIR] [--rows 4,8] [--call-c]
+    python3 tools/kernel_ab.py [--tree DIR] [--rows 4,8] [--call-c] [--call-g]
 
 ``DIR`` (default: this checkout) is the root of a tree whose
 ``celerite_torch`` and ``chip_smoke.py`` are imported; an older commit
 unpacked with ``git archive`` into a git-ignored directory (``build/``)
 serves.  Run the trees in turns in one command (old, new, new, old) to
 compare them on one card.  ``--rows`` times only the rows named (2, 3, 4,
-5, 8, 9, 10, 11, 12, 15, 16, 17, 18, 21; 2-5 build together, as do 8-11
-and 16-17; ``--rows ""`` none).  ``--call-c`` also times main path C's
-calls.
+5, 8, 9, 10, 11, 12, 13, 15, 16, 17, 18, 21; 2-5 build together, as do
+8-11, 12-13 and 16-17; ``--rows ""`` none).  ``--call-c`` and
+``--call-g`` also time main path C's calls and G's on E's model.
 
 Builds what the rows take of ``fused4_grad.cu`` at P = 8 (at every P =
-1-12 for row 2's ptxas figures), ``tangent.cu`` at 8 and 16,
-``adjoint.cu`` at 13 and 16, ``pallas_solver.cu`` at 16, ``fused.cu`` and
+1-12 for row 2's ptxas figures), ``tangent.cu`` at 8, 13 and 16,
+``adjoint.cu`` and ``pallas_solver.cu`` at 13 and 16, ``fused.cu`` and
 ``onepass.cu`` at 8, and prints one JSON line a measurement, each with the
 tree, the card's name and power limit (nvidia-smi) and ptxas's registers
 and spill bytes of the kernels timed:
@@ -34,8 +34,10 @@ and spill bytes of the kernels timed:
   from torch.profiler;
 - ``row16`` and ``row17``: the split pair's ``elements_jvp`` and
   ``factor_jvp`` on main path G's folded batch plan of E's model (P = 16,
-  T = 13), and ``row17`` also on its one-theta plan, float64, with
-  ptxas's figures at P = 13 and 16;
+  T = 13) and on its one-theta plan, ``row17`` in float64, ``row16`` in
+  float64 and float32, with ptxas's figures at P = 13 and 16 (of the
+  kernel that launches: ``tangent_elements`` or ``tangent_factor`` in a
+  tree that has one, else the jac sweep's);
 - ``row8``, ``row9``, ``row10`` and ``row11``: the adjoint
   ``elements_fwd``, ``elements_bwd``, ``factor_fwd`` and ``factor_bwd`` on
   sampler_E's 4-chain plan and on main path E's 16-chain batch plan (E's
@@ -45,6 +47,10 @@ and spill bytes of the kernels timed:
   an SM) where the tree's ``chip_smoke.adjoint_bwd_layout`` gives it;
 - ``row12``: the three-pass ``elements`` on main path F's value plan of
   E's model (one theta, P = 16), float64;
+- ``row13``: the three-pass ``factor`` on that plan (128 lanes of 782
+  steps) and on ``solver="pallas"``'s blocks of E's width (P = 16, N =
+  1e5 in blocks of ``pallas_solver.default_block_size``), float64 and
+  float32, with ptxas's figures at P = 13 and 16;
 - ``row15``: the single-sweep kernel on main path G's value plan of
   config[2] (one theta, P = 8), float64;
 - ``row21``: the one-pass ``sweep_bwd`` on main path H's config[2] plan,
@@ -53,7 +59,9 @@ and spill bytes of the kernels timed:
   and ``value_and_grad_batch`` at 16, float64, the host clock's median,
   p10 and p90 ms a call (``chip_smoke.eval_spread_ms``) and a profile's
   device-busy ms, idle share, the port's kernels' ms and the glue's
-  (``chip_smoke.profile_evals``).
+  (``chip_smoke.profile_evals``);
+- ``callG`` (``--call-g``): the same for main path G's two calls on E's
+  model (``fast_grad="tangent"``, P = 16, T = 13).
 
 Times are the mean of CUDA events around back-to-back calls.
 """
@@ -69,10 +77,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=".",
                     help="root of the tree whose celerite_torch is timed")
-    ap.add_argument("--rows", default="2,3,4,5,8,9,10,11,12,15,16,17,18,21",
+    ap.add_argument("--rows",
+                    default="2,3,4,5,8,9,10,11,12,13,15,16,17,18,21",
                     help="comma-separated rows to time")
     ap.add_argument("--call-c", action="store_true",
                     help="also time main path C's calls")
+    ap.add_argument("--call-g", action="store_true",
+                    help="also time main path G's calls on E's model")
     args = ap.parse_args()
     rows = {int(r) for r in args.rows.split(",") if r}
     root = os.path.abspath(args.tree)
@@ -98,10 +109,11 @@ def main():
     t0 = time.perf_counter()
     jobs = [job for job, of in (
         (("fused4_grad.cu", 8), {2, 3, 4, 5}), (("tangent.cu", 8), {18}),
-        (("tangent.cu", 13), {17}), (("tangent.cu", 16), {16, 17}),
+        (("tangent.cu", 13), {16, 17}), (("tangent.cu", 16), {16, 17}),
         (("adjoint.cu", 13), {8, 9, 10, 11}),
         (("adjoint.cu", 16), {8, 9, 10, 11}),
-        (("pallas_solver.cu", 16), {12}), (("fused.cu", 8), {15}),
+        (("pallas_solver.cu", 13), {13}),
+        (("pallas_solver.cu", 16), {12, 13}), (("fused.cu", 8), {15}),
         (("onepass.cu", 8), {21}))
         if rows & of]
     if 2 in rows:
@@ -137,7 +149,7 @@ def main():
     theta = torch.as_tensor(gp.get_parameter_vector(), device=dev)
     thetas = cs.path_c_thetas(theta, dev)
     if args.call_c:
-        time_call_c(cs, gp, t, y, yerr, prior, theta, thetas, emit)
+        time_calls(cs, "callC", gp, t, y, yerr, prior, theta, thetas, emit)
 
     # Rows 2, 5, 3 and 4 on C's 16-chain plan, rows 2 and 4 also on its
     # one-theta plan.
@@ -165,6 +177,9 @@ def main():
     gpe = celerite_torch.GP(config2_kernel(terms, modes=3))
     thetae = torch.as_tensor(gpe.get_parameter_vector(), device=dev)
     thetase = cs.path_c_thetas(thetae, dev)
+    if args.call_g:
+        time_calls(cs, "callG", gpe, t, y, yerr, prior, thetae, thetase, emit,
+                   fast_grad="tangent")
     if 18 in rows:
         time_row18(cs, gp, t, y, yerr, prior, thetas, emit, pick)
     if rows & {16, 17}:
@@ -207,6 +222,8 @@ def main():
                                 reps=10),
              ptxas=pick("pallas_solver.cu", 16, "solver_elements"))
         del lpe, s
+    if 13 in rows:
+        time_row13(cs, gpe, thetae, t, y, yerr, prior, emit, pick)
     if 15 in rows:
         lpg = gp.build_logprob(t, y, yerr=yerr, log_prior=prior,
                                dtype=torch.float64, fast_grad="tangent")
@@ -230,18 +247,21 @@ def main():
     return 0
 
 
-def time_call_c(cs, gp, t, y, yerr, prior, theta, thetas, emit):
-    """Main path C's two calls in float64, on the host clock and profiled."""
+def time_calls(cs, tag, gp, t, y, yerr, prior, theta, thetas, emit,
+               **options):
+    """A main path's two calls (``value_and_grad`` at ``theta``,
+    ``value_and_grad_batch`` at ``thetas``) in float64 through
+    ``gp.build_logprob(..., **options)``, on the host clock and profiled."""
     import torch
 
     lp = gp.build_logprob(t, y, yerr=yerr, log_prior=prior,
-                          dtype=torch.float64)
+                          dtype=torch.float64, **options)
     for call, fn, arg, batches, per_batch in (
             ("single", lp.value_and_grad, theta, 15, 10),
             ("batch16", lp.value_and_grad_batch, thetas, 15, 5)):
         ms = cs.eval_spread_ms(fn, arg, batches=batches, per_batch=per_batch)
         prof = cs.profile_evals(fn, arg)
-        emit("callC", call=call, dtype="float64", ms=ms,
+        emit(tag, call=call, dtype="float64", ms=ms,
              busy_ms=prof["device_busy_ms_per_eval"],
              idle_share=prof["device_idle_share"],
              kernel_ms=prof["kernel_ms_per_eval"],
@@ -295,35 +315,68 @@ def time_row18(cs, gp, t, y, yerr, prior, thetas, emit, pick):
         torch.cuda.empty_cache()
 
 
+def time_row13(cs, gpe, thetae, t, y, yerr, prior, emit, pick):
+    """Row 13 on main path F's value plan of E's model and on
+    ``solver="pallas"``'s blocks at P = 16, float64 and float32."""
+    import torch
+
+    from celerite_torch import terms
+    from celerite_torch.ops import pallas_solver
+    from celerite_torch.testing import blocked_streams, width_kernel
+
+    dev = torch.device("cuda")
+    L = pallas_solver.default_block_size(dev)
+    s64 = blocked_streams(width_kernel(terms, 16), t, y, yerr, L, device=dev)
+    ptxas = {p: pick("pallas_solver.cu", p, "solver_factor")
+             for p in (13, 16)}
+    for dt in (torch.float64, torch.float32):
+        lpe = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior, dtype=dt)
+        for plan, s in (("value_plan",
+                         cs.lane_streams(gpe, lpe.loglik.value_plan, thetae)),
+                        ("pallas_E", tuple(x.to(dt) for x in s64))):
+            kern = cs.solver_kernel_calls(s)["factor"][0]
+            emit("row13", kernel="pallas_solver factor", plan=plan,
+                 dtype=str(dt)[6:], lanes=s[0].shape[-1], steps=s[0].shape[0],
+                 ms=cs.sync_time_ms(kern, reps=20), ptxas=ptxas)
+            del s, kern
+        del lpe
+        torch.cuda.empty_cache()
+
+
 def time_rows16_17(cs, gpe, t, y, yerr, prior, thetase, emit, pick, rows):
     """Rows 16 and 17 (the split pair) on main path G's batch plan of E's
-    model, row 17 also on its one-theta plan."""
+    model and on its one-theta plan, row 16 in float64 and float32."""
     import torch
 
     nc = cs.SAMPLER_CHAINS
-    lpg = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior,
-                            dtype=torch.float64, fast_grad="tangent")
-    vog = lpg.loglik.value_ok_grad_batch
-    for ncg in (min(nc, vog.fold_cap), 1):
-        s, d = cs.path_tangent_streams(gpe, vog.folded_plan(ncg),
-                                       thetase[:ncg])
-        calls = cs.tangent_kernel_calls(s, d, s[0].shape[-1] // ncg,
-                                        ("elements_jvp", "factor_jvp"))
-        for row, name in ((16, "elements_jvp"), (17, "factor_jvp")):
-            if row not in rows or (ncg == 1 and row == 16):
-                continue
-            # Row 17 is tangent_factor_kernel in a tree whose factor_jvp
-            # keeps the split pair's own layout, else the jac factor sweep.
-            ptxas = {p: pick("tangent.cu", p, "tangent_" + name[:-4]) or
-                     pick("tangent.cu", p, "jac_factor")
-                     for p in ((16,) if row == 16 else (13, 16))}
-            emit("row{0}".format(row), kernel="tangent " + name,
-                 dtype="float64", chains=ncg, lanes=s[0].shape[-1],
-                 steps=s[0].shape[0], directions=d[0].shape[1],
-                 ms=cs.sync_time_ms(calls[name][0], reps=5), ptxas=ptxas)
-        del s, d, calls
-        torch.cuda.empty_cache()
-    del lpg, vog
+    for dt in (torch.float64, torch.float32):
+        names = [n for row, n in ((16, "elements_jvp"), (17, "factor_jvp"))
+                 if row in rows and (row == 16 or dt == torch.float64)]
+        if not names:
+            continue
+        lpg = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior, dtype=dt,
+                                fast_grad="tangent")
+        vog = lpg.loglik.value_ok_grad_batch
+        for ncg in (min(nc, vog.fold_cap), 1):
+            s, d = cs.path_tangent_streams(gpe, vog.folded_plan(ncg),
+                                           thetase[:ncg])
+            calls = cs.tangent_kernel_calls(s, d, s[0].shape[-1] // ncg,
+                                            names)
+            for name in names:
+                # The kernel that launches: the split pair's own
+                # (tangent_elements, tangent_factor) in a tree that has it,
+                # else the jac sweep.
+                ptxas = {p: pick("tangent.cu", p, "tangent_" + name[:-4]) or
+                         pick("tangent.cu", p, "jac_" + name[:-4])
+                         for p in (13, 16)}
+                emit("row{0}".format(16 if name == "elements_jvp" else 17),
+                     kernel="tangent " + name, dtype=str(dt)[6:], chains=ncg,
+                     lanes=s[0].shape[-1], steps=s[0].shape[0],
+                     directions=d[0].shape[1],
+                     ms=cs.sync_time_ms(calls[name][0], reps=5), ptxas=ptxas)
+            del s, d, calls
+            torch.cuda.empty_cache()
+        del lpg, vog
 
 
 if __name__ == "__main__":
