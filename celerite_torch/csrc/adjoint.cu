@@ -35,7 +35,8 @@
 // still gives every SM a block, else of one (sampler_E's 512 lanes at P =
 // 16: 256 blocks of 2 lanes).  Both share their Riccati front
 // (riccati_fwd_front), and factor_fwd's step is fused4_grad.cu's
-// (factor_fwd_step).  pallas_solver.cu, fused.cu and tangent.cu keep
+// (factor_fwd_step).  elements_fwd's sweep (elements_fwd_sweep) is also
+// pallas_solver.cu's elements, which passes no save stream; fused.cu keeps
 // lanes_common.cuh's elements sweep, which reads each step's u and phi
 // whole in every thread.
 //
@@ -88,11 +89,10 @@
 #include "adjoint_common.cuh"
 // ---------------------------------------------------------------------------
 // elements_fwd: each lane's Riccati element (A, J, C) from a zero seed, with
-// saves, streamed (adjoint_common.cuh's forward sweeps): a group a lane,
-// thread r row r of Sh, A and J.  C is the zero-seeded factor recursion, A
-// a product of closed-loop transitions (I - w u^T) Phi, J a sum of rank-1
-// terms.  Each step's input [Sh, A] goes to the save stream (NSV0 words a
-// lane and step, the layout elements_bwd reads).
+// saves, streamed (adjoint_common.cuh's elements_fwd_sweep): a group a
+// lane, thread r row r of Sh, A and J.  Each step's input [Sh, A] goes to
+// the save stream (NSV0 words a lane and step, the layout elements_bwd
+// reads).
 // ---------------------------------------------------------------------------
 
 template <typename T, int W>
@@ -101,34 +101,7 @@ adjoint_elements_fwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
                             const T* __restrict__ ph, const T* __restrict__ a, int L, int B,
                             T* __restrict__ A_out, T* __restrict__ J_out, T* __restrict__ C_out,
                             T* __restrict__ sv) {
-    using Ctx = FwdCtx<T, W, NRS>;
-    __shared__ T ring[Ctx::RING], tiles[Ctx::TILES], vecs[Ctx::VECS];
-    const Ctx c(B, ring, tiles, vecs);
-    const int r = c.r, l = c.l;
-    T Sh[P], A[P], J[P];
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-        Sh[j] = J[j] = T(0);
-        A[j] = j == r ? T(1) : T(0);
-    }
-    fwd_ticks(
-        c, L,
-        [&](T* st, int s) {
-            copy_streams(st, u, v, ph, a, static_cast<const T*>(nullptr), s, B, l, r);
-        },
-        [&](int s) {
-            if (!c.live) return;
-            T* svs = sv + ((size_t)s * B + l) * NSV0;
-            save_row(svs, r, Sh);
-            save_row(svs + PP, r, A);
-        },
-        [&](const T* st) {
-            elem_fwd_step(c.tile, c.wv, c.gv, r, RingStep<T, 0>(st, r), Sh, A, J);
-        });
-    if (!c.live || r >= P) return;
-    put_mat(A_out, r, B, l, A);
-    put_mat(J_out, r, B, l, J);
-    put_mat(C_out, r, B, l, Sh);
+    elements_fwd_sweep<T, W>(u, v, ph, a, L, B, A_out, J_out, C_out, sv);
 }
 
 // ---------------------------------------------------------------------------

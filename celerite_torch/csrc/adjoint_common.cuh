@@ -3,9 +3,9 @@
 // factor_bwd and elem_bwd), their transposed steps, each split into a front
 // and a back, and the pipeline that runs the streamed reversed sweeps; the
 // forward sweeps (adjoint.cu's elements_fwd and factor_fwd, fused4_grad.cu's
-// elem_fwd and factor_fwd, pallas_solver.cu's factor), their steps and their
-// ring of streams (at the end); and the copy of a step's streams into
-// shared memory that both kinds share.
+// elem_fwd and factor_fwd, pallas_solver.cu's three kernels), their steps
+// and their ring of streams (at the end); and the copy of a step's streams
+// into shared memory that both kinds share.
 //
 // A group of G threads owns a lane, thread r row r (lanes_common.cuh).  A
 // step's front is what the step computes of its saves and streams alone:
@@ -36,7 +36,9 @@
 // fused4_grad.cu's elem_fwd the same elements step (elem_fwd_step), each
 // from a ring slot (RingStep<T, 0>) or from the kernel's own lowering
 // (LowStep), and the two steps share their Riccati front
-// (riccati_fwd_front).
+// (riccati_fwd_front).  adjoint.cu's elements_fwd and pallas_solver.cu's
+// elements are one sweep (elements_fwd_sweep), the latter without saves;
+// pallas_solver.cu's subst runs its own step on the same ring.
 
 #pragma once
 
@@ -631,7 +633,7 @@ static int launch_bwd(K kernel, size_t bytes, int B, void* stream, A... args) {
 
 // ---------------------------------------------------------------------------
 // The streamed forward sweeps (adjoint.cu's elements_fwd and factor_fwd,
-// fused4_grad.cu's elem_fwd and factor_fwd, pallas_solver.cu's factor): a
+// fused4_grad.cu's elem_fwd and factor_fwd, pallas_solver.cu's kernels): a
 // block of W warps, a group of G threads a lane (32 W / G lanes a block),
 // thread r row r of the state.  Each group
 // copies its lane's streams FWD_AHEAD steps ahead into a ring in shared
@@ -661,21 +663,24 @@ struct LowStep {
 // dead group runs the last lane and writes nothing) and row, its ring
 // slots of NW words a step, its tile and its vector (w at wv, then the
 // column sum at gv).  The kernel declares the shared arrays, RING, TILES
-// and VECS words.
+// and VECS words; a sweep that carries only a vector (pallas_solver.cu's
+// subst) declares the ring alone and has no tile or vector.
 template <typename T, int W, int NW>
 struct FwdCtx {
     static constexpr int LB = 32 * W / G;
     static constexpr int RING = FWD_RING * LB * NW, TILES = LB * P * TS, VECS = LB * 2 * P;
     int q, r, l;
     bool live;
-    T *ring, *tile, *wv, *gv;
-    __device__ __forceinline__ FwdCtx(int B, T* ring_, T* tiles, T* vecs) {
+    T *ring, *tile = nullptr, *wv = nullptr, *gv = nullptr;
+    __device__ __forceinline__ FwdCtx(int B, T* ring_) {
         q = threadIdx.x / G;
         r = threadIdx.x % G;
         const int lane = blockIdx.x * LB + q;
         live = lane < B;
         l = live ? lane : B - 1;
         ring = ring_;
+    }
+    __device__ __forceinline__ FwdCtx(int B, T* ring_, T* tiles, T* vecs) : FwdCtx(B, ring_) {
         tile = tiles + q * P * TS;
         wv = vecs + q * 2 * P;
         gv = wv + P;
@@ -757,6 +762,51 @@ __device__ __forceinline__ void elem_fwd_step(T* tile, T* wv, T* gv, int r, cons
         A[j] = phr * A[j] - wr * uj;
         J[j] = J[j] - uArd * uj;
     }
+}
+
+// Each lane's Riccati element (A, J, C) from a zero seed, streamed: a
+// group a lane, thread r row r of Sh, A and J, one elem_fwd_step a tick.
+// C is the zero-seeded factor recursion, A a product of closed-loop
+// transitions (I - w u^T) Phi, J a sum of rank-1 terms.  With a non-null
+// sv each step's input [Sh, A] goes to the save stream (NSV0 words a lane
+// and step, the layout adjoint.cu's elements_bwd reads): adjoint.cu's
+// elements_fwd; pallas_solver.cu's elements passes null and saves nothing.
+// The kernel runs W warps a block (launch_fwd).
+template <typename T, int W>
+__device__ __forceinline__ void elements_fwd_sweep(const T* __restrict__ u,
+                                                   const T* __restrict__ v,
+                                                   const T* __restrict__ ph,
+                                                   const T* __restrict__ a, int L, int B,
+                                                   T* __restrict__ A_out, T* __restrict__ J_out,
+                                                   T* __restrict__ C_out, T* __restrict__ sv) {
+    using Ctx = FwdCtx<T, W, NRS>;
+    __shared__ T ring[Ctx::RING], tiles[Ctx::TILES], vecs[Ctx::VECS];
+    const Ctx c(B, ring, tiles, vecs);
+    const int r = c.r, l = c.l;
+    T Sh[P], A[P], J[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        Sh[j] = J[j] = T(0);
+        A[j] = j == r ? T(1) : T(0);
+    }
+    fwd_ticks(
+        c, L,
+        [&](T* st, int s) {
+            copy_streams(st, u, v, ph, a, static_cast<const T*>(nullptr), s, B, l, r);
+        },
+        [&](int s) {
+            if (sv == nullptr || !c.live) return;
+            T* svs = sv + ((size_t)s * B + l) * NSV0;
+            save_row(svs, r, Sh);
+            save_row(svs + PP, r, A);
+        },
+        [&](const T* st) {
+            elem_fwd_step(c.tile, c.wv, c.gv, r, RingStep<T, 0>(st, r), Sh, A, J);
+        });
+    if (!c.live || r >= P) return;
+    put_mat(A_out, r, B, l, A);
+    put_mat(J_out, r, B, l, J);
+    put_mat(C_out, r, B, l, Sh);
 }
 
 // One step of the seeded factor sweep (factor_value_step's arithmetic),

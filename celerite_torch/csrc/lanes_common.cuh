@@ -11,14 +11,14 @@
 //
 // Also the sweeps whose every thread reads the step's stream vectors (u,
 // ph) whole: the elements sweep, each lane's Riccati element (A, J, C)
-// from a zero seed, without saves (pallas_solver.cu, fused.cu); and the
-// seeded factor sweep, without saves in fused.cu, and from a zero seed with
-// its end state in onepass.cu.  Each sweep's step is a value step
+// from a zero seed, without saves (fused.cu's phase 0); and the seeded
+// factor sweep, without saves in fused.cu, and from a zero seed with its
+// end state in onepass.cu.  Each sweep's step is a value step
 // (elem_value_step, factor_value_step), which tangent.cu's sweeps with
 // tangents also take, there filling the record their tangent steps read.
 // adjoint.cu's elements_fwd and factor_fwd, fused4_grad.cu's elem_fwd and
-// factor_fwd and pallas_solver.cu's factor stream their steps through
-// shared memory instead (adjoint_common.cuh).
+// factor_fwd and pallas_solver.cu's three kernels stream their steps
+// through shared memory instead (adjoint_common.cuh).
 
 #pragma once
 
@@ -237,9 +237,9 @@ __device__ __forceinline__ void factor_value_step(const T (&uv)[P], const T (&pv
 }
 
 // Each lane's Riccati element (A, J, C) from a zero seed, without saves
-// (the Pallas elements kernels pallas_solver.py:62 and fused.py:130's phase
-// 0): C by the zero-seeded factor recursion, A as a product of closed-loop
-// transitions (I - w u^T) Phi, J as a sum of rank-1 terms.
+// (fused.py:130's phase 0): C by the zero-seeded factor recursion, A as a
+// product of closed-loop transitions (I - w u^T) Phi, J as a sum of rank-1
+// terms.
 template <typename T>
 __device__ __forceinline__ void elements_sweep(const T* __restrict__ u, const T* __restrict__ v,
                                                const T* __restrict__ ph,

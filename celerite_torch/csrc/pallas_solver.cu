@@ -16,22 +16,28 @@
 // all B lanes in one vector; here each lane's chain of steps is a loop
 // inside the kernel and the lanes spread over threads.
 //
-// Design.  elements and factor carry P x P state (Sh with A and J, or with
-// M): a group of G threads a lane, a row of every state each, as in
-// adjoint.cu.  elements is lanes_common.cuh's elements sweep without
-// saves.  factor is adjoint.cu's streamed forward sweep (adjoint_common.cuh)
-// without its saves and statistics: each group copies its lane's streams
-// FWD_AHEAD steps ahead into a cp.async ring in shared memory, so that no
-// step waits on device memory; g = (Phi M)^T u is a column sum through the
-// group's tile, w and g reach every row through its vector, one reciprocal
+// Design.  All three kernels are streamed forward sweeps
+// (adjoint_common.cuh): a group of G threads a lane, thread r row r of the
+// state, each group copying its lane's streams FWD_AHEAD steps ahead into a
+// cp.async ring in shared memory, so that no step waits on device memory;
+// blocks of four warps where that still gives every SM a block, else of
+// one (launch_fwd).  Threads of a group past the last lane run the last
+// lane for the shuffles and write nothing.  elements and factor carry P x
+// P state (Sh with A and J, or with M).  elements is adjoint.cu's
+// elements_fwd without its saves (elements_fwd_sweep, one copy of the
+// loop): uA = A^T (Phi u) a column sum through the group's tile, w and uA
+// reach every row through its vector, one reciprocal of d a step
+// (elem_fwd_step).  factor is adjoint.cu's factor_fwd without its saves
+// and statistics: g = (Phi M)^T u through the tile, one reciprocal
 // (float32: division) of d a step (factor_fwd_step<false>); step s's d and
-// w go out at step s + 1's hook; blocks of four warps where that still
-// gives every SM a block, else of one (launch_fwd).  subst carries a
-// P-vector and two Kahan pairs, on lanes_common.cuh's groups, a row of h a
-// thread: on one thread a lane with all of h (each row's loads coalesced
-// across lanes, G times fewer threads) it took 1.4-3.1 times as long on
-// every plan chip_smoke.py timed (PERF.md).  Threads of a group past the
-// last lane run a live lane for the shuffles and write nothing.
+// w go out at step s + 1's hook.  subst carries only h, a row a thread,
+// and the scalar sums: its ring slot holds u, phi and w (in v's words) and
+// y and d (in a's), and the chain from one h to the next is one butterfly,
+// z = y - u . (Phi h).  The sums' terms z^2 / d and log d are taken in
+// batches of G steps, a step a thread, once a batch, and added in order a
+// batch later, a shuffle a term: the f64 log (a branch for special inputs
+// around ~30 dependent operations) after every butterfly took 0.32 ms on
+// F's value plan against 0.21 batched and 0.18 with no sums (PERF.md).
 //
 // Bound.  Bytes, per point: elements reads u, v, ph, a (3P + 1 words),
 // factor those and y and writes d and w (3P + 2 read, P + 1 written),
@@ -41,30 +47,36 @@
 // elements and factor, ~5 P for subst) take less at 34 TFLOP/s.  The
 // kernels are bound instead by the latency of each lane's chain of L
 // dependent steps (782 on F's value plan of 128 lanes, which fill a
-// fraction of the card).
+// fraction of the card): a step of elements or factor is a butterfly for
+// d, a column sum and two warp syncs, a step of subst one butterfly.  A
+// ring six steps ahead instead of three left subst's time as it was.
 //
 // Rounding: -fmad=false (_build.SOURCE_FLAGS): the compensated sums of
 // subst break under fma contraction, and float32 then rounds as the plain
 // versions (ops/blocked.py), which keep every multiply and add separate;
-// sums over rows run in another order than theirs, factor's in four
-// partial sums (float64: fused multiply-adds); factor's m rounds as
-// theirs, and in float32 its w too (factor_fwd_step<false>), since m
-// carries a 1-ulp change of w far in float32.
+// sums over rows run in another order than theirs, elements' and factor's
+// in four partial sums (float64: fused multiply-adds); elements multiplies
+// by 1 / d for w and uA / d where the plain version divides; factor's m
+// rounds as theirs, and in float32 its w too (factor_fwd_step<false>),
+// since m carries a 1-ulp change of w far in float32.  subst takes the
+// plain version's arithmetic in its order: z z / d divided, the Kahan
+// updates, the NaN-propagating minimum.
 //
 // Compiled once per padded width: nvcc -DCELERITE_P=<P> (1 <= P <= 16).
 
 #include "adjoint_common.cuh"
 
 // ---------------------------------------------------------------------------
-// elements: each lane's Riccati element (A, J, C), no saves.
+// elements: each lane's Riccati element (A, J, C), adjoint.cu's
+// elements_fwd without saves (adjoint_common.cuh's elements_fwd_sweep).
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+template <typename T, int W>
+__global__ void __launch_bounds__(32 * W)
 solver_elements_kernel(const T* __restrict__ u, const T* __restrict__ v,
                        const T* __restrict__ ph, const T* __restrict__ a, int L, int B,
                        T* __restrict__ A_out, T* __restrict__ J_out, T* __restrict__ C_out) {
-    elements_sweep(u, v, ph, a, L, B, A_out, J_out, C_out);
+    elements_fwd_sweep<T, W>(u, v, ph, a, L, B, A_out, J_out, C_out, static_cast<T*>(nullptr));
 }
 
 // ---------------------------------------------------------------------------
@@ -110,65 +122,92 @@ solver_factor_kernel(const T* __restrict__ u, const T* __restrict__ v,
 }
 
 // ---------------------------------------------------------------------------
-// subst: forward substitution with Kahan-compensated sums, a row of h a
-// thread.
+// subst: forward substitution with Kahan-compensated sums, streamed: thread
+// r row r of h; the scalar sums are kept alike in every thread of the
+// group.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+template <typename T, int W>
+__global__ void __launch_bounds__(32 * W)
 solver_subst_kernel(const T* __restrict__ u, const T* __restrict__ ph,
                     const T* __restrict__ w, const T* __restrict__ y,
                     const T* __restrict__ d, const T* __restrict__ h0, int L, int B,
                     double* __restrict__ quad_out, double* __restrict__ logdet_out,
                     T* __restrict__ mind_out) {
-    const Lane ln = lane_of(B);
-    const int l = ln.l, r = ln.r;
+    using Ctx = FwdCtx<T, W, NRS>;
+    __shared__ T ring[Ctx::RING];
+    const Ctx c(B, ring);
+    const int r = c.r, l = c.l;
     T h = r < P ? h0[(size_t)r * B + l] : T(0);
-    // The scalar sums are kept alike in every thread of the group.
-    T quad = T(0), cq = T(0), ld = T(0), cl = T(0), mind = T(INFINITY);
-    for (int s = 0; s < L; ++s) {
-        const size_t o = ((size_t)s * P + r) * B + l, o1 = (size_t)s * B + l;
-        T f = T(0), uf = T(0);
-        if (r < P) {
-            f = ph[o] * h;
-            uf = u[o] * f;
-        }
-        const T z = y[o1] - group_sum(uf);
-        if (r < P) h = f + w[o] * z;
-        const T dd = d[o1];
-        const T x1 = z * z / dd - cq;
-        const T t1 = quad + x1;
-        cq = (t1 - quad) - x1;
-        quad = t1;
-        const T x2 = dlog(dd) - cl;
-        const T t2 = ld + x2;
-        cl = (t2 - ld) - x2;
-        ld = t2;
-        // NaN-propagating min, like torch.minimum.
-        mind = (dd < mind || dd != dd) ? dd : mind;
+    // The sums' terms go in batches of G steps, a step a thread: thread k
+    // keeps the z and d of the batch's step k; after the batch's last step
+    // each thread takes its step's terms, z z / d and log d, and the next
+    // batch's steps add them in order, step k's term at its own step k,
+    // read from thread k.  So the division and the log run once a batch,
+    // and a step adds two terms that wait on nothing.  The first batch adds
+    // zeros, which leave the sums at zero.
+    Kahan<T> quad{T(0), T(0)}, ld{T(0), T(0)};
+    T mind = T(INFINITY), zk = T(0), dk = T(1), tq = T(0), tl = T(0);
+    const auto add = [&](int k) {
+        quad.add(__shfl_sync(0xffffffffu, tq, k, G));
+        ld.add(__shfl_sync(0xffffffffu, tl, k, G));
+    };
+    const auto take_terms = [&] {
+        tq = zk * zk / dk;
+        tl = dlog(dk);
+    };
+    int step = 0;
+    fwd_ticks(
+        c, L,
+        // w goes into v's words of the slot and d into a's, so RingStep
+        // reads w_r back as vr and d as a.
+        [&](T* st, int s) { copy_streams(st, u, w, ph, d, y, s, B, l, r); },
+        [](int) {},
+        [&](const T* st) {
+            const RingStep<T, 0> in(st, r);
+            const T f = in.phr * h;
+            const T z = in.y - group_sum(in.ur * f);
+            if (r < P) h = f + in.vr * z;
+            const int k = step++ % G;
+            add(k);
+            // NaN-propagating min, like torch.minimum.
+            mind = (in.a < mind || in.a != in.a) ? in.a : mind;
+            if (r == k) {
+                zk = z;
+                dk = in.a;
+            }
+            if (k == G - 1) take_terms();
+        });
+    // The last batch's terms: those of a whole batch were taken at its last
+    // step; a partial batch of n steps first adds the batch before's
+    // remaining terms (zeros if there was none), then takes its own.
+    const int n = L % G;
+    if (n > 0) {
+        for (int k = n; k < G; ++k) add(k);
+        take_terms();
     }
-    if (!ln.live || r != 0) return;
-    quad_out[l] = (double)quad + (double)cq;
-    logdet_out[l] = (double)ld + (double)cl;
+    for (int k = 0; k < (n > 0 ? n : G); ++k) add(k);
+    if (!c.live || r != 0) return;
+    quad_out[l] = quad.total();
+    logdet_out[l] = ld.total();
     mind_out[l] = mind;
 }
 
 // ---------------------------------------------------------------------------
 // Host entry points: one launch each on the caller's stream, nothing
-// allocated.  Each returns cudaGetLastError() after its launch (factor's
-// block shape chosen by launch_fwd).
+// allocated, the block shape chosen by launch_fwd.  Each returns
+// cudaGetLastError() after its launch.
 // ---------------------------------------------------------------------------
 
 #define CELERITE_SOLVER_ENTRIES(T, SFX)                                                         \
     int celerite_solver_elements_##SFX(const void* u, const void* v, const void* ph,           \
                                        const void* a, void* A, void* J, void* C, int L, int B, \
                                        void* stream) {                                         \
-        solver_elements_kernel<T>                                                               \
-            <<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                 \
+        return launch_fwd(                                                                     \
+            solver_elements_kernel<T, 4>, solver_elements_kernel<T, 1>, B, stream,             \
             static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(ph),     \
             static_cast<const T*>(a), L, B, static_cast<T*>(A), static_cast<T*>(J),            \
             static_cast<T*>(C));                                                               \
-        return (int)cudaGetLastError();                                                        \
     }                                                                                          \
     int celerite_solver_factor_##SFX(const void* u, const void* v, const void* ph,             \
                                      const void* a, const void* y, const void* sh0, void* d,   \
@@ -183,13 +222,12 @@ solver_subst_kernel(const T* __restrict__ u, const T* __restrict__ ph,
     int celerite_solver_subst_##SFX(const void* u, const void* ph, const void* w,              \
                                     const void* y, const void* d, const void* h0, void* quad,  \
                                     void* logdet, void* mind, int L, int B, void* stream) {    \
-        solver_subst_kernel<T>                                                                  \
-            <<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(                 \
+        return launch_fwd(                                                                     \
+            solver_subst_kernel<T, 4>, solver_subst_kernel<T, 1>, B, stream,                   \
             static_cast<const T*>(u), static_cast<const T*>(ph), static_cast<const T*>(w),     \
             static_cast<const T*>(y), static_cast<const T*>(d), static_cast<const T*>(h0), L,  \
             B, static_cast<double*>(quad), static_cast<double*>(logdet),                       \
             static_cast<T*>(mind));                                                            \
-        return (int)cudaGetLastError();                                                        \
     }
 
 extern "C" {

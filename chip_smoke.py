@@ -2897,8 +2897,9 @@ def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
     and 10's steps; row 18 on G's plans, with its four launches' split;
     rows 16 and 17 on E's model, both in row 18's layout at P = 13 and 16;
     rows 8, 9, 10 and 11 on E's plans; row 21, which shares row 11's sweep
-    and row 5's transposed step; row 13, which runs row 10's step without
-    its statistics, on F's plans)."""
+    and row 5's transposed step; rows 12-14 on F's plans: 12 runs row 8's
+    sweep without saves, 13 row 10's step without its statistics, 14 the
+    same ring)."""
     def regs(src, prefix, widths=None):
         return {p: {k: v for k, v in kerns.items() if k.startswith(prefix)}
                 for p, kerns in ptxas[src].items()
@@ -2942,9 +2943,10 @@ def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
             "ptxas": regs("onepass.cu", "onepass_bwd"),
             "models": {m: rows["sweep_bwd"]
                        for m, rows in onepass_rows.items()}},
-        "solver_factor": {
-            "ptxas": regs("pallas_solver.cu", "solver_factor"),
-            "plans": {k: rows["factor"] for k, rows in solver_rows.items()}},
+        **{"solver_" + name: {
+            "ptxas": regs("pallas_solver.cu", "solver_" + name),
+            "plans": {k: rows[name] for k, rows in solver_rows.items()}}
+           for name in pallas_solver.SOLVER_KERNELS},
     }
 
 

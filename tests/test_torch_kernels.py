@@ -529,15 +529,15 @@ def test_solver_kernels_match_plain(width, dtype, cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("shape", ["one_step", "two_steps", "dead_lane",
                                    "four_warps"])
-def test_solver_factor_kernel_shapes(width, dtype, shape, cuda_device):
-    """The three pallas_solver kernels, factor's streamed sweep above all,
-    on the shapes its ring and its blocks meet: lanes of one and two steps
-    (fewer than the three the ring copies ahead), 37 lanes;
-    ``dead_lane``: four one-warp blocks of 32 / G lanes but one, 96 steps;
-    ``four_warps``: enough lanes (three past 128 / G a block on every SM)
-    for the four-warp blocks, whose last block holds dead lanes, 4 steps.
-    Every output against its plain version: 1e-10 in float64,
-    SOLVER_F32_RTOL in float32."""
+def test_solver_three_kernels_shapes(width, dtype, shape, cuda_device):
+    """The three pallas_solver kernels, each a streamed sweep, on the shapes
+    their ring and their blocks meet: lanes of one and two steps (fewer
+    than the three the ring copies ahead), 37 lanes; ``dead_lane``: four
+    one-warp blocks of 32 / G lanes but one, 96 steps; ``four_warps``:
+    enough lanes (three past 128 / G a block on every SM) for the
+    four-warp blocks, whose last block holds dead lanes, 4 steps.  Each
+    kernel launches once; every output against its plain version: 1e-10
+    in float64, SOLVER_F32_RTOL in float32."""
     from celerite_torch import terms
     from celerite_torch.ops import pallas_solver
 
@@ -551,9 +551,11 @@ def test_solver_factor_kernel_shapes(width, dtype, shape, cuda_device):
     streams = blocked_streams(width_kernel(terms, width), t, y, yerr, steps,
                               dtype=dtype, device=cuda_device)
     assert streams[0].shape == (steps, width, lanes)
-    before = pallas_solver.factor_cuda.launches
+    wrappers = [getattr(pallas_solver, k + "_cuda")
+                for k in pallas_solver.SOLVER_KERNELS]
+    before = [f.launches for f in wrappers]
     errs = compare_solver_kernels(*streams)
-    assert pallas_solver.factor_cuda.launches == before + 1
+    assert [f.launches - n for f, n in zip(wrappers, before)] == [1, 1, 1]
     rtol = 1e-10 if dtype == torch.float64 else SOLVER_F32_RTOL
     bad = {k: e["outputs"] for k, e in errs.items() if e["max_rel_err"] > rtol}
     assert not bad, bad
@@ -583,6 +585,39 @@ def test_solver_subst_kernel_keeps_compensation(cuda_device):
     for got, ref in zip((quad, logdet, mind), want):
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                    rtol=2 * eps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_solver_subst_kernel_bad_pivots(width, dtype, cuda_device):
+    """subst on pivots that are not positive, as a non-PD model gives: lane
+    3 has a zero pivot at step 5 and a NaN at step 9, lane 6 a zero pivot
+    at its last step.  quad, logdet and mind equal the plain version's,
+    NaN and infinity where it has them, the other lanes within 1e-10 in
+    float64 and SOLVER_F32_RTOL in float32 of its largest finite value."""
+    from celerite_torch import terms
+    from celerite_torch.ops import pallas_solver as ps
+
+    t, y, yerr = make_data(1000, seed=3, t_max=50.0)
+    u, v, ph, a, yy = blocked_streams(width_kernel(terms, width), t, y, yerr,
+                                      96, dtype=dtype, device=cuda_device)
+    b = u.shape[-1]
+    sh0 = fused4.prefix_sh0(*ps.elements_reference(u, v, ph, a), b)
+    d, w, M, m = ps.factor_reference(sh0, u, v, ph, a, yy)
+    h0 = fused4.prefix_h0(M, m, b)
+    d = d.clone()
+    d[5, 0, 3] = 0.0
+    d[9, 0, 3] = math.nan
+    d[-1, 0, 6] = 0.0
+    got = ps.subst_cuda(h0, u, ph, w, yy, d)
+    want = ps.subst_reference(h0, u, ph, w, yy, d)
+    rtol = 1e-10 if dtype == torch.float64 else SOLVER_F32_RTOL
+    assert bool(torch.isnan(got[2][3])) and float(got[2][6]) == 0.0
+    for g, x in zip(got, want):
+        g, x = g.cpu().numpy(), x.cpu().numpy()
+        top = float(np.abs(x[np.isfinite(x)]).max())
+        np.testing.assert_allclose(g, x, rtol=0, atol=rtol * top)
 
 
 @pytest.mark.cuda

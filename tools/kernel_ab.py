@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Time one tree's kernels of rows 2-5, 8-13, 15-18 and 21 (PERF.md
+"""Time one tree's kernels of rows 2-5, 8-18 and 21 (PERF.md
 section 6) on the plans chip_smoke.py times them on, so that two trees can
 be compared on one card.
 
@@ -12,13 +12,14 @@ Usage (on a machine with an NVIDIA H100), from the root of a checkout:
 unpacked with ``git archive`` into a git-ignored directory (``build/``)
 serves.  Run the trees in turns in one command (old, new, new, old) to
 compare them on one card.  ``--rows`` times only the rows named (2, 3, 4,
-5, 8, 9, 10, 11, 12, 13, 15, 16, 17, 18, 21; 2-5 build together, as do
-8-11, 12-13 and 16-17; ``--rows ""`` none).  ``--call-c`` and
+5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 21; 2-5 build together, as
+do 8-11, 12-14 and 16-17; ``--rows ""`` none).  ``--call-c`` and
 ``--call-g`` also time main path C's calls and G's on E's model.
 
 Builds what the rows take of ``fused4_grad.cu`` at P = 8 (at every P =
 1-12 for row 2's ptxas figures), ``tangent.cu`` at 8, 13 and 16,
-``adjoint.cu`` and ``pallas_solver.cu`` at 13 and 16, ``fused.cu`` and
+``adjoint.cu`` at 13 and 16, ``pallas_solver.cu`` at 4, 13 and 16,
+``fused.cu`` and
 ``onepass.cu`` at 8, and prints one JSON line a measurement, each with the
 tree, the card's name and power limit (nvidia-smi) and ptxas's registers
 and spill bytes of the kernels timed:
@@ -45,12 +46,12 @@ and spill bytes of the kernels timed:
   with ptxas's figures at P = 13 and 16 and, for rows 9 and 11, the
   launch's shape (threads and lanes a block, dynamic shared memory, blocks
   an SM) where the tree's ``chip_smoke.adjoint_bwd_layout`` gives it;
-- ``row12``: the three-pass ``elements`` on main path F's value plan of
-  E's model (one theta, P = 16), float64;
-- ``row13``: the three-pass ``factor`` on that plan (128 lanes of 782
-  steps) and on ``solver="pallas"``'s blocks of E's width (P = 16, N =
-  1e5 in blocks of ``pallas_solver.default_block_size``), float64 and
-  float32, with ptxas's figures at P = 13 and 16;
+- ``row12``, ``row13`` and ``row14``: the three-pass ``elements``,
+  ``factor`` and ``subst`` on main path F's value plan of E's model (one
+  theta, P = 16: 128 lanes of 782 steps) and on ``solver="pallas"``'s
+  blocks of E's width (P = 16, N = 1e5 in blocks of
+  ``pallas_solver.default_block_size``), float64 and float32, with
+  ptxas's figures at P = 4, 13 and 16;
 - ``row15``: the single-sweep kernel on main path G's value plan of
   config[2] (one theta, P = 8), float64;
 - ``row21``: the one-pass ``sweep_bwd`` on main path H's config[2] plan,
@@ -78,7 +79,7 @@ def main():
     ap.add_argument("--tree", default=".",
                     help="root of the tree whose celerite_torch is timed")
     ap.add_argument("--rows",
-                    default="2,3,4,5,8,9,10,11,12,13,15,16,17,18,21",
+                    default="2,3,4,5,8,9,10,11,12,13,14,15,16,17,18,21",
                     help="comma-separated rows to time")
     ap.add_argument("--call-c", action="store_true",
                     help="also time main path C's calls")
@@ -95,7 +96,7 @@ def main():
     import celerite_torch
     import chip_smoke as cs
     from celerite_torch import _build, terms
-    from celerite_torch.ops import fused, pallas_solver
+    from celerite_torch.ops import fused
     from celerite_torch.testing import config2_kernel
 
     if not torch.cuda.is_available():
@@ -112,8 +113,9 @@ def main():
         (("tangent.cu", 13), {16, 17}), (("tangent.cu", 16), {16, 17}),
         (("adjoint.cu", 13), {8, 9, 10, 11}),
         (("adjoint.cu", 16), {8, 9, 10, 11}),
-        (("pallas_solver.cu", 13), {13}),
-        (("pallas_solver.cu", 16), {12, 13}), (("fused.cu", 8), {15}),
+        (("pallas_solver.cu", 4), {12, 13, 14}),
+        (("pallas_solver.cu", 13), {12, 13, 14}),
+        (("pallas_solver.cu", 16), {12, 13, 14}), (("fused.cu", 8), {15}),
         (("onepass.cu", 8), {21}))
         if rows & of]
     if 2 in rows:
@@ -211,19 +213,9 @@ def main():
             torch.cuda.empty_cache()
         del lpe
 
-    # Row 12 on F's value plan of E's model, row 15 on G's of config[2].
-    if 12 in rows:
-        lpe = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior,
-                                dtype=torch.float64)
-        s = cs.lane_streams(gpe, lpe.loglik.value_plan, thetae)
-        emit("row12", kernel="pallas_solver elements", dtype="float64",
-             lanes=s[0].shape[-1], steps=s[0].shape[0],
-             ms=cs.sync_time_ms(lambda: pallas_solver.elements_cuda(*s[:4]),
-                                reps=10),
-             ptxas=pick("pallas_solver.cu", 16, "solver_elements"))
-        del lpe, s
-    if 13 in rows:
-        time_row13(cs, gpe, thetae, t, y, yerr, prior, emit, pick)
+    # Rows 12-14 on F's plans of E's width, row 15 on G's of config[2].
+    if rows & {12, 13, 14}:
+        time_rows12_14(cs, gpe, thetae, t, y, yerr, prior, emit, pick, rows)
     if 15 in rows:
         lpg = gp.build_logprob(t, y, yerr=yerr, log_prior=prior,
                                dtype=torch.float64, fast_grad="tangent")
@@ -315,9 +307,10 @@ def time_row18(cs, gp, t, y, yerr, prior, thetas, emit, pick):
         torch.cuda.empty_cache()
 
 
-def time_row13(cs, gpe, thetae, t, y, yerr, prior, emit, pick):
-    """Row 13 on main path F's value plan of E's model and on
-    ``solver="pallas"``'s blocks at P = 16, float64 and float32."""
+def time_rows12_14(cs, gpe, thetae, t, y, yerr, prior, emit, pick, rows):
+    """Rows 12-14 (those of ``rows``) on main path F's value plan of E's
+    model and on ``solver="pallas"``'s blocks at P = 16, float64 and
+    float32."""
     import torch
 
     from celerite_torch import terms
@@ -327,18 +320,22 @@ def time_row13(cs, gpe, thetae, t, y, yerr, prior, emit, pick):
     dev = torch.device("cuda")
     L = pallas_solver.default_block_size(dev)
     s64 = blocked_streams(width_kernel(terms, 16), t, y, yerr, L, device=dev)
-    ptxas = {p: pick("pallas_solver.cu", p, "solver_factor")
-             for p in (13, 16)}
+    names = [(row, name) for row, name in
+             zip((12, 13, 14), pallas_solver.SOLVER_KERNELS) if row in rows]
     for dt in (torch.float64, torch.float32):
         lpe = gpe.build_logprob(t, y, yerr=yerr, log_prior=prior, dtype=dt)
         for plan, s in (("value_plan",
                          cs.lane_streams(gpe, lpe.loglik.value_plan, thetae)),
                         ("pallas_E", tuple(x.to(dt) for x in s64))):
-            kern = cs.solver_kernel_calls(s)["factor"][0]
-            emit("row13", kernel="pallas_solver factor", plan=plan,
-                 dtype=str(dt)[6:], lanes=s[0].shape[-1], steps=s[0].shape[0],
-                 ms=cs.sync_time_ms(kern, reps=20), ptxas=ptxas)
-            del s, kern
+            calls = cs.solver_kernel_calls(s)
+            for row, name in names:
+                emit("row{0}".format(row), kernel="pallas_solver " + name,
+                     plan=plan, dtype=str(dt)[6:], lanes=s[0].shape[-1],
+                     steps=s[0].shape[0],
+                     ms=cs.sync_time_ms(calls[name][0], reps=20),
+                     ptxas={p: pick("pallas_solver.cu", p, "solver_" + name)
+                            for p in (4, 13, 16)})
+            del s, calls
         del lpe
         torch.cuda.empty_cache()
 
