@@ -33,12 +33,12 @@ FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Extra flags per source.  The gradient, adjoint, three-pass, single-sweep,
-# tangent and one-pass kernels are compiled without fma contraction so that they
-# round as their plain versions do, which keep every multiply and add
-# separate (and so that the compensated sums hold); the primal keeps the
-# default.
-SOURCE_FLAGS = {"fused4_grad.cu": ("-fmad=false",),
+# Extra flags per source.  Every kernel is compiled without fma contraction
+# so that it rounds as its plain version does, which keeps every multiply
+# and add separate (and so that the compensated sums hold); the exact-mode
+# kernels (dsfused.cu) keep the default.
+SOURCE_FLAGS = {"fused4_primal.cu": ("-fmad=false",),
+                "fused4_grad.cu": ("-fmad=false",),
                 "adjoint.cu": ("-fmad=false",),
                 "pallas_solver.cu": ("-fmad=false",),
                 "fused.cu": ("-fmad=false",),

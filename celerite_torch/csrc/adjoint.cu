@@ -36,9 +36,8 @@
 // 16: 256 blocks of 2 lanes).  Both share their Riccati front
 // (riccati_fwd_front), and factor_fwd's step is fused4_grad.cu's
 // (factor_fwd_step).  elements_fwd's sweep (elements_fwd_sweep) is also
-// pallas_solver.cu's elements, which passes no save stream; fused.cu keeps
-// lanes_common.cuh's elements sweep, which reads each step's u and phi
-// whole in every thread.
+// pallas_solver.cu's and fused.cu's elements, and factor_fwd's
+// (factor_fwd_sweep) fused.cu's factor, which pass no save stream.
 //
 // The backward kernels are a chain of dependent steps a lane, so a step's
 // latency is their time.  Each step is split in two (adjoint_common.cuh):
@@ -150,9 +149,9 @@ adjoint_elements_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
 
 // ---------------------------------------------------------------------------
 // factor_fwd: the seeded factor, affine map and statistics with saves,
-// streamed (adjoint_common.cuh's forward sweeps): a group a lane, thread r
-// row r of Sh, M and Qm and entry r of m and qv.  Each step's input [Sh, M,
-// m] goes to the save stream (NSV1 words a lane and step, the layout
+// streamed (adjoint_common.cuh's factor_fwd_sweep): a group a lane, thread
+// r row r of Sh, M and Qm and entry r of m and qv.  Each step's input [Sh,
+// M, m] goes to the save stream (NSV1 words a lane and step, the layout
 // factor_bwd reads).
 // ---------------------------------------------------------------------------
 
@@ -165,42 +164,8 @@ adjoint_factor_fwd_kernel(const T* __restrict__ u, const T* __restrict__ v,
                           T* __restrict__ qv_out, double* __restrict__ q0_out,
                           double* __restrict__ ld_out, T* __restrict__ mind_out,
                           T* __restrict__ sv) {
-    using Ctx = FwdCtx<T, W, NRS>;
-    __shared__ T ring[Ctx::RING], tiles[Ctx::TILES], vecs[Ctx::VECS];
-    const Ctx c(B, ring, tiles, vecs);
-    const int r = c.r, l = c.l;
-    T Sh[P], M[P], Qm[P];
-    get_mat(sh0, r, B, l, Sh);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-        M[j] = j == r ? T(1) : T(0);
-        Qm[j] = T(0);
-    }
-    T mr = T(0), qvr = T(0), mind = T(INFINITY);
-    Kahan<T> q0{T(0), T(0)}, ld{T(0), T(0)};
-    fwd_ticks(
-        c, L, [&](T* st, int s) { copy_streams(st, u, v, ph, a, y, s, B, l, r); },
-        [&](int s) {
-            if (!c.live) return;
-            T* svs = sv + ((size_t)s * B + l) * NSV1;
-            save_row(svs, r, Sh);
-            save_row(svs + PP, r, M);
-            if (r < P) svs[2 * PP + r] = mr;
-        },
-        [&](const T* st) {
-            factor_fwd_step(c.tile, c.wv, c.gv, r, RingStep<T, 0>(st, r), Sh, M, Qm, mr, qvr, q0,
-                            ld, mind);
-        });
-    if (!c.live || r >= P) return;
-    put_mat(M_out, r, B, l, M);
-    put_mat(Qm_out, r, B, l, Qm);
-    m_out[(size_t)r * B + l] = mr;
-    qv_out[(size_t)r * B + l] = qvr;
-    if (r == 0) {
-        q0_out[l] = q0.total();
-        ld_out[l] = ld.total();
-        mind_out[l] = mind;
-    }
+    factor_fwd_sweep<true, T, W>(u, v, ph, a, y, sh0, L, B, M_out, m_out, Qm_out, qv_out,
+                                 q0_out, ld_out, mind_out, sv);
 }
 
 // ---------------------------------------------------------------------------

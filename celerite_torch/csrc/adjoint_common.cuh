@@ -3,7 +3,8 @@
 // factor_bwd and elem_bwd), their transposed steps, each split into a front
 // and a back, and the pipeline that runs the streamed reversed sweeps; the
 // forward sweeps (adjoint.cu's elements_fwd and factor_fwd, fused4_grad.cu's
-// elem_fwd and factor_fwd, pallas_solver.cu's three kernels), their steps
+// elem_fwd and factor_fwd, pallas_solver.cu's three kernels, fused.cu's
+// two sweeps), their steps
 // and their ring of streams (at the end); and the copy of a step's streams
 // into shared memory that both kinds share.
 //
@@ -36,8 +37,10 @@
 // fused4_grad.cu's elem_fwd the same elements step (elem_fwd_step), each
 // from a ring slot (RingStep<T, 0>) or from the kernel's own lowering
 // (LowStep), and the two steps share their Riccati front
-// (riccati_fwd_front).  adjoint.cu's elements_fwd and pallas_solver.cu's
-// elements are one sweep (elements_fwd_sweep), the latter without saves;
+// (riccati_fwd_front).  adjoint.cu's elements_fwd, pallas_solver.cu's
+// elements and fused.cu's elements are one sweep (elements_fwd_sweep), the
+// latter two without saves; adjoint.cu's factor_fwd and fused.cu's factor
+// are one sweep (factor_fwd_sweep<SAVE>), the latter without saves;
 // pallas_solver.cu's subst runs its own step on the same ring.
 
 #pragma once
@@ -770,7 +773,8 @@ __device__ __forceinline__ void elem_fwd_step(T* tile, T* wv, T* gv, int r, cons
 // transitions (I - w u^T) Phi, J a sum of rank-1 terms.  With a non-null
 // sv each step's input [Sh, A] goes to the save stream (NSV0 words a lane
 // and step, the layout adjoint.cu's elements_bwd reads): adjoint.cu's
-// elements_fwd; pallas_solver.cu's elements passes null and saves nothing.
+// elements_fwd; pallas_solver.cu's and fused.cu's elements pass null and
+// save nothing.
 // The kernel runs W warps a block (launch_fwd).
 template <typename T, int W>
 __device__ __forceinline__ void elements_fwd_sweep(const T* __restrict__ u,
@@ -864,6 +868,61 @@ __device__ __forceinline__ T factor_fwd_step(T* tile, T* wv, T* gv, int r, const
     T Qm[P], qvr, mind;  // never read or written
     Kahan<T> q0, ld;
     return factor_fwd_step<false>(tile, wv, gv, r, in, Sh, M, Qm, mr, qvr, q0, ld, mind);
+}
+
+// Each lane's seeded factor from sh0 (P, P, B; float64 glue operands too,
+// rounded to T), its affine map (M, m) and statistics (Qm, qv,
+// Kahan-summed q0 and log-det, min pivot), streamed: a group a lane,
+// thread r row r of Sh, M and Qm and entry r of m and qv, one
+// factor_fwd_step a tick.  With SAVE each step's input [Sh, M, m] goes to
+// the save stream sv (NSV1 words a lane and step, the layout adjoint.cu's
+// factor_bwd reads): adjoint.cu's factor_fwd; fused.cu's factor saves
+// nothing and passes a null sv.  A run-time test of sv in the hook cost
+// adjoint.cu's float32 instance at P = 16 8-32 bytes of spills (PERF.md).
+// The kernel runs W warps a block (launch_fwd).
+template <bool SAVE, typename T, int W, typename U>
+__device__ __forceinline__ void factor_fwd_sweep(
+    const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
+    const T* __restrict__ a, const T* __restrict__ y, const U* __restrict__ sh0, int L, int B,
+    T* __restrict__ M_out, T* __restrict__ m_out, T* __restrict__ Qm_out, T* __restrict__ qv_out,
+    double* __restrict__ q0_out, double* __restrict__ ld_out, T* __restrict__ mind_out,
+    T* __restrict__ sv) {
+    using Ctx = FwdCtx<T, W, NRS>;
+    __shared__ T ring[Ctx::RING], tiles[Ctx::TILES], vecs[Ctx::VECS];
+    const Ctx c(B, ring, tiles, vecs);
+    const int r = c.r, l = c.l;
+    T Sh[P], M[P], Qm[P];
+    get_mat(sh0, r, B, l, Sh);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        M[j] = j == r ? T(1) : T(0);
+        Qm[j] = T(0);
+    }
+    T mr = T(0), qvr = T(0), mind = T(INFINITY);
+    Kahan<T> q0{T(0), T(0)}, ld{T(0), T(0)};
+    fwd_ticks(
+        c, L, [&](T* st, int s) { copy_streams(st, u, v, ph, a, y, s, B, l, r); },
+        [&](int s) {
+            if (!SAVE || !c.live) return;
+            T* svs = sv + ((size_t)s * B + l) * NSV1;
+            save_row(svs, r, Sh);
+            save_row(svs + PP, r, M);
+            if (r < P) svs[2 * PP + r] = mr;
+        },
+        [&](const T* st) {
+            factor_fwd_step(c.tile, c.wv, c.gv, r, RingStep<T, 0>(st, r), Sh, M, Qm, mr, qvr, q0,
+                            ld, mind);
+        });
+    if (!c.live || r >= P) return;
+    put_mat(M_out, r, B, l, M);
+    put_mat(Qm_out, r, B, l, Qm);
+    m_out[(size_t)r * B + l] = mr;
+    qv_out[(size_t)r * B + l] = qvr;
+    if (r == 0) {
+        q0_out[l] = q0.total();
+        ld_out[l] = ld.total();
+        mind_out[l] = mind;
+    }
 }
 
 // Warps a block of a forward sweep: four where that still gives every SM

@@ -310,7 +310,7 @@ __device__ __forceinline__ void prefetch_tile(const Ctx& c, const R* t, const R*
 }
 
 // Lower the tile in ring slot `tile` (its streams arrived): the arithmetic
-// of lower_step (fused4_common.cuh), a thread per (step, lane, real column
+// of fused4._lower_step, a thread per (step, lane, real column
 // or complex pair), then a thread per (step, lane) for the scalars.
 __device__ __forceinline__ void lower_tile(const Ctx& c, int tile, bool with_y) {
     const R* sb = ds_smem + OFF_SB + (tile & 1) * SM_SB;

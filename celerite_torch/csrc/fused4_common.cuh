@@ -5,13 +5,11 @@
 //
 // The scalar helpers (fma, exp, log, sincos overloaded on float / double,
 // the exact two_sum / two_prod and the double-single angle reduction), the
-// per-lane coefficient load, the in-kernel lowering of one step
-// (fused4._lower_step) and the Riccati step both phases share; for the
-// exact-mode kernels also the raw-jitter coefficient load and the decoding
-// of a tangent's seed.  In fused4's primal one thread owns one lane,
-// THREADS lanes a block; in the row-parallel kernels (fused4's gradient
-// kernels among them) a group of G threads owns one lane, a row of the
-// state each.
+// per-lane coefficient load and a complex pair's rotation of the in-kernel
+// lowering (fused4._lower_step); for the exact-mode kernels also the
+// raw-jitter coefficient load and the decoding of a tangent's seed.  In the
+// row-parallel kernels (fused4's kernels among them) a group of G threads
+// owns one lane, a row of the state each.
 //
 // Numerics.  No --use_fast_math.  two_prod takes its exact error from one
 // fma.  In float32, exp and sincos are evaluated in float64 and rounded
@@ -33,10 +31,6 @@ constexpr int P = CELERITE_P;
 // The fused4 and exact-mode sources take P <= 12; adjoint.cu P <= 16.
 static_assert(P >= 1 && P <= 16, "padded width must be in [1, 16]");
 constexpr int PP = P * P;
-// Threads a block of the kernels that give a lane one thread.  Few heavy
-// lanes at P = 8 run faster spread over many SMs; at P = 2 the block size
-// does not matter (PERF.md).
-constexpr int THREADS = 32;
 
 // ---------------------------------------------------------------------------
 // Scalar helpers, overloaded on float / double
@@ -176,32 +170,6 @@ __device__ __forceinline__ void pair_rot(T c, T d, T t, T tl, T dt, T m, T& cm, 
     p = dexp(-c * dt);
 }
 
-template <typename T>
-__device__ __forceinline__ void lower_step(const Coeffs<T>& k, int jr, T t, T tl, T dt, T dg,
-                                           T m, T (&u)[P], T (&v)[P], T (&ph)[P], T& a) {
-#pragma unroll
-    for (int col = 0; col < P; ++col) {
-        if (col < jr) {
-            u[col] = k.c0[col] * m;
-            v[col] = m;
-            ph[col] = dexp(-k.c1[col] * dt);
-        } else if (((col - jr) & 1) == 0) {
-            // First column of a complex pair; its partner is col + 1.
-            T cm, sm, p;
-            pair_rot(k.c2[col], k.c3[col], t, tl, dt, m, cm, sm, p);
-            u[col] = k.c0[col] * cm + k.c1[col] * sm;
-            v[col] = cm;
-            ph[col] = p;
-            if (col + 1 < P) {
-                u[col + 1] = k.c0[col] * sm - k.c1[col] * cm;
-                v[col + 1] = sm;
-                ph[col + 1] = p;
-            }
-        }
-    }
-    a = m * (dg + k.total) + (T(1) - m);
-}
-
 // The exact-mode layout (dsfused.pack_cf_ds): the last slot is the raw
 // jitter and the diagonal total is re-summed here, a_real then a_comp then
 // the jitter, so the total stays coherent with the streams.
@@ -243,36 +211,6 @@ __device__ __forceinline__ Seed decode_seed(int kk, int jr) {
         s.kind = 6;
     }
     return s;
-}
-
-// One Riccati step shared by both phases: Sh <- phi Sh phi + d w w^T.
-// Returns d; leaves w.
-template <typename T>
-__device__ __forceinline__ T riccati_step(T (&Sh)[P][P], const T (&u)[P], const T (&v)[P],
-                                          const T (&ph)[P], T a, T (&w)[P]) {
-    T su[P];
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-        for (int j = 0; j < P; ++j) Sh[i][j] = ph[i] * Sh[i][j] * ph[j];
-#pragma unroll
-    for (int i = 0; i < P; ++i) {
-        T s = T(0);
-#pragma unroll
-        for (int j = 0; j < P; ++j) s += Sh[i][j] * u[j];
-        su[i] = s;
-    }
-    T us = T(0);
-#pragma unroll
-    for (int i = 0; i < P; ++i) us += u[i] * su[i];
-    const T d = a - us;
-#pragma unroll
-    for (int i = 0; i < P; ++i) w[i] = (v[i] - su[i]) / d;
-#pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-        for (int j = 0; j < P; ++j) Sh[i][j] = Sh[i][j] + d * w[i] * w[j];
-    return d;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 // Shared device code of the kernels on pre-lowered (L, P, B) streams
 // (adjoint.cu, pallas_solver.cu, fused.cu, tangent.cu, onepass.cu; and
-// fused4_grad.cu's gradient sweeps, which lower in the kernel), padded
-// widths 1..16.
+// fused4_grad.cu's and fused4_primal.cu's sweeps, which lower in the
+// kernel), padded widths 1..16.
 //
 // A group of G threads (the power of two at or above P; fused4_common.cuh)
 // owns one lane, thread r row r of every P x P state, so a thread holds a
@@ -9,16 +9,14 @@
 // are xor-shuffle reductions within the group (group_sum).  The streams
 // are (L, P, B), lane fastest; per-lane outputs are (P, P, B) and (P, B).
 //
-// Also the sweeps whose every thread reads the step's stream vectors (u,
-// ph) whole: the elements sweep, each lane's Riccati element (A, J, C)
-// from a zero seed, without saves (fused.cu's phase 0); and the seeded
-// factor sweep, without saves in fused.cu, and from a zero seed with its
-// end state in onepass.cu.  Each sweep's step is a value step
-// (elem_value_step, factor_value_step), which tangent.cu's sweeps with
-// tangents also take, there filling the record their tangent steps read.
-// adjoint.cu's elements_fwd and factor_fwd, fused4_grad.cu's elem_fwd and
-// factor_fwd and pallas_solver.cu's three kernels stream their steps
-// through shared memory instead (adjoint_common.cuh).
+// Also the sweep whose every thread reads the step's stream vectors (u,
+// ph) whole: the seeded factor sweep from a zero seed with its end state,
+// onepass.cu's.  Its step is a value step (factor_value_step), which
+// tangent.cu's sweeps with tangents also take, as they take the elements'
+// (elem_value_step), there filling the record their tangent steps read.
+// adjoint.cu's, fused4_grad.cu's, fused4_primal.cu's, pallas_solver.cu's
+// and fused.cu's sweeps stream their steps through shared memory instead
+// (adjoint_common.cuh).
 
 #pragma once
 
@@ -236,43 +234,12 @@ __device__ __forceinline__ void factor_value_step(const T (&uv)[P], const T (&pv
     }
 }
 
-// Each lane's Riccati element (A, J, C) from a zero seed, without saves
-// (fused.py:130's phase 0): C by the zero-seeded factor recursion, A as a
-// product of closed-loop transitions (I - w u^T) Phi, J as a sum of rank-1
-// terms.
-template <typename T>
-__device__ __forceinline__ void elements_sweep(const T* __restrict__ u, const T* __restrict__ v,
-                                               const T* __restrict__ ph,
-                                               const T* __restrict__ a, int L, int B,
-                                               T* __restrict__ A_out, T* __restrict__ J_out,
-                                               T* __restrict__ C_out) {
-    const Lane ln = lane_of(B);
-    const int l = ln.l, r = ln.r;
-    T Sh[P], A[P], J[P];
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-        Sh[j] = J[j] = T(0);
-        A[j] = j == r ? T(1) : T(0);
-    }
-    for (int s = 0; s < L; ++s) {
-        T uv[P], pv[P];
-        load_vec(u, s, B, l, uv);
-        load_vec(ph, s, B, l, pv);
-        const T vr = r < P ? v[((size_t)s * P + r) * B + l] : T(0);
-        elem_value_step<false>(uv, pv, vr, a[(size_t)s * B + l], r, Sh, A, J, no_rec<T>());
-    }
-    if (!ln.live || r >= P) return;
-    put_mat(A_out, r, B, l, A);
-    put_mat(J_out, r, B, l, J);
-    put_mat(C_out, r, B, l, Sh);
-}
-
 // Each lane's seeded factor from sh0 (P, P, B), its affine map (M, m) and
-// statistics (Qm, qv, Kahan-summed q0 and log-det, min pivot): the phase 1
-// of fused.py:130 (fused.cu).  A null sh0 is the zero seed and a non-null
-// C_out takes the end state Sh (P, P, B): the one-pass sweeps onepass.py:111
-// and, with SAVE (each step's input [Sh, M, m] to the save stream sv, NSV1
-// words a lane and step), :162 (onepass.cu).
+// statistics (Qm, qv, Kahan-summed q0 and log-det, min pivot).  A null sh0
+// is the zero seed and a non-null C_out takes the end state Sh (P, P, B):
+// the one-pass sweeps onepass.py:111 and, with SAVE (each step's input [Sh,
+// M, m] to the save stream sv, NSV1 words a lane and step), :162
+// (onepass.cu).
 template <bool SAVE, typename T>
 __device__ __forceinline__ void factor_sweep(const T* __restrict__ u, const T* __restrict__ v,
                                              const T* __restrict__ ph,

@@ -15,9 +15,9 @@
 // reverse and transposes each by hand, with the carried S-hat cotangent
 // seeded from the C output's cotangent and no seed cotangent to emit.
 //
-// Design.  The arithmetic is the seeded factor sweep of adjoint.cu and
-// fused.cu and its transpose, not a copy: factor_sweep (lanes_common.cuh)
-// at a null seed with its end state written, and factor_bwd_sweep
+// Design.  The arithmetic is the seeded factor sweep's and its transpose,
+// not a copy: factor_sweep (lanes_common.cuh, whose step tangent.cu's
+// sweeps take) at a null seed with its end state written, and factor_bwd_sweep
 // (adjoint_common.cuh) with hC as the carried cotangent's start.  A group
 // of G threads (the power of two at or above P) owns a lane, thread r row
 // r of every P x P state; sums over rows are xor-shuffle reductions in the

@@ -11,17 +11,18 @@
 // (M, m), the statistics (Qm, qv, Kahan-summed q0 and log-det, min pivot)
 // and their tangents; the cross-lane prefixes and the assembly between and
 // after them are float64 torch glue in forward mode
-// (celerite_torch/ops/tangent.py).  _jac_kernel is fused.cu's four
-// launches with T tangent copies of the state: the same two sweeps, and
-// the two scans of prefix_common.cuh with their tangents, with no torch
-// work between them (the port runs it at padded width 8 or less).
+// (celerite_torch/ops/tangent.py).  _jac_kernel is the single-sweep
+// value's four launches with T tangent copies of the state: the two
+// sweeps, and the two lane-by-lane scans of prefix_common.cuh with their
+// tangents (fused.cu's value now takes chunked scans), with no torch work
+// between them (the port runs it at padded width 8 or less).
 // Tangent streams are (L, T, P, B) and (L, T, 1, B), the direction axis
 // ahead of the small dims, as in the Pallas kernels.
 //
 // Design.  A group of G threads (the power of two at or above P) steps a
 // lane, thread r owning row r of every P x P state.  A step is two device
 // functions: the value step (elem_value_step, factor_value_step in
-// lanes_common.cuh, the sweeps without tangents take them too) fills a
+// lanes_common.cuh; onepass.cu's sweep takes the latter too) fills a
 // record of what the tangents read of it (the step's start rows of Sh and
 // of A or M, d, z0, and rows of su, w, u, phi, uA or g); a direction's
 // tangent step (elem_tan_step, factor_tan_step below) reads that record and

@@ -12,9 +12,9 @@ the statistics (Qm, qv, Kahan-summed q0 and log-det, min pivot), and a
 second scan gives each lane its incoming state h and assembles ``quad =
 sum q0 - 2 qv.h + h^T Qm h``:
 
-- :func:`kernel_cuda` launches ``celerite_torch/csrc/fused.cu`` (four
-  launches from one host call, the scans on the card, nothing between
-  them; a ``.launches`` counter counts the calls);
+- :func:`kernel_cuda` launches ``celerite_torch/csrc/fused.cu`` (seven
+  launches from one host call: the two sweeps and the chunked scans on the
+  card, nothing between them; a ``.launches`` counter counts the calls);
 - :func:`kernel_reference` is its plain version: the elements pass of
   ``blocked``, ``fused4.prefix_sh0``, ``adjoint.factor_fwd_reference``
   without saves and ``fused4.lane_quad``, one copy of the arithmetic with
@@ -99,15 +99,26 @@ def _kernel_fn(p, dtype):
     lib = _build.load("fused.cu", {"CELERITE_P": p})
     fn = getattr(lib, "celerite_fused_ll_{0}".format(
         "f32" if dtype == torch.float32 else "f64"))
-    fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _work_fn(p):
+    """The float64 words of scratch the chunked scans take for B lanes in
+    segments of ``seg`` (``celerite_fused_work``)."""
+    fn = _build.load("fused.cu", {"CELERITE_P": p}).celerite_fused_work
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return fn
+
+
 def kernel_cuda(u, v, ph, a, y, seg=None):
-    """:func:`kernel_reference` on the card (``csrc/fused.cu``): four
-    launches, the per-lane states between them in scratch tensors."""
+    """:func:`kernel_reference` on the card (``csrc/fused.cu``): seven
+    launches, the per-lane states and the chunks' sums between them in
+    scratch tensors."""
     L, p, b = u.shape
     seg = _segment(b, seg)
     ins = adjoint._operands("fused", u, [
@@ -117,6 +128,7 @@ def kernel_cuda(u, v, ph, a, y, seg=None):
     scratch += [new(p, p, b), new(p, b), new(p, p, b), new(p, b)]  # M m Qm qv
     scratch += [new(b, dtype=torch.float64), new(b, dtype=torch.float64),
                 new(b)]                                    # q0, ld, mind
+    scratch.append(new(_work_fn(p)(b, seg), dtype=torch.float64))  # chunks
     nseg = b // seg
     quad, ld = (new(nseg, dtype=torch.float64) for _ in range(2))
     mind = new(nseg)

@@ -678,9 +678,14 @@ def _launch(name, p, dtype, device, ptrs, L, b, jr, seg):
         )
 
 
-def _workspace_len(p, b):
-    """Float64 workspace the primal kernel needs for width ``p``."""
-    return (6 * p * p + 2 * (p * p + p) + p * p + p + 3) * b
+@functools.lru_cache(maxsize=None)
+def _workspace_fn(p):
+    """The primal's float64 workspace words for B lanes at width ``p``
+    (``celerite_fused4_primal_ws``)."""
+    fn = _build.load("fused4_primal.cu", {"CELERITE_P": p}).celerite_fused4_primal_ws
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    return fn
 
 
 def primal_cuda(cf, plan: Plan4, jr, jc, y=None, seg=None):
@@ -696,7 +701,7 @@ def primal_cuda(cf, plan: Plan4, jr, jc, y=None, seg=None):
         "primal", cf, plan, jr, jc, seg,
         [plan.t, plan.t_lo, plan.dt, plan.diag, plan.mask, y])
     dev = plan.t.device
-    ws = torch.empty(_workspace_len(p, b), dtype=torch.float64, device=dev)
+    ws = torch.empty(_workspace_fn(p)(b), dtype=torch.float64, device=dev)
     quad, ld, mind = (torch.empty(b, dtype=plan.t.dtype, device=dev)
                       for _ in range(3))
     _launch("primal", p, plan.t.dtype, dev,

@@ -13,15 +13,18 @@ kernels (celerite_torch/csrc/adjoint.cu), the three three-pass kernels
 (celerite_torch/csrc/fused.cu), the three tangent kernels
 (celerite_torch/csrc/tangent.cu) and the three one-pass kernels
 (celerite_torch/csrc/onepass.cu) with nvcc for every padded width it
-uses (the gradient kernels at every width 1-12, for ptxas's figures), one
-nvcc process per library, all at once; holds each kernel against
+uses (the primal and the gradient kernels at every width 1-12 and the
+single-sweep kernel at 1-8, for ptxas's figures), one nvcc process per
+library, all at once; holds each kernel against
 its plain PyTorch version on the card; then drives the port's main paths
 through the entry points a user calls:
 
 - A: ``GP.build_loglik`` for bench.py's model (one ComplexTerm, P = 2) at
-  N = 1e6 in float32 and float64, with the lane-count (B) sweep;
+  N = 1e6 in float32 and float64, with the primal's launches' split by
+  torch.profiler and the lane-count (B) sweep;
 - B: ``GP.build_logprob`` for config[2] (two SHO terms + jitter, P = 8) at
-  N = 1e5 (benchmarks/nuts_config2.py), in float32 and float64;
+  N = 1e5 (benchmarks/nuts_config2.py), in float32 and float64, with the
+  primal's split and the lane sweep;
 - C: the gradient: ``build_logprob(...).value_and_grad`` (one theta) and
   ``value_and_grad_batch`` (16 thetas folded onto the kernels' lanes) for
   config[2] at N = 1e5, and ``value_and_grad`` for bench.py's model at
@@ -73,7 +76,7 @@ through the entry points a user calls:
   and the three tangent kernels (celerite_torch/csrc/tangent.cu) against
   their plain versions at padded widths 2, 8, 13 and 16 on small plans
   and on main path G's own plans, timed there (the jac call's four
-  launches each by torch.profiler);
+  launches and the single-sweep call's seven each by torch.profiler);
 - G: ``fast_grad="tangent"``: ``build_logprob(..., fast_grad="tangent")``
   for config[2] (P = 8) and E's model (P = 16) at N = 1e5, one theta's
   value, ``value_and_grad`` and ``value_and_grad_batch`` over 16 thetas,
@@ -108,6 +111,7 @@ nvidia-smi gives them, and last
 without a CUDA device it exits non-zero before printing anything.
 """
 
+import concurrent.futures
 import ctypes
 import functools
 import json
@@ -144,9 +148,11 @@ from celerite_torch.testing import (CASES, bench_kernel, blocked_streams,
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 WIDTHS = (1, 2, 4, 8)           # padded widths this script runs
-# fused4_grad.cu is also built at every other width it takes, for ptxas's
-# figures in the redesigned_kernels line.
+# fused4_grad.cu and fused4_primal.cu are also built at every other width
+# they take, fused.cu at every width the port takes it, for ptxas's figures
+# in the redesigned_kernels line.
 GRAD_PTXAS_WIDTHS = tuple(range(1, 13))
+FUSED_PTXAS_WIDTHS = tuple(range(1, 9))
 F64_RTOL = 1e-10                # f64 kernel against f64 plain
 F32_RTOL = 1e-4                 # f32 against f64 (input-quantization floor)
 F32_PLAIN_RTOL = 2e-5           # f32 kernel against f32 plain, same plan
@@ -196,14 +202,15 @@ SOLVER_F32_PATH_RTOL = 7.5e-4
 TANGENT_F64_RTOL = 1e-10
 TANGENT_F32_RTOL = {"fused": 9.4e-5, "elements_jvp": 5.1e-4,
                     "factor_jvp": 0.13, "jac": 1.3e-3}
-# The CUDA kernels of csrc/*.cu, by their names in a profile.
-PORT_KERNELS = ("elem_kernel", "elem_round", "factor_kernel", "affine_round",
-                "assemble") + tuple(k + "_kernel" for k in fused4.GRAD_KERNELS
-                                    + dsfused.DS_KERNELS) + tuple(
+# The CUDA kernels of csrc/*.cu, by their names in a profile (the primal
+# runs elem_fwd_kernel and factor_fwd_kernel without saves).
+PORT_KERNELS = ("primal_scan_kernel", "primal_seed_kernel",
+                "primal_assemble_kernel") + tuple(
+    k + "_kernel" for k in fused4.GRAD_KERNELS + dsfused.DS_KERNELS) + tuple(
     "adjoint_" + k + "_kernel" for k in adjoint.ADJOINT_KERNELS) + tuple(
     "solver_" + k + "_kernel" for k in pallas_solver.SOLVER_KERNELS) + tuple(
-    "fused_" + k + "_kernel" for k in ("elements", "seed", "factor",
-                                       "assemble")) + tuple(
+    "fused_" + k + "_kernel" for k in ("elements", "chunk", "spine", "seed",
+                                       "factor", "quad", "assemble")) + tuple(
     "jac_" + k + "_kernel" for k in ("elements", "seed", "factor",
                                      "assemble")) + (
     "onepass_sweep_kernel", "onepass_fwd_kernel", "onepass_bwd_kernel")
@@ -228,11 +235,13 @@ SAMPLER_D_DEPTH = 6
 # Padded widths of the adjoint kernels this script builds and holds, lanes
 # a chain swept on main path E, and sampler_E's chains (the example's
 # --chains default, examples/config2_asteroseismic.py) and transitions,
-# cut to keep the phase near two minutes (PERF.md).
+# cut to keep the phase near two minutes (PERF.md): 20 warmup transitions
+# as sampler_D's and sampler_G's, since a run on a slow host took 1106 s
+# of the 1200 (PERF.md §4).
 WIDE_WIDTHS = (13, 16)
 E_LANES = (64, 128, 256, 512, 1024)
 SAMPLER_E_CHAINS = 4
-SAMPLER_E_WARMUP = 30
+SAMPLER_E_WARMUP = 20
 SAMPLER_E_SAMPLES = 4
 # sampler_E's sampling tree depth: 6, as sampler_D's and sampler_G's (the
 # example's 8 took ~35 s of sampling for 4 transitions, PERF.md §4).
@@ -297,20 +306,62 @@ def nvcc_version():
     return out.stdout.strip().splitlines()[-1]
 
 
+def _template_args(s, i):
+    """The template arguments of a mangled name from s[i] (just past its
+    ``I``) to the matching ``E``, as text: bools, ints, float / double and
+    class templates; returns ``(args, index past the E)``."""
+    args = []
+    while i < len(s) and s[i] != "E":
+        if s[i] == "L":
+            j = s.index("E", i)
+            tok = s[i + 1:j]
+            args.append({"b0": "false", "b1": "true"}.get(tok, tok.lstrip("i")))
+            i = j + 1
+        elif s[i] in "df":
+            args.append({"d": "f64", "f": "f32"}[s[i]])
+            i += 1
+        elif s[i].isdigit():
+            n = re.match(r"\d+", s[i:]).group()
+            i += len(n)
+            name = s[i:i + int(n)]
+            i += int(n)
+            if i < len(s) and s[i] == "I":
+                sub, i = _template_args(s, i + 1)
+                name += "<" + ",".join(sub) + ">"
+            args.append(name)
+        else:
+            return args + [s[i:]], len(s)
+    return args, i + 1
+
+
+def kernel_name(mangled):
+    """A kernel's name in ptxas's summary: ``kernel<[threads a lane,]
+    dtype or tan/value[, warps a block]>`` for the templates that have
+    those arguments, else its name and template arguments as text."""
+    tags = {"f": "f32", "d": "f64", "Lb1E": "tan", "Lb0E": "value"}
+    m = re.match(r"_Z\d+(\w+?)I(?:Li(\d+)E)?([df]|Lb[01]E)(?:Li(\d+)E)?Ev",
+                 mangled)
+    if m:
+        return "{0}<{1}{2}{3}>".format(
+            m.group(1), "" if m.group(2) is None else m.group(2) + ",",
+            tags[m.group(3)], "" if m.group(4) is None else "," + m.group(4))
+    m = re.match(r"_Z(\d+)", mangled)
+    start = m.end() + int(m.group(1))
+    name = mangled[m.end():start]
+    if mangled[start:start + 1] == "I":
+        args, _ = _template_args(mangled, start + 1)
+        name += "<" + ",".join(args) + ">"
+    return name
+
+
 def ptxas_summary(path):
-    """{kernel<[threads a lane,] dtype or tan/value[, warps a block]>:
-    {"registers", "spill_stores", "spill_loads"}}."""
+    """{kernel name (``kernel_name``): {"registers", "spill_stores",
+    "spill_loads"}}."""
     out, cur, props = {}, None, None
-    tags = {"f": "f32", "d": "f64", "Lb1": "tan", "Lb0": "value"}
     for line in path.read_text().splitlines():
-        m = re.search(r"Compiling entry function "
-                      r"'_Z\d+(\w+?)I(?:Li(\d+)E)?([df]|Lb[01])"
-                      r"(?:Li(\d+)E)?E", line)
+        m = re.search(r"Compiling entry function '(_Z\w+)'", line)
         if m:
-            cur = "{0}<{1}{2}{3}>".format(
-                m.group(1), "" if m.group(2) is None else m.group(2) + ",",
-                tags[m.group(3)],
-                "" if m.group(4) is None else "," + m.group(4))
+            cur = kernel_name(m.group(1))
             out[cur] = {}
             continue
         m = re.search(r"Function properties for (\S+)", line)
@@ -392,7 +443,7 @@ def profile_evals(fn, theta, evals=10):
             ms = dev / 1e3 / evals
             kernels.append({"name": e.key[:60], "per_eval": e.count / evals,
                             "ms_per_eval": ms})
-            m = re.match(r"void (\w+)<", e.key)
+            m = re.match(r"(?:void )?(\w+)[<(]", e.key)
             if m and m.group(1) in PORT_KERNELS:
                 ours[m.group(1)] = ours.get(m.group(1), 0.0) + ms
             else:
@@ -2237,7 +2288,7 @@ def launch_split_ms(fn, warmup=5, active=10):
                 and not e.key.startswith("ProfilerStep")):
             us = max(getattr(e, "self_device_time_total", 0) or 0,
                      getattr(e, "device_time_total", 0) or 0)
-            split[re.sub(r"^void ", "", e.key).split("<")[0]] = \
+            split[re.split(r"[<(]", re.sub(r"^void ", "", e.key))[0]] = \
                 us / 1e3 / e.count
     return split
 
@@ -2245,14 +2296,15 @@ def launch_split_ms(fn, warmup=5, active=10):
 def time_tangent_kernels(streams, tangents, seg, kernels, plain=True):
     """{name: {"ms", "plain_ms", "bound_ms", "bound_by"}}: each kernel by
     CUDA events over 5 calls, its plain version once; the jac call's four
-    launches also by torch.profiler (``split_ms``, ms a launch)."""
+    launches and the single-sweep call's seven also by torch.profiler
+    (``split_ms``, ms a launch)."""
     rows = {}
     T = tangents[0].shape[1] if tangents else 0
     nseg = streams[0].shape[-1] // seg
     for name, (kern, plain_fn) in tangent_kernel_calls(
             streams, tangents, seg, kernels).items():
         row = rows[name] = {"ms": sync_time_ms(kern, reps=5)}
-        if name == "jac":
+        if name in ("jac", "fused"):
             row["split_ms"] = launch_split_ms(kern)
         if plain:
             row["plain_ms"] = sync_time_ms(plain_fn, reps=1, warm=0)
@@ -2887,11 +2939,14 @@ def main_path_i(t, y, yerr, dev):
     return counts
 
 
-def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
-                       onepass_rows, solver_rows):
+def redesigned_summary(smi, ptxas, primal_rows, grad_rows, tangent_rows,
+                       adj_rows, onepass_rows, solver_rows):
     """The kernels redesigned for this card and those sharing their code,
     with the card's name and power limit: ptxas's registers and spill bytes
-    of each at every width built, and their timings on each plan (rows 2,
+    of each at every width built, and their timings on each plan (row 1,
+    which runs rows 2's and 4's sweeps without saves, on A's and B's plans
+    with its launches' split; row 15 on G's value plan, its seven launches'
+    split beside; rows 2,
     5 and 4 on C's 1- and 16-chain plans, row 3, which runs row 9's
     transposed step in row 5's layout, rows 2 and 4, which run rows 8's
     and 10's steps; row 18 on G's plans, with its four launches' split;
@@ -2916,6 +2971,11 @@ def redesigned_summary(smi, ptxas, grad_rows, tangent_rows, adj_rows,
 
     return {
         "card": smi,
+        "primal": {"ptxas": regs("fused4_primal.cu", ""),
+                   "plans": primal_rows},
+        "fused": {"ptxas": regs("fused.cu", "fused_"),
+                  "plans": {k: v["fused"] for k, v in tangent_rows.items()
+                            if "fused" in v}},
         "elem_fwd": grad("elem_fwd"),
         "factor_bwd": grad("factor_bwd"),
         "elem_bwd": grad("elem_bwd"),
@@ -2970,20 +3030,34 @@ def main():
          nvidia_smi=smi)
 
     t0 = time.perf_counter()
-    widths = {"fused4_primal.cu": WIDTHS, "fused4_grad.cu": GRAD_PTXAS_WIDTHS,
+    widths = {"fused4_primal.cu": GRAD_PTXAS_WIDTHS,
+              "fused4_grad.cu": GRAD_PTXAS_WIDTHS,
               "dsfused.cu": WIDTHS, "adjoint.cu": WIDE_WIDTHS,
-              "pallas_solver.cu": SOLVER_WIDTHS, "fused.cu": FUSED_WIDTHS,
+              "pallas_solver.cu": SOLVER_WIDTHS,
+              "fused.cu": FUSED_PTXAS_WIDTHS,
               "tangent.cu": TANGENT_WIDTHS, "onepass.cu": ONEPASS_WIDTHS}
+    # The widths the run launches build first; those only ptxas's figures
+    # take build beside the run (~25-40 s of nvcc) and are waited for at
+    # the end.
+    run_widths = {"fused4_primal.cu": WIDTHS, "fused4_grad.cu": WIDTHS,
+                  "fused.cu": FUSED_WIDTHS}
     jobs = [(src, p) for src, ps in widths.items() for p in ps]
-    paths = _build.build([(src, {"CELERITE_P": p}) for src, p in jobs])
+    first = [j for j in jobs if j[1] in run_widths.get(j[0], widths[j[0]])]
+    later = [j for j in jobs if j not in first]
+    paths = dict(zip(first, _build.build(
+        [(src, {"CELERITE_P": p}) for src, p in first])))
     ptxas = {}
-    for (src, p), path in zip(jobs, paths):
+    for (src, p), path in paths.items():
         ptxas.setdefault(src, {})[p] = ptxas_summary(
             path.with_suffix(".ptxas.txt"))
+    beside = concurrent.futures.ThreadPoolExecutor(1)
+    later_paths = beside.submit(
+        _build.build, [(src, {"CELERITE_P": p}) for src, p in later])
     emit("build", seconds=time.perf_counter() - t0,
          widths={src: list(ps) for src, ps in widths.items()},
+         built_beside=[list(j) for j in later],
          flags={src: list(_build.FLAGS + _build.SOURCE_FLAGS.get(src, ()))
-                for src in widths}, ptxas=ptxas)
+                for src in widths})
 
     errs = []
     check_kernel_cases(dev, errs)
@@ -3038,9 +3112,18 @@ def main():
         lambda: fused4.primal_cuda(cf, plan64, pr, pc), reps=50)
     bms, bby = bound_ms(plan32, pr, pc)
     bms64, bby64 = bound_ms(plan64, pr, pc)
+    primal_rows = {"A": {
+        "lanes": plan32.num_blocks, "steps": plan32.t.shape[0],
+        "ms_f32": ms_kernel, "ms_f64": ms_kernel64,
+        "split_ms_f32": launch_split_ms(
+            lambda: fused4.primal_cuda(cf32, plan32, pr, pc)),
+        "split_ms_f64": launch_split_ms(
+            lambda: fused4.primal_cuda(cf, plan64, pr, pc))}}
     emit("kernel_time_A", ms_f32=ms_kernel, plain_ms_f32=ms_plain,
          bound_ms_f32=bms, bound_by_f32=bby, ms_f64=ms_kernel64,
-         bound_ms_f64=bms64, bound_by_f64=bby64)
+         bound_ms_f64=bms64, bound_by_f64=bby64,
+         split_ms_f32=primal_rows["A"]["split_ms_f32"],
+         split_ms_f64=primal_rows["A"]["split_ms_f64"])
 
     # Lane-count sweep at N = 1e6 (kernel time and f32 seeding error).
     for nb in SWEEP_LANES:
@@ -3136,16 +3219,26 @@ def main():
                 for dt, lp in lps.items()}
     bms_b, bby_b = bound_ms(plan64, pr, pc)
     bms_b32, bby_b32 = bound_ms(plan32, pr, pc)
+    primal_rows["B"] = {
+        "lanes": plan64.num_blocks, "steps": plan64.t.shape[0],
+        "ms_f32": sync_time_ms(
+            lambda: fused4.primal_cuda(cfb32, plan32, pr, pc), reps=20),
+        "ms_f64": sync_time_ms(
+            lambda: fused4.primal_cuda(cfb, plan64, pr, pc), reps=20),
+        "split_ms_f32": launch_split_ms(
+            lambda: fused4.primal_cuda(cfb32, plan32, pr, pc)),
+        "split_ms_f64": launch_split_ms(
+            lambda: fused4.primal_cuda(cfb, plan64, pr, pc))}
     emit("main_path_B", model="config[2] 2xSHO + jitter (P=8)", n=n,
          lanes=plan64.num_blocks, steps_per_lane=plan64.t.shape[0],
          logprob_f32=vals[torch.float32], logprob_f64=vals[torch.float64],
          logprob_plain_f64=lp_ref, rel_err_f64_kernel_vs_plain=eb64,
          rel_err_f32_vs_f64=eb32, rel_err_f32_kernel_vs_f32_plain=eb32p,
          launches=launches_b, ms_per_eval=spread_b,
-         kernel_ms_f32=sync_time_ms(
-             lambda: fused4.primal_cuda(cfb32, plan32, pr, pc), reps=20),
-         kernel_ms_f64=sync_time_ms(
-             lambda: fused4.primal_cuda(cfb, plan64, pr, pc), reps=20),
+         kernel_ms_f32=primal_rows["B"]["ms_f32"],
+         kernel_ms_f64=primal_rows["B"]["ms_f64"],
+         split_ms_f32=primal_rows["B"]["split_ms_f32"],
+         split_ms_f64=primal_rows["B"]["split_ms_f64"],
          plain_ms_f64=sync_time_ms(
              lambda: fused4.primal_reference(cfb, plan64, pr, pc), reps=2,
              warm=1),
@@ -3387,9 +3480,16 @@ def main():
             "bound_by": row["bound_by_float64"],
             "library_ms": None,
         })
+    # result() raises if a build beside the run failed.
+    for (src, p), path in zip(later, later_paths.result()):
+        ptxas.setdefault(src, {})[p] = ptxas_summary(
+            path.with_suffix(".ptxas.txt"))
+    beside.shutdown()
+    emit("ptxas", ptxas={src: dict(sorted(ps.items()))
+                         for src, ps in ptxas.items()})
     emit("redesigned_kernels", **redesigned_summary(
-        smi, ptxas, grad_rows, tangent_rows, adj_rows, onepass_rows,
-        solver_rows))
+        smi, ptxas, primal_rows, grad_rows, tangent_rows, adj_rows,
+        onepass_rows, solver_rows))
     emit("done", seconds=time.perf_counter() - T_START)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

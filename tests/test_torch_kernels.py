@@ -23,6 +23,9 @@ from celerite_torch.testing import (CASES, blocked_streams,
                                     lane_tangent_streams, make_data,
                                     pack_values, width_kernel)
 
+# The float32 primal against its float32 plain version on the same plan
+# (chip_smoke.F32_PLAIN_RTOL).
+F32_PLAIN_RTOL = 2e-5
 # The float32 gradient kernels against their float32 plain versions on the
 # same plan: ten times the largest error chip_smoke.py measured (PERF.md).
 GRAD_F32_RTOL = 4e-5
@@ -124,19 +127,127 @@ def test_primal_kernel_chain_folded(cuda_device):
     np.testing.assert_allclose(llk.cpu().numpy(), llp.numpy(), rtol=1e-10)
 
 
+# The primal's width cases: P = 1, 2, 4, 8 and 12.
+PRIMAL_WIDTH_CASES = {1: CASES[0], 2: CASES[1], 4: CASES[2], 8: CASES[3],
+                      12: _wide_case(0, 6)}
+
+
+def _primal_plan(lanes, steps, dtype, device, keep=None, seed=4, n=None,
+                 t_max=None):
+    """A plan of ``lanes`` lanes of ``steps`` points each, or of ``n``
+    points with a padded tail (a power of two of lanes; ``keep`` of them
+    kept, the rest cut off the end)."""
+    n = n or lanes * steps
+    t, y, yerr = make_data(n, seed=seed, t_max=t_max or n / 10.0)
+    plan = lanes4.make_plan4(t, y, yerr**2, lanes, dtype=dtype, device=device)
+    if keep is None:
+        return plan
+    return lanes4.Plan4(*[x[:, :keep].contiguous() for x in plan[:6]],
+                        plan.n, keep)
+
+
+def _assert_lanes_close(got, want, rtol):
+    """Per-lane outputs against the plain version's, each within ``rtol``
+    of its largest value; NaN and infinity where it has them."""
+    for g, w in zip(got, want):
+        g, w = g.double().cpu().numpy(), w.double().cpu().numpy()
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        fin = np.isfinite(w)
+        np.testing.assert_array_equal(g[~fin & ~np.isnan(w)],
+                                      w[~fin & ~np.isnan(w)])
+        if fin.any():
+            top = float(np.abs(w[fin]).max())
+            np.testing.assert_allclose(g[fin], w[fin], rtol=0,
+                                       atol=rtol * top)
+
+
 @pytest.mark.cuda
-def test_primal_kernel_segments_one_cf_row(cuda_device):
-    """One coefficient row over several segments: no state crosses them."""
-    jr, jc, vals = CASES[2]
-    t, y, yerr = make_data(2053, seed=4, t_max=200.0)
-    plan = lanes4.make_plan4(t, y, yerr**2, 64, dtype=torch.float64,
-                             device=cuda_device)
-    cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device)
-    got = fused4.primal_cuda(cf, plan, jr, jc, seg=16)
-    want = fused4.primal_reference(cf, plan, jr, jc, seg=16)
+@pytest.mark.parametrize("width,lanes,keep,seg,steps", [
+    (4, 64, None, 16, None),
+    # segments inside a scan block, straddling its blocks (24 lanes), and
+    # over many blocks (every lane one segment), on lanes of 2 and 1 steps
+    *[(p, 4096, None, 8, 2) for p in (1, 2, 8, 12)],
+    *[(p, 4096, 4080, 24, 2) for p in (1, 2, 8, 12)],
+    *[(p, 4096, None, 4096, 1) for p in (1, 2, 8, 12)]])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_primal_kernel_segments_one_cf_row(width, lanes, keep, seg, steps,
+                                           dtype, cuda_device):
+    """One coefficient row over segments of ``seg`` lanes: no state crosses
+    them, and each lane's quad, ld and mind equal the plain version's, to
+    1e-10 in float64 and within F32_PLAIN_RTOL of each output's largest
+    value in float32, where the segments lie inside one of the prefix
+    scan's blocks, straddle them, and span many."""
+    jr, jc, vals = PRIMAL_WIDTH_CASES[width]
+    # steps None: N = 2053 on 64 lanes, a padded tail.
+    plan = _primal_plan(lanes, steps, dtype, cuda_device, keep,
+                        n=None if steps else 2053,
+                        t_max=None if steps else 200.0)
+    cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device,
+                         dtype=dtype)
+    before = fused4.primal_cuda.launches
+    got = fused4.primal_cuda(cf, plan, jr, jc, seg=seg)
+    assert fused4.primal_cuda.launches == before + 1
+    want = fused4.primal_reference(cf, plan, jr, jc, seg=seg)
+    if dtype == torch.float32:
+        _assert_lanes_close(got, want, F32_PLAIN_RTOL)
+        return
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 8])
+@pytest.mark.parametrize("shape", ["one_step", "two_steps", "dead_lane",
+                                   "four_warps"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_primal_kernel_shapes(width, shape, dtype, cuda_device):
+    """The primal's sweeps on the shapes their ring and their blocks meet:
+    lanes of one and two steps (fewer than the three the ring copies
+    ahead); ``dead_lane``: a last one-warp block of 32 / G lanes but one;
+    ``four_warps``: enough lanes (three past 128 / G a block on every SM)
+    for four-warp blocks, whose last holds dead lanes.  Each lane's quad,
+    ld and mind against the plain version's, one segment."""
+    jr, jc, vals = PRIMAL_WIDTH_CASES[width]
+    g = 1 << (width - 1).bit_length()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    keep = {"one_step": None, "two_steps": None,
+            "dead_lane": 4 * 32 // g - 1,
+            "four_warps": sms * 128 // g + 3}[shape]
+    lanes = 512 if keep is None else 1 << (keep - 1).bit_length()
+    steps = {"one_step": 1, "two_steps": 2}.get(shape, 4)
+    plan = _primal_plan(lanes, steps, dtype, cuda_device, keep)
+    cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device,
+                         dtype=dtype)
+    got = fused4.primal_cuda(cf, plan, jr, jc)
+    want = fused4.primal_reference(cf, plan, jr, jc)
+    _assert_lanes_close(got, want, 1e-10 if dtype == torch.float64
+                        else F32_PLAIN_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_primal_kernel_bad_pivots(width, dtype, cuda_device):
+    """A zero pivot (lane 64's first step, which heads segment 1: a = 0)
+    and a NaN pivot (lane 140, step 3: a NaN variance) in two of four
+    segments of 64 lanes: quad, ld and mind equal the plain version's, NaN
+    where it has NaN, the clean segments within 1e-10 of its largest value
+    in float64 and F32_PLAIN_RTOL in float32."""
+    jr, jc, vals = PRIMAL_WIDTH_CASES[width]
+    plan = _primal_plan(256, 8, dtype, cuda_device)
+    cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device,
+                         dtype=dtype)
+    diag = plan.diag.clone()
+    diag[0, 64] = -cf[-1]          # a = m (diag + total) + (1 - m) = 0
+    diag[3, 140] = math.nan
+    plan = plan._replace(diag=diag)
+    got = fused4.primal_cuda(cf, plan, jr, jc, seg=64)
+    want = fused4.primal_reference(cf, plan, jr, jc, seg=64)
+    assert bool(torch.isnan(want[0][64:128]).all())
+    assert bool(torch.isnan(want[0][140:192]).all())
+    _assert_lanes_close(got, want, 1e-10 if dtype == torch.float64
+                        else F32_PLAIN_RTOL)
 
 
 @pytest.mark.cuda
@@ -680,6 +791,88 @@ def test_fused_kernel_matches_plain(width, dtype, cuda_device):
     assert streams[0].shape[-1] == 64
     errs = compare_fused_kernel(*streams, seg=16)["fused"]
     assert errs["max_rel_err"] <= rtol, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lanes,seg", [(48, 1), (96, 6), (96, 24), (100, 25),
+                                      (512, 32)])
+def test_fused_kernel_segments(width, dtype, lanes, seg, cuda_device):
+    """The single-sweep kernel's chunked scans (chunks of ceil(sqrt(seg /
+    3)) lanes) on segments of 1 lane (a chunk each), 6 (three chunks of 2),
+    24 (eight of 3), 25 (chunks of 3, the last of 1) and 32 lanes, 16
+    chains: quad, ld and mind of each segment against the plain version's,
+    1e-10 in float64 and FUSED_F32_RTOL in float32, on lanes of 16
+    steps."""
+    from celerite_torch import terms
+    from celerite_torch.ops import fused
+
+    t, y, yerr = make_data(lanes * 16, seed=3, t_max=lanes * 1.6)
+    streams = blocked_streams(width_kernel(terms, width), t, y, yerr, 16,
+                              dtype=dtype, device=cuda_device)
+    assert streams[0].shape[-1] == lanes
+    errs = compare_fused_kernel(*streams, seg=seg)["fused"]
+    rtol = 1e-10 if dtype == torch.float64 else FUSED_F32_RTOL
+    assert errs["max_rel_err"] <= rtol, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", ["one_step", "two_steps", "dead_lane",
+                                   "four_warps"])
+def test_fused_kernel_shapes(width, dtype, shape, cuda_device):
+    """The single-sweep kernel's two streamed sweeps on the shapes their
+    ring and their blocks meet, as the three-pass kernels' test: lanes of
+    one and two steps, 37 lanes; ``dead_lane``: one-warp blocks of 32 / G
+    lanes but one, 96 steps; ``four_warps``: three lanes past 128 / G a
+    block on every SM, 4 steps.  One launch; quad, ld and mind against the
+    plain version's, 1e-10 in float64 and FUSED_F32_RTOL in float32."""
+    from celerite_torch import terms
+    from celerite_torch.ops import fused
+
+    g = 1 << (width - 1).bit_length()
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    steps, lanes = {"one_step": (1, 37), "two_steps": (2, 37),
+                    "dead_lane": (96, 4 * 32 // g - 1),
+                    "four_warps": (4, sms * 128 // g + 3)}[shape]
+    n = steps * lanes
+    t, y, yerr = make_data(n, seed=5, t_max=n / 20.0)
+    streams = blocked_streams(width_kernel(terms, width), t, y, yerr, steps,
+                              dtype=dtype, device=cuda_device)
+    assert streams[0].shape == (steps, width, lanes)
+    before = fused.kernel_cuda.launches
+    errs = compare_fused_kernel(*streams)["fused"]
+    assert fused.kernel_cuda.launches == before + 1
+    rtol = 1e-10 if dtype == torch.float64 else FUSED_F32_RTOL
+    assert errs["max_rel_err"] <= rtol, errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [2, 8])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fused_kernel_bad_pivots(width, dtype, cuda_device):
+    """A zero pivot (lane 24's first step, which heads segment 2: a = 0)
+    and a NaN pivot (lane 41, step 5: a NaN) in two of four segments of 12
+    lanes: quad, ld and mind equal the plain version's, NaN where it has
+    NaN, the clean segments within 1e-10 of its largest value in float64
+    and FUSED_F32_RTOL in float32."""
+    from celerite_torch import terms
+    from celerite_torch.ops import fused
+
+    t, y, yerr = make_data(48 * 16, seed=2, t_max=80.0)
+    u, v, ph, a, yy = blocked_streams(width_kernel(terms, width), t, y, yerr,
+                                      16, dtype=dtype, device=cuda_device)
+    a = a.clone()
+    a[0, 0, 24] = 0.0
+    a[5, 0, 41] = math.nan
+    got = fused.kernel_cuda(u, v, ph, a, yy, 12)
+    want = fused.kernel_reference(u, v, ph, a, yy, 12)
+    assert bool(torch.isnan(want[0][2:]).all())
+    assert bool(torch.isfinite(want[0][:2]).all())
+    _assert_lanes_close(got, want, 1e-10 if dtype == torch.float64
+                        else FUSED_F32_RTOL)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Time one tree's kernels of rows 2-5, 8-18 and 21 (PERF.md
+"""Time one tree's kernels of rows 1-5, 8-18 and 21 (PERF.md
 section 6) on the plans chip_smoke.py times them on, so that two trees can
 be compared on one card.
 
@@ -11,19 +11,24 @@ Usage (on a machine with an NVIDIA H100), from the root of a checkout:
 ``celerite_torch`` and ``chip_smoke.py`` are imported; an older commit
 unpacked with ``git archive`` into a git-ignored directory (``build/``)
 serves.  Run the trees in turns in one command (old, new, new, old) to
-compare them on one card.  ``--rows`` times only the rows named (2, 3, 4,
-5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 21; 2-5 build together, as
+compare them on one card.  ``--rows`` times only the rows named (1, 2, 3,
+4, 5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 21; 2-5 build together, as
 do 8-11, 12-14 and 16-17; ``--rows ""`` none).  ``--call-c`` and
 ``--call-g`` also time main path C's calls and G's on E's model.
 
-Builds what the rows take of ``fused4_grad.cu`` at P = 8 (at every P =
-1-12 for row 2's ptxas figures), ``tangent.cu`` at 8, 13 and 16,
-``adjoint.cu`` at 13 and 16, ``pallas_solver.cu`` at 4, 13 and 16,
-``fused.cu`` and
+Builds what the rows take of ``fused4_primal.cu`` at every P = 1-12,
+``fused4_grad.cu`` at P = 8 (at every P = 1-12 for row 2's ptxas
+figures), ``tangent.cu`` at 8, 13 and 16, ``adjoint.cu`` at 13 and 16,
+``pallas_solver.cu`` at 4, 13 and 16, ``fused.cu`` at every P = 1-8 and
 ``onepass.cu`` at 8, and prints one JSON line a measurement, each with the
 tree, the card's name and power limit (nvidia-smi) and ptxas's registers
 and spill bytes of the kernels timed:
 
+- ``row1``: the fused primal (``fused4.primal_cuda``) on main path A's
+  plan (bench.py's model, N = 1e6: 32768 lanes of 31 steps, P = 2) and
+  on main path B's (config[2], N = 1e5: 4096 lanes of 25 steps, P = 8),
+  float64 and float32, with the device ms and launches a call of each of
+  its kernels from torch.profiler and ptxas's figures at P = 1-12;
 - ``row2``, ``row5``, ``row3`` and ``row4``: fused4 ``elem_fwd``,
   ``factor_bwd``, ``elem_bwd`` and ``factor_fwd`` on main path C's
   16-chain batch plan (config[2], N = 1e5, 16 x 512 lanes of 196 steps),
@@ -53,7 +58,9 @@ and spill bytes of the kernels timed:
   ``pallas_solver.default_block_size``), float64 and float32, with
   ptxas's figures at P = 4, 13 and 16;
 - ``row15``: the single-sweep kernel on main path G's value plan of
-  config[2] (one theta, P = 8), float64;
+  config[2] (one theta, P = 8: 256 lanes of 391 steps), float64 and
+  float32, with the device ms and launches a call of each of its kernels
+  from torch.profiler and ptxas's figures at P = 1-8;
 - ``row21``: the one-pass ``sweep_bwd`` on main path H's config[2] plan,
   float64;
 - ``callC`` (``--call-c``): main path C's ``value_and_grad`` at one theta
@@ -79,7 +86,7 @@ def main():
     ap.add_argument("--tree", default=".",
                     help="root of the tree whose celerite_torch is timed")
     ap.add_argument("--rows",
-                    default="2,3,4,5,8,9,10,11,12,13,14,15,16,17,18,21",
+                    default="1,2,3,4,5,8,9,10,11,12,13,14,15,16,17,18,21",
                     help="comma-separated rows to time")
     ap.add_argument("--call-c", action="store_true",
                     help="also time main path C's calls")
@@ -118,8 +125,12 @@ def main():
         (("pallas_solver.cu", 16), {12, 13, 14}), (("fused.cu", 8), {15}),
         (("onepass.cu", 8), {21}))
         if rows & of]
+    if 1 in rows:
+        jobs += [("fused4_primal.cu", p) for p in range(1, 13)]
     if 2 in rows:
         jobs += [("fused4_grad.cu", p) for p in range(1, 13) if p != 8]
+    if 15 in rows:
+        jobs += [("fused.cu", p) for p in range(1, 8)]
     paths = _build.build([(s, {"CELERITE_P": p}) for s, p in jobs])
     ptxas = {"{0}:{1}".format(s, p): cs.ptxas_summary(
         path.with_suffix(".ptxas.txt")) for (s, p), path in zip(jobs, paths)}
@@ -150,6 +161,8 @@ def main():
 
     theta = torch.as_tensor(gp.get_parameter_vector(), device=dev)
     thetas = cs.path_c_thetas(theta, dev)
+    if 1 in rows:
+        time_row1(cs, gp, t, y, yerr, theta, emit, pick)
     if args.call_c:
         time_calls(cs, "callC", gp, t, y, yerr, prior, theta, thetas, emit)
 
@@ -217,15 +230,21 @@ def main():
     if rows & {12, 13, 14}:
         time_rows12_14(cs, gpe, thetae, t, y, yerr, prior, emit, pick, rows)
     if 15 in rows:
-        lpg = gp.build_logprob(t, y, yerr=yerr, log_prior=prior,
-                               dtype=torch.float64, fast_grad="tangent")
-        s = cs.lane_streams(gp, lpg.loglik.plan, theta)
-        b = s[0].shape[-1]
-        emit("row15", kernel="fused kernel", dtype="float64", lanes=b,
-             steps=s[0].shape[0],
-             ms=cs.sync_time_ms(lambda: fused.kernel_cuda(*s, b), reps=10),
-             ptxas=pick("fused.cu", 8, "fused_"))
-        del lpg, s
+        for dt in (torch.float64, torch.float32):
+            lpg = gp.build_logprob(t, y, yerr=yerr, log_prior=prior,
+                                   dtype=dt, fast_grad="tangent")
+            s = cs.lane_streams(gp, lpg.loglik.plan, theta)
+            b = s[0].shape[-1]
+
+            def call():
+                return fused.kernel_cuda(*s, b)
+
+            emit("row15", kernel="fused kernel", dtype=str(dt)[6:], lanes=b,
+                 steps=s[0].shape[0], ms=cs.sync_time_ms(call, reps=10),
+                 split=launch_split(call),
+                 ptxas={p: pick("fused.cu", p, "fused_")
+                        for p in range(1, 9)})
+            del lpg, s
     torch.cuda.empty_cache()
 
     # Row 21 on H's config[2] plan.
@@ -237,6 +256,68 @@ def main():
              ms=cs.sync_time_ms(kern, reps=20),
              ptxas=pick("onepass.cu", 8, "onepass_bwd"))
     return 0
+
+
+def launch_split(fn, warmup=3, active=10):
+    """Each CUDA kernel that one call of ``fn`` launches, by name: its
+    device ms and launches a call, from torch.profiler over ``active``
+    calls after ``warmup`` untraced ones."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(active):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+            us = max(getattr(e, "self_device_time_total", 0) or 0,
+                     getattr(e, "device_time_total", 0) or 0)
+            name = re.sub(r"^void ", "", e.key).split("(")[0]
+            row = split.setdefault(name, {"ms": 0.0, "launches": 0.0})
+            row["ms"] += us / 1e3 / active
+            row["launches"] += e.count / active
+    return split
+
+
+def time_row1(cs, gpb, tb, yb, yerrb, thetab, emit, pick):
+    """Row 1 (the fused primal) on main path A's plan and on B's, float64
+    and float32, with its launches' split."""
+    import celerite_torch
+    import torch
+    from celerite_torch import terms
+    from celerite_torch.ops import fused4
+    from celerite_torch.testing import bench_kernel
+
+    dev = torch.device("cuda")
+    gpa = celerite_torch.GP(bench_kernel(terms))
+    thetaa = torch.as_tensor(gpa.get_parameter_vector(), device=dev)
+    for tag, gp, theta, (t, y, yerr) in (
+            ("A", gpa, thetaa, cs.bench_data()),
+            ("B", gpb, thetab, (tb, yb, yerrb))):
+        pr, pc = gp.kernel.padded_size
+        cf64 = cs.packed_cf(gp, theta)
+        for dt in (torch.float64, torch.float32):
+            plan = gp.build_loglik(t, y, yerr=yerr, dtype=dt).plan
+            cf = cf64.to(dt)
+
+            def call():
+                return fused4.primal_cuda(cf, plan, pr, pc)
+
+            emit("row1", kernel="fused4 primal", plan=tag, dtype=str(dt)[6:],
+                 lanes=plan.t.shape[1], steps=plan.t.shape[0],
+                 ms=cs.sync_time_ms(call, reps=20), split=launch_split(call),
+                 ptxas={p: pick("fused4_primal.cu", p, "")
+                        for p in range(1, 13)})
+            del plan
+            torch.cuda.empty_cache()
 
 
 def time_calls(cs, tag, gp, t, y, yerr, prior, theta, thetas, emit,
@@ -267,7 +348,6 @@ def time_row18(cs, gp, t, y, yerr, prior, thetas, emit, pick):
     """Row 18 on sampler_G's and G's batch plans, with its launches'
     split."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from celerite_torch.ops import tangent
 
@@ -285,20 +365,7 @@ def time_row18(cs, gp, t, y, yerr, prior, thetas, emit, pick):
             return tangent.jac_cuda(*s, *d, seg=seg)
 
         ms = cs.sync_time_ms(call, reps=10)
-        reps = 5
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                call()
-            torch.cuda.synchronize()
-        split = {}
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            name = e.key.split("<")[0].replace("void ", "")
-            if "jac" in name:
-                us = max(getattr(e, "self_device_time_total", 0) or 0,
-                         getattr(e, "device_time_total", 0) or 0)
-                split[name] = split.get(name, 0.0) + us / 1e3 / reps
+        split = launch_split(call)
         emit("row18", kernel="tangent jac", plan=tag, dtype="float64",
              chains=ncg, lanes=s[0].shape[-1], steps=s[0].shape[0],
              directions=d[0].shape[1], ms=ms, split_ms=split,
