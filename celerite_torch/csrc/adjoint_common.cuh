@@ -4,7 +4,7 @@
 // and a back, and the pipeline that runs the streamed reversed sweeps; the
 // forward sweeps (adjoint.cu's elements_fwd and factor_fwd, fused4_grad.cu's
 // elem_fwd and factor_fwd, pallas_solver.cu's three kernels, fused.cu's
-// two sweeps), their steps
+// two sweeps, onepass.cu's sweep and sweep_fwd), their steps
 // and their ring of streams (at the end); and the copy of a step's streams
 // into shared memory that both kinds share.
 //
@@ -39,9 +39,11 @@
 // (LowStep), and the two steps share their Riccati front
 // (riccati_fwd_front).  adjoint.cu's elements_fwd, pallas_solver.cu's
 // elements and fused.cu's elements are one sweep (elements_fwd_sweep), the
-// latter two without saves; adjoint.cu's factor_fwd and fused.cu's factor
-// are one sweep (factor_fwd_sweep<SAVE>), the latter without saves;
-// pallas_solver.cu's subst runs its own step on the same ring.
+// latter two without saves; adjoint.cu's factor_fwd, fused.cu's factor and
+// onepass.cu's sweep and sweep_fwd are one sweep (factor_fwd_sweep<SAVE,
+// T, W, ZERO>), fused.cu's and onepass.cu's sweep without saves, onepass.cu's
+// two from a zero seed with their end state; pallas_solver.cu's subst runs
+// its own step on the same ring.
 
 #pragma once
 
@@ -548,7 +550,7 @@ __device__ __forceinline__ void bwd_ticks(const BwdCtx<T, NSV>& c, int L, Copy&&
     if (c.front) cp_async_wait<0>();
 }
 
-// The transpose of the seeded factor sweep (factor_sweep<true>) on
+// The transpose of the seeded factor sweep (factor_fwd_sweep<true>) on
 // pre-lowered streams, streamed in reverse from the saves [Shin, Mprev,
 // mprev]: writes the per-step stream cotangents (hu, hv, hph, ha, hy).
 // The carried S-hat cotangent starts from hC0, the end state's cotangent
@@ -876,25 +878,29 @@ __device__ __forceinline__ T factor_fwd_step(T* tile, T* wv, T* gv, int r, const
 // thread r row r of Sh, M and Qm and entry r of m and qv, one
 // factor_fwd_step a tick.  With SAVE each step's input [Sh, M, m] goes to
 // the save stream sv (NSV1 words a lane and step, the layout adjoint.cu's
-// factor_bwd reads): adjoint.cu's factor_fwd; fused.cu's factor saves
-// nothing and passes a null sv.  A run-time test of sv in the hook cost
-// adjoint.cu's float32 instance at P = 16 8-32 bytes of spills (PERF.md).
+// factor_bwd and onepass.cu's sweep_bwd read): adjoint.cu's factor_fwd;
+// fused.cu's factor saves nothing and passes a null sv.  With ZERO the
+// seed is zero (sh0 is not read) and the end state Sh goes to C_out (P, P,
+// B): onepass.cu's sweep, and with SAVE its sweep_fwd.  A run-time test of
+// sv in the hook cost adjoint.cu's float32 instance at P = 16 8-32 bytes
+// of spills (PERF.md), so both choices are made at compile time.
 // The kernel runs W warps a block (launch_fwd).
-template <bool SAVE, typename T, int W, typename U>
+template <bool SAVE, typename T, int W, bool ZERO = false, typename U>
 __device__ __forceinline__ void factor_fwd_sweep(
     const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
     const T* __restrict__ a, const T* __restrict__ y, const U* __restrict__ sh0, int L, int B,
     T* __restrict__ M_out, T* __restrict__ m_out, T* __restrict__ Qm_out, T* __restrict__ qv_out,
     double* __restrict__ q0_out, double* __restrict__ ld_out, T* __restrict__ mind_out,
-    T* __restrict__ sv) {
+    T* __restrict__ sv, T* __restrict__ C_out = nullptr) {
     using Ctx = FwdCtx<T, W, NRS>;
     __shared__ T ring[Ctx::RING], tiles[Ctx::TILES], vecs[Ctx::VECS];
     const Ctx c(B, ring, tiles, vecs);
     const int r = c.r, l = c.l;
     T Sh[P], M[P], Qm[P];
-    get_mat(sh0, r, B, l, Sh);
+    if (!ZERO) get_mat(sh0, r, B, l, Sh);
 #pragma unroll
     for (int j = 0; j < P; ++j) {
+        if (ZERO) Sh[j] = T(0);
         M[j] = j == r ? T(1) : T(0);
         Qm[j] = T(0);
     }
@@ -916,6 +922,7 @@ __device__ __forceinline__ void factor_fwd_sweep(
     if (!c.live || r >= P) return;
     put_mat(M_out, r, B, l, M);
     put_mat(Qm_out, r, B, l, Qm);
+    if (ZERO) put_mat(C_out, r, B, l, Sh);
     m_out[(size_t)r * B + l] = mr;
     qv_out[(size_t)r * B + l] = qvr;
     if (r == 0) {

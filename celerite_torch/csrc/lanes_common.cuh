@@ -9,14 +9,15 @@
 // are xor-shuffle reductions within the group (group_sum).  The streams
 // are (L, P, B), lane fastest; per-lane outputs are (P, P, B) and (P, B).
 //
-// Also the sweep whose every thread reads the step's stream vectors (u,
-// ph) whole: the seeded factor sweep from a zero seed with its end state,
-// onepass.cu's.  Its step is a value step (factor_value_step), which
-// tangent.cu's sweeps with tangents also take, as they take the elements'
-// (elem_value_step), there filling the record their tangent steps read.
-// adjoint.cu's, fused4_grad.cu's, fused4_primal.cu's, pallas_solver.cu's
-// and fused.cu's sweeps stream their steps through shared memory instead
-// (adjoint_common.cuh).
+// Also the value steps that read the step's stream vectors (u, ph) whole
+// in every thread, with their butterflies: tangent.cu's sweeps with
+// tangents take the factor's (factor_value_step) and the elements'
+// (elem_value_step), filling the record their tangent steps read.  The
+// sweeps without tangents (adjoint.cu's, fused4_grad.cu's,
+// fused4_primal.cu's, pallas_solver.cu's, fused.cu's and onepass.cu's)
+// stream their steps through shared memory instead (adjoint_common.cuh).
+// fused4_grad.cu's factor_bwd and elem_bwd take a lane a group by lane_of
+// in blocks of BLOCK threads (grid_for).
 
 #pragma once
 
@@ -42,15 +43,6 @@ __device__ __forceinline__ Lane lane_of(int B) {
     ln.l = ln.live ? (int)g : 0;
     ln.r = (int)(threadIdx.x % G);
     return ln;
-}
-
-// x[s, :, l] of an (L, P, B) stream, whole.
-template <typename T>
-__device__ __forceinline__ void load_vec(const T* __restrict__ x, int s, int B, int l,
-                                         T (&out)[P]) {
-    const T* p = x + (size_t)s * P * B + l;
-#pragma unroll
-    for (int j = 0; j < P; ++j) out[j] = p[(size_t)j * B];
 }
 
 // Row r of a column-major saved matrix at `base`; nothing for r >= P.
@@ -231,66 +223,6 @@ __device__ __forceinline__ void factor_value_step(const T (&uv)[P], const T (&pv
         rec[QU + r] = ur;
         rec[QPH + r] = phr;
         rec[QG + r] = gr;
-    }
-}
-
-// Each lane's seeded factor from sh0 (P, P, B), its affine map (M, m) and
-// statistics (Qm, qv, Kahan-summed q0 and log-det, min pivot).  A null sh0
-// is the zero seed and a non-null C_out takes the end state Sh (P, P, B):
-// the one-pass sweeps onepass.py:111 and, with SAVE (each step's input [Sh,
-// M, m] to the save stream sv, NSV1 words a lane and step), :162
-// (onepass.cu).
-template <bool SAVE, typename T>
-__device__ __forceinline__ void factor_sweep(const T* __restrict__ u, const T* __restrict__ v,
-                                             const T* __restrict__ ph,
-                                             const T* __restrict__ a,
-                                             const T* __restrict__ y,
-                                             const T* __restrict__ sh0, int L, int B,
-                                             T* __restrict__ M_out, T* __restrict__ m_out,
-                                             T* __restrict__ Qm_out, T* __restrict__ qv_out,
-                                             double* __restrict__ q0_out,
-                                             double* __restrict__ ld_out,
-                                             T* __restrict__ mind_out, T* __restrict__ sv,
-                                             T* __restrict__ C_out = nullptr) {
-    const Lane ln = lane_of(B);
-    const int l = ln.l, r = ln.r;
-    // Row r of Sh, M, Qm, entry r of m and qv; the scalar statistics are
-    // kept alike in every thread of the group.
-    T Sh[P], M[P], Qm[P];
-    if (sh0 != nullptr) get_mat(sh0, r, B, l, Sh);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-        if (sh0 == nullptr) Sh[j] = T(0);
-        M[j] = j == r ? T(1) : T(0);
-        Qm[j] = T(0);
-    }
-    T mr = T(0), qvr = T(0), mind = T(INFINITY);
-    Kahan<T> q0{T(0), T(0)}, ld{T(0), T(0)};
-    for (int s = 0; s < L; ++s) {
-        if (SAVE && ln.live) {
-            T* svs = sv + ((size_t)s * B + l) * NSV1;
-            save_row(svs, r, Sh);
-            save_row(svs + PP, r, M);
-            if (r < P) svs[2 * PP + r] = mr;
-        }
-        T uv[P], pv[P];
-        load_vec(u, s, B, l, uv);
-        load_vec(ph, s, B, l, pv);
-        const T vr = r < P ? v[((size_t)s * P + r) * B + l] : T(0);
-        const size_t o = (size_t)s * B + l;
-        factor_value_step<false>(uv, pv, vr, a[o], y[o], r, Sh, M, Qm, mr, qvr, q0, ld, mind,
-                                 no_rec<T>());
-    }
-    if (!ln.live || r >= P) return;
-    put_mat(M_out, r, B, l, M);
-    put_mat(Qm_out, r, B, l, Qm);
-    if (C_out != nullptr) put_mat(C_out, r, B, l, Sh);
-    m_out[(size_t)r * B + l] = mr;
-    qv_out[(size_t)r * B + l] = qvr;
-    if (r == 0) {
-        q0_out[l] = q0.total();
-        ld_out[l] = ld.total();
-        mind_out[l] = mind;
     }
 }
 

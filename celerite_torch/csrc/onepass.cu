@@ -16,23 +16,29 @@
 // seeded from the C output's cotangent and no seed cotangent to emit.
 //
 // Design.  The arithmetic is the seeded factor sweep's and its transpose,
-// not a copy: factor_sweep (lanes_common.cuh, whose step tangent.cu's
-// sweeps take) at a null seed with its end state written, and factor_bwd_sweep
-// (adjoint_common.cuh) with hC as the carried cotangent's start.  A group
-// of G threads (the power of two at or above P) owns a lane, thread r row
-// r of every P x P state; sums over rows are xor-shuffle reductions in the
-// group, transposes go through a per-group tile in shared memory.  The
-// transpose is adjoint.cu's factor_bwd sweep: a front warp copies the
-// saves and streams ahead into shared memory and computes each step's
-// front, a back warp carries the cotangents (BWD_LB lanes a block).
+// not a copy.  The sweep and the fwd kernel are adjoint_common.cuh's
+// streamed factor_fwd_sweep (adjoint.cu's factor_fwd, fused.cu's factor)
+// with ZERO: a zero seed and the end state written, the fwd kernel with
+// its saves.  A group of G threads (the power of two at or above P) owns a
+// lane, thread r row r of every P x P state; each group copies its lane's
+// streams FWD_AHEAD steps ahead into a cp.async ring in shared memory, so
+// that a step never waits on device memory; a step's column sum goes
+// through the group's tile, w and the column sum reach every row through
+// the group's vector in shared memory, and d has one reciprocal.  Both run
+// in blocks of four warps where that still gives every SM a block, else
+// one (launch_fwd).  The transpose is adjoint.cu's factor_bwd sweep
+// (factor_bwd_sweep) with hC as the carried cotangent's start: a front
+// warp copies the saves and streams ahead into shared memory and computes
+// each step's front, a back warp carries the cotangents (BWD_LB lanes a
+// block).
 //
 // Bound.  Bytes: per point the streams (3P + 2 words read), and for the
 // fwd / bwd pair the saves (2P^2 + P words, written then read) and the
 // stream cotangents (3P + 2 words written); per lane the summaries (3P^2 +
 // 2P + 3 words).  Operations: ~30 P^2 a point for the sweep, ~50 P^2 for
-// the transpose.  So the sweep and the fwd kernel are bound by bytes at
-// the card's rate, but in practice by the latency of each lane's chain of
-// dependent steps, each with a few dozen shuffle reductions.
+// the transpose.  So all three are bound by bytes at the card's rate, but
+// in practice the sweep by the latency of each lane's chain of dependent
+// steps, and the fwd kernel also by its save writes.
 //
 // Rounding: -fmad=false (_build.SOURCE_FLAGS), so that float32 rounds as
 // the plain versions, which keep every multiply and add separate.  The
@@ -43,27 +49,28 @@
 
 #include "adjoint_common.cuh"
 
-template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+template <typename T, int W>
+__global__ void __launch_bounds__(32 * W)
 onepass_sweep_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
                      const T* __restrict__ a, const T* __restrict__ y, int L, int B,
                      T* __restrict__ C_out, T* __restrict__ M_out, T* __restrict__ m_out,
                      T* __restrict__ Qm_out, T* __restrict__ qv_out, double* __restrict__ q0_out,
                      double* __restrict__ ld_out, T* __restrict__ mind_out) {
-    factor_sweep<false>(u, v, ph, a, y, static_cast<const T*>(nullptr), L, B, M_out, m_out,
-                        Qm_out, qv_out, q0_out, ld_out, mind_out, static_cast<T*>(nullptr),
-                        C_out);
+    factor_fwd_sweep<false, T, W, true>(u, v, ph, a, y, static_cast<const T*>(nullptr), L, B,
+                                        M_out, m_out, Qm_out, qv_out, q0_out, ld_out, mind_out,
+                                        static_cast<T*>(nullptr), C_out);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+template <typename T, int W>
+__global__ void __launch_bounds__(32 * W)
 onepass_fwd_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __restrict__ ph,
                    const T* __restrict__ a, const T* __restrict__ y, int L, int B,
                    T* __restrict__ C_out, T* __restrict__ M_out, T* __restrict__ m_out,
                    T* __restrict__ Qm_out, T* __restrict__ qv_out, double* __restrict__ q0_out,
                    double* __restrict__ ld_out, T* __restrict__ mind_out, T* __restrict__ sv) {
-    factor_sweep<true>(u, v, ph, a, y, static_cast<const T*>(nullptr), L, B, M_out, m_out,
-                       Qm_out, qv_out, q0_out, ld_out, mind_out, sv, C_out);
+    factor_fwd_sweep<true, T, W, true>(u, v, ph, a, y, static_cast<const T*>(nullptr), L, B,
+                                       M_out, m_out, Qm_out, qv_out, q0_out, ld_out, mind_out,
+                                       sv, C_out);
 }
 
 template <typename T>
@@ -90,24 +97,24 @@ onepass_bwd_kernel(const T* __restrict__ u, const T* __restrict__ v, const T* __
                                      const void* a, const void* y, void* C, void* M, void* m,  \
                                      void* Qm, void* qv, void* q0, void* ld, void* mind,       \
                                      int L, int B, void* stream) {                             \
-        onepass_sweep_kernel<T><<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>( \
+        return launch_fwd(                                                                     \
+            onepass_sweep_kernel<T, 4>, onepass_sweep_kernel<T, 1>, B, stream,                 \
             static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(ph),     \
             static_cast<const T*>(a), static_cast<const T*>(y), L, B, static_cast<T*>(C),      \
             static_cast<T*>(M), static_cast<T*>(m), static_cast<T*>(Qm), static_cast<T*>(qv),  \
             static_cast<double*>(q0), static_cast<double*>(ld), static_cast<T*>(mind));        \
-        return (int)cudaGetLastError();                                                        \
     }                                                                                          \
     int celerite_onepass_fwd_##SFX(const void* u, const void* v, const void* ph, const void* a, \
                                    const void* y, void* C, void* M, void* m, void* Qm,         \
                                    void* qv, void* q0, void* ld, void* mind, void* sv, int L,  \
                                    int B, void* stream) {                                      \
-        onepass_fwd_kernel<T><<<grid_for(B, G), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>( \
+        return launch_fwd(                                                                     \
+            onepass_fwd_kernel<T, 4>, onepass_fwd_kernel<T, 1>, B, stream,                     \
             static_cast<const T*>(u), static_cast<const T*>(v), static_cast<const T*>(ph),     \
             static_cast<const T*>(a), static_cast<const T*>(y), L, B, static_cast<T*>(C),      \
             static_cast<T*>(M), static_cast<T*>(m), static_cast<T*>(Qm), static_cast<T*>(qv),  \
             static_cast<double*>(q0), static_cast<double*>(ld), static_cast<T*>(mind),         \
             static_cast<T*>(sv));                                                              \
-        return (int)cudaGetLastError();                                                        \
     }                                                                                          \
     int celerite_onepass_bwd_##SFX(                                                            \
         const void* u, const void* v, const void* ph, const void* a, const void* y,           \

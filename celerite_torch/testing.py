@@ -101,11 +101,14 @@ def wide_kernel(terms, width):
 
 
 def width_kernel(terms, width):
-    """A model of padded width 2 (:func:`bench_kernel`), 5 (a RealTerm plus
-    an SHO term), 8 (:func:`config2_kernel`), 13 or 16
-    (:func:`wide_kernel`) or 20 (config[2] with four modes)."""
+    """A model of padded width 2 (:func:`bench_kernel`), 3 (a RealTerm plus
+    bench.py's ComplexTerm), 5 (a RealTerm plus an SHO term), 8
+    (:func:`config2_kernel`), 13 or 16 (:func:`wide_kernel`) or 20
+    (config[2] with four modes)."""
     if width == 2:
         return bench_kernel(terms)
+    if width == 3:
+        return terms.RealTerm(log_a=-0.5, log_c=-1.0) + bench_kernel(terms)
     if width == 5:
         return (terms.RealTerm(log_a=-0.5, log_c=-1.0)
                 + terms.SHOTerm(log_S0=0.2, log_Q=-0.3, log_omega0=0.2))

@@ -153,6 +153,9 @@ WIDTHS = (1, 2, 4, 8)           # padded widths this script runs
 # in the redesigned_kernels line.
 GRAD_PTXAS_WIDTHS = tuple(range(1, 13))
 FUSED_PTXAS_WIDTHS = tuple(range(1, 9))
+# Clock cycles a queued timing spins before its calls (~20 ms at the
+# H100's 1.98 GHz): more than the host takes to queue them.
+QUEUE_CYCLES = 40_000_000
 F64_RTOL = 1e-10                # f64 kernel against f64 plain
 F32_RTOL = 1e-4                 # f32 against f64 (input-quantization floor)
 F32_PLAIN_RTOL = 2e-5           # f32 kernel against f32 plain, same plan
@@ -380,18 +383,30 @@ def ptxas_summary(path):
     return out
 
 
-def sync_time_ms(fn, reps, warm=2):
-    """Mean ms per call by CUDA events around ``reps`` back-to-back calls."""
+def sync_time_ms(fn, reps, warm=2, queued=False):
+    """Mean ms per call by CUDA events around ``reps`` back-to-back calls.
+    With ``queued`` the calls are queued behind a kernel that spins for
+    QUEUE_CYCLES, so that the card runs them back to back and the host's
+    work between launches stays off the clock (kernels shorter than their
+    wrapper's call).  Raises if the spin ended before the last call was
+    queued, which would put the host's gaps back on the clock."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
+    spun_out = queued and start.query()
     end.record()
     end.synchronize()
+    if spun_out:
+        raise RuntimeError(
+            "queued timing: the card reached the first call before the host "
+            "had queued the last; raise QUEUE_CYCLES")
     return start.elapsed_time(end) / reps
 
 
@@ -2690,7 +2705,11 @@ def check_onepass_kernels(dev, models, errs):
     tag -> (gp, t, y, yerr)), float64 at 1e-10 and float32 at ten times
     the float32 plain version's distance from float64.  Each kernel and
     its plain version are timed on H's plans (float64, and the kernel in
-    float32), beside its bound.  Returns ``{tag: {name: row}}``."""
+    float32), beside its bound: the kernel by CUDA events around
+    back-to-back calls (``ms_*``, its wrapper's allocations and launch
+    included, which bound these short kernels on the host) and around the
+    same calls queued behind a spinning kernel, the card's time alone
+    (``device_ms_*``).  Returns ``{tag: {name: row}}``."""
     ts, ys, yerrs = make_data(1000, seed=1, t_max=50.0)
     for width in ONEPASS_WIDTHS:
         s64 = blocked_streams(width_kernel(terms, width), ts, ys, yerrs, 96,
@@ -2710,6 +2729,8 @@ def check_onepass_kernels(dev, models, errs):
                     streams).items():
                 row = rows.setdefault(tag, {}).setdefault(name, {})
                 row["ms_" + key] = sync_time_ms(kern, reps=10)
+                row["device_ms_" + key] = sync_time_ms(kern, reps=10,
+                                                       queued=True)
                 if dt == torch.float64:  # one run: no yardstick
                     row["plain_ms"] = sync_time_ms(plain, reps=1, warm=0)
                 row["bound_ms_" + key], row["bound_by_" + key] = \
@@ -2951,10 +2972,11 @@ def redesigned_summary(smi, ptxas, primal_rows, grad_rows, tangent_rows,
     transposed step in row 5's layout, rows 2 and 4, which run rows 8's
     and 10's steps; row 18 on G's plans, with its four launches' split;
     rows 16 and 17 on E's model, both in row 18's layout at P = 13 and 16;
-    rows 8, 9, 10 and 11 on E's plans; row 21, which shares row 11's sweep
-    and row 5's transposed step; rows 12-14 on F's plans: 12 runs row 8's
-    sweep without saves, 13 row 10's step without its statistics, 14 the
-    same ring)."""
+    rows 8, 9, 10 and 11 on E's plans; rows 19 and 20, which run row
+    10's sweep from a zero seed, and row 21, which shares row 11's sweep
+    and row 5's transposed step, on H's plans, at ONEPASS_WIDTHS; rows
+    12-14 on F's plans: 12 runs row 8's sweep without saves, 13 row 10's
+    step without its statistics, 14 the same ring)."""
     def regs(src, prefix, widths=None):
         return {p: {k: v for k, v in kerns.items() if k.startswith(prefix)}
                 for p, kerns in ptxas[src].items()
@@ -2999,10 +3021,12 @@ def redesigned_summary(smi, ptxas, primal_rows, grad_rows, tangent_rows,
             "ptxas": regs("adjoint.cu", "adjoint_factor_bwd"),
             "chains": {nc: rows["factor_bwd"]
                        for nc, rows in adj_rows.items()}},
-        "onepass_sweep_bwd": {
-            "ptxas": regs("onepass.cu", "onepass_bwd"),
-            "models": {m: rows["sweep_bwd"]
-                       for m, rows in onepass_rows.items()}},
+        **{"onepass_" + name: {
+            "ptxas": regs("onepass.cu", prefix),
+            "models": {m: rows[name] for m, rows in onepass_rows.items()}}
+           for name, prefix in (("sweep", "onepass_sweep"),
+                                ("sweep_fwd", "onepass_fwd"),
+                                ("sweep_bwd", "onepass_bwd"))},
         **{"solver_" + name: {
             "ptxas": regs("pallas_solver.cu", "solver_" + name),
             "plans": {k: rows[name] for k, rows in solver_rows.items()}}
@@ -3464,7 +3488,9 @@ def main():
             "bound_by": row["bound_by"],
             "library_ms": None,
         })
-    # The one-pass kernels at main path H's config[2] plan, float64.
+    # The one-pass kernels at main path H's config[2] plan, float64; ms by
+    # events around back-to-back calls, as every other row (the wrapper on
+    # the host at this size), device_ms the card's time alone.
     for name in onepass.ONEPASS_KERNELS:
         row = onepass_rows["B"][name]
         kernels.append({
@@ -3475,6 +3501,7 @@ def main():
             "launches": counts_h[name],
             "max_abs_err": max(onepass_errs[name]),
             "ms": row["ms_float64"],
+            "device_ms": row["device_ms_float64"],
             "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms_float64"],
             "bound_by": row["bound_by_float64"],

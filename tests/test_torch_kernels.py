@@ -1056,7 +1056,7 @@ def test_tangent_route_on_the_card(width, cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width", [2, 5, 8, 16])
+@pytest.mark.parametrize("width", [2, 3, 5, 8, 13, 16])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_onepass_kernels_match_plain(width, dtype, cuda_device):
     """Each of the three one-pass kernels equals its plain version on the
@@ -1086,12 +1086,16 @@ def test_onepass_kernels_match_plain(width, dtype, cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [8, 16])
-@pytest.mark.parametrize("shape", [(13, 1), (1000, 3), (777, 96)])
+@pytest.mark.parametrize("shape", [(13, 1), (1000, 3), (777, 96),
+                                   (6500, 3)])
 def test_onepass_kernels_odd_shapes(width, shape, cuda_device):
     """The one-pass kernels in float64, their transpose seeded by a random
     end-state cotangent hC, on blocks of 1 step (13 lanes), of 3 steps
-    (334 lanes) and of 96 steps (9 lanes): lanes shorter than the
-    transpose's ring, and lane counts no block of it divides."""
+    (334 lanes) and of 96 steps (9 lanes): lanes shorter than the sweeps'
+    rings, and lane counts no block of them divides; and on 2167 lanes of
+    3 steps, which the sweep and sweep_fwd take in four-warp blocks (16
+    lanes a block at P = 8, 8 at P = 16; at least one a streaming
+    multiprocessor) with a ragged last block."""
     from celerite_torch import terms
     from celerite_torch.testing import compare_onepass_kernels
 

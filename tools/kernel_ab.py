@@ -1,28 +1,35 @@
 #!/usr/bin/env python
-"""Time one tree's kernels of rows 1-5, 8-18 and 21 (PERF.md
+"""Time one tree's kernels of rows 1-5, 8-21 (PERF.md
 section 6) on the plans chip_smoke.py times them on, so that two trees can
 be compared on one card.
 
 Usage (on a machine with an NVIDIA H100), from the root of a checkout:
 
     python3 tools/kernel_ab.py [--tree DIR] [--rows 4,8] [--call-c] [--call-g]
+                               [--sass OUT]
 
 ``DIR`` (default: this checkout) is the root of a tree whose
 ``celerite_torch`` and ``chip_smoke.py`` are imported; an older commit
 unpacked with ``git archive`` into a git-ignored directory (``build/``)
 serves.  Run the trees in turns in one command (old, new, new, old) to
 compare them on one card.  ``--rows`` times only the rows named (1, 2, 3,
-4, 5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 21; 2-5 build together, as
-do 8-11, 12-14 and 16-17; ``--rows ""`` none).  ``--call-c`` and
-``--call-g`` also time main path C's calls and G's on E's model.
+4, 5, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21; 2-5 build
+together, as do 8-11, 12-14, 16-17 and 19-21; ``--rows ""`` none).
+``--call-c`` and ``--call-g`` also time main path C's calls and G's on
+E's model.  ``--sass OUT`` writes ``cuobjdump -sass`` of every library
+the rows build (not those built beside the timings) to ``OUT``, one file
+a source and width: ``diff -r`` of two trees' ``OUT`` shows whether a
+shared header's change reached their code.
 
 Builds what the rows take of ``fused4_primal.cu`` at every P = 1-12,
 ``fused4_grad.cu`` at P = 8 (at every P = 1-12 for row 2's ptxas
 figures), ``tangent.cu`` at 8, 13 and 16, ``adjoint.cu`` at 13 and 16,
 ``pallas_solver.cu`` at 4, 13 and 16, ``fused.cu`` at every P = 1-8 and
-``onepass.cu`` at 8, and prints one JSON line a measurement, each with the
-tree, the card's name and power limit (nvidia-smi) and ptxas's registers
-and spill bytes of the kernels timed:
+``onepass.cu`` at 2, 8 and 16 (at every P = 1-16 for rows 19 and 20's
+ptxas figures, those widths built beside the timings), and prints one
+JSON line a measurement, each with the tree, the card's name and power
+limit (nvidia-smi) and ptxas's registers and spill bytes of the kernels
+timed:
 
 - ``row1``: the fused primal (``fused4.primal_cuda``) on main path A's
   plan (bench.py's model, N = 1e6: 32768 lanes of 31 steps, P = 2) and
@@ -61,8 +68,16 @@ and spill bytes of the kernels timed:
   config[2] (one theta, P = 8: 256 lanes of 391 steps), float64 and
   float32, with the device ms and launches a call of each of its kernels
   from torch.profiler and ptxas's figures at P = 1-8;
-- ``row21``: the one-pass ``sweep_bwd`` on main path H's config[2] plan,
-  float64;
+- ``row19``, ``row20`` and ``row21``: the one-pass ``sweep``,
+  ``sweep_fwd`` and ``sweep_bwd`` on main path H's three plans (config[2]
+  and E's model on B's data at N = 1e5, 4096 lanes of 25 steps at P = 8
+  and 16; bench.py's model at N = 1e6, 32768 lanes of 31 steps at P = 2),
+  rows 19 and 20 in float64 and float32, row 21 in float64, each also
+  timed with its calls queued behind a spinning kernel (``queued_ms``,
+  the card's time alone) and by its launch's device ms from
+  torch.profiler; an ``onepass_ptxas`` line closes
+  with ptxas's figures of ``onepass.cu`` at every P = 1-16 where rows 19
+  or 20 were asked for;
 - ``callC`` (``--call-c``): main path C's ``value_and_grad`` at one theta
   and ``value_and_grad_batch`` at 16, float64, the host clock's median,
   p10 and p90 ms a call (``chip_smoke.eval_spread_ms``) and a profile's
@@ -75,6 +90,7 @@ Times are the mean of CUDA events around back-to-back calls.
 """
 
 import argparse
+import concurrent.futures
 import json
 import os
 import sys
@@ -86,12 +102,16 @@ def main():
     ap.add_argument("--tree", default=".",
                     help="root of the tree whose celerite_torch is timed")
     ap.add_argument("--rows",
-                    default="1,2,3,4,5,8,9,10,11,12,13,14,15,16,17,18,21",
+                    default="1,2,3,4,5,8,9,10,11,12,13,14,15,16,17,18,19,"
+                    "20,21",
                     help="comma-separated rows to time")
     ap.add_argument("--call-c", action="store_true",
                     help="also time main path C's calls")
     ap.add_argument("--call-g", action="store_true",
                     help="also time main path G's calls on E's model")
+    ap.add_argument("--sass", metavar="OUT",
+                    help="write cuobjdump -sass of each library the rows "
+                    "build to OUT/<source>_p<P>.sass")
     args = ap.parse_args()
     rows = {int(r) for r in args.rows.split(",") if r}
     root = os.path.abspath(args.tree)
@@ -123,7 +143,8 @@ def main():
         (("pallas_solver.cu", 4), {12, 13, 14}),
         (("pallas_solver.cu", 13), {12, 13, 14}),
         (("pallas_solver.cu", 16), {12, 13, 14}), (("fused.cu", 8), {15}),
-        (("onepass.cu", 8), {21}))
+        (("onepass.cu", 8), {19, 20, 21}), (("onepass.cu", 2), {19, 20}),
+        (("onepass.cu", 16), {19, 20}))
         if rows & of]
     if 1 in rows:
         jobs += [("fused4_primal.cu", p) for p in range(1, 13)]
@@ -135,6 +156,15 @@ def main():
     ptxas = {"{0}:{1}".format(s, p): cs.ptxas_summary(
         path.with_suffix(".ptxas.txt")) for (s, p), path in zip(jobs, paths)}
     build_s = time.perf_counter() - t0
+    if args.sass:
+        dump_sass(_build, jobs, paths, args.sass)
+    # onepass.cu's other widths, for ptxas's figures alone, build beside
+    # the timings.
+    later = ([("onepass.cu", p) for p in range(1, 17) if p not in (2, 8, 16)]
+             if rows & {19, 20} else [])
+    beside = concurrent.futures.ThreadPoolExecutor(1)
+    later_paths = beside.submit(
+        _build.build, [(s, {"CELERITE_P": p}) for s, p in later])
 
     def pick(src, p, *names):
         rows = ptxas["{0}:{1}".format(src, p)]
@@ -247,15 +277,99 @@ def main():
             del lpg, s
     torch.cuda.empty_cache()
 
-    # Row 21 on H's config[2] plan.
-    if 21 in rows:
-        s64 = cs.h_streams(gp, t, y, yerr, dev)
-        kern, _ = cs.onepass_kernel_calls(s64)["sweep_bwd"]
-        emit("row21", kernel="onepass sweep_bwd", dtype="float64",
-             lanes=s64[0].shape[-1], steps=s64[0].shape[0],
-             ms=cs.sync_time_ms(kern, reps=20),
-             ptxas=pick("onepass.cu", 8, "onepass_bwd"))
+    if rows & {19, 20, 21}:
+        time_rows19_21(cs, gp, gpe, t, y, yerr, emit, pick, rows)
+    for (s, p), path in zip(later, later_paths.result()):
+        ptxas["{0}:{1}".format(s, p)] = cs.ptxas_summary(
+            path.with_suffix(".ptxas.txt"))
+    beside.shutdown()
+    if rows & {19, 20}:
+        emit("onepass_ptxas", ptxas={p: pick("onepass.cu", p, "onepass_")
+                                     for p in range(1, 17)})
     return 0
+
+
+def dump_sass(build, jobs, paths, out):
+    """``cuobjdump -sass`` of each built library into ``out``, one file a
+    (source, P), so that two trees' code can be compared with ``diff -r``."""
+    import subprocess
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    os.makedirs(out, exist_ok=True)
+    for (src, p), path in zip(jobs, paths):
+        name = "{0}_p{1}.sass".format(src.split(".")[0], p)
+        with open(os.path.join(out, name), "w") as f:
+            subprocess.run([tool, "-sass", str(path)], stdout=f, check=True)
+
+
+def time_rows19_21(cs, gp, gpe, t, y, yerr, emit, pick, rows):
+    """Rows 19 and 20 (the one-pass sweep and sweep_fwd) on main path H's
+    three plans in float64 and float32, each with its kernel's device ms a
+    call from torch.profiler; row 21 (sweep_bwd) on the config[2] plan in
+    float64."""
+    import celerite_torch
+    import torch
+    from celerite_torch import terms
+    from celerite_torch.testing import bench_kernel
+
+    dev = torch.device("cuda")
+    ta, ya, yerra = cs.bench_data()
+    models = {"B": (gp, t, y, yerr), "E": (gpe, t, y, yerr),
+              "A": (celerite_torch.GP(bench_kernel(terms)), ta, ya, yerra)}
+    for tag, (g, tt, yy, ye) in models.items():
+        if tag != "B" and not rows & {19, 20}:
+            continue
+        s64 = cs.h_streams(g, tt, yy, ye, dev)
+        p = s64[0].shape[1]
+        for dt in (torch.float64, torch.float32):
+            s = tuple(x.to(dt) for x in s64)
+            calls = cs.onepass_kernel_calls(s)
+            for row, name, prefix in ((19, "sweep", "onepass_sweep"),
+                                      (20, "sweep_fwd", "onepass_fwd"),
+                                      (21, "sweep_bwd", "onepass_bwd")):
+                if row not in rows or (row == 21 and (
+                        tag != "B" or dt != torch.float64)):
+                    continue
+                kern = calls[name][0]
+                emit("row{0}".format(row), kernel="onepass " + name,
+                     plan=tag, dtype=str(dt)[6:], lanes=s[0].shape[-1],
+                     steps=s[0].shape[0],
+                     ms=cs.sync_time_ms(kern, reps=20),
+                     queued_ms=queued_time_ms(cs, kern, reps=20),
+                     split=launch_split(kern),
+                     ptxas=pick("onepass.cu", p, prefix))
+            del s, calls
+        del s64
+        torch.cuda.empty_cache()
+
+
+def queued_time_ms(cs, fn, reps):
+    """Mean ms per call by CUDA events around ``reps`` calls queued behind a
+    spinning kernel: ``cs.sync_time_ms(..., queued=True)`` where the tree's
+    chip_smoke has it; for an older tree, the same with its spin and check
+    here."""
+    import inspect
+
+    import torch
+
+    if "queued" in inspect.signature(cs.sync_time_ms).parameters:
+        return cs.sync_time_ms(fn, reps, queued=True)
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(getattr(cs, "QUEUE_CYCLES", 40_000_000))
+    start.record()
+    for _ in range(reps):
+        fn()
+    spun_out = start.query()
+    end.record()
+    end.synchronize()
+    if spun_out:
+        raise RuntimeError("queued timing: the spin ended before the last "
+                           "call was queued")
+    return start.elapsed_time(end) / reps
 
 
 def launch_split(fn, warmup=3, active=10):
