@@ -1,14 +1,31 @@
-"""Inference of the port: NUTS, HMC, window adaptation and diagnostics.
+"""Inference of the port: NUTS, HMC, window adaptation, diagnostics, ADVI
+with the Laplace check, adaptive-tempering SMC, MAP fitting and sampler
+checkpoints.
 
-Ported (ROADMAP queue 1, item 9): the chain-batched NUTS sampler
+Ported (ROADMAP queue 1, items 9 and 12): the chain-batched NUTS sampler
 (``nuts``: metric, momentum, leapfrog, step-size search, ``nuts_kernel``,
 ``sample_nuts``), plain HMC (``hmc``), dual averaging and Welford mass
-adaptation (``adaptation``) and the numpy diagnostics (``diagnostics``).
-``sample_nuts_batch``, the fleet primitive, waits for the fleet slice
-(queue 1, item 13).
+adaptation (``adaptation``), the numpy diagnostics (``diagnostics``),
+mean-field ADVI and ``laplace_fit`` (``advi``), SMC (``smc``), ``minimize``
+and ``map_fit`` (``optimize``) and ``checkpoint``.  Every algorithm takes
+the log probability's batched value and gradient
+(``GP.build_logprob(...).value_and_grad_batch``, chain-folded onto the
+gradient kernels' lanes) for all its rows at once.  ``sample_nuts_batch``,
+the fleet primitive, waits for the fleet slice (queue 1, item 13), and the
+particle-sharded SMC for ``parallel`` (item 15).
 """
 
-from . import adaptation, diagnostics, hmc, nuts  # noqa: F401
+from . import (  # noqa: F401
+    adaptation,
+    advi,
+    checkpoint,
+    diagnostics,
+    hmc,
+    nuts,
+    optimize,
+    smc,
+)
+from .advi import fit_advi, laplace_fit  # noqa: F401
 from .diagnostics import (  # noqa: F401
     ebfmi,
     effective_sample_size,
@@ -22,3 +39,4 @@ from .nuts import (  # noqa: F401
     nuts_kernel,
     sample_nuts,
 )
+from .smc import sample_smc  # noqa: F401

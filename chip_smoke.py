@@ -31,9 +31,18 @@ through the entry points a user calls:
   N = 1e6, held against autograd through the plain primal in float64, with
   the lane sweeps of the value-and-gradient path;
 - sampler_C: dense-mass HMC on config[2] at N = 1e5 in float64, 16 chains
-  folded: step-size search, SAMPLER_C_TRANSITIONS warmup transitions (dual
-  averaging, dense inverse mass from the second half) and as many
-  sampling transitions;
+  folded: step-size search, SAMPLER_C_WARMUP warmup transitions (dual
+  averaging, dense inverse mass from the second half) and
+  SAMPLER_C_SAMPLES sampling transitions;
+- J: the rest of the inference engine on config[2] at N = 1e5 in float64
+  (B's ``build_logprob``): ``inference.laplace_fit`` (its Hessian's folded
+  call held against one-theta calls), ``fit_advi`` (J_ADVI_MC draws a
+  step, one folded call), ``optimize.map_fit`` and ``sample_smc`` over
+  J_SMC_PARTICLES prior draws (the cloud's likelihood and every leapfrog
+  one folded call), and ``examples.config3_complex_advi.main`` at its N =
+  512, cut to J_EXAMPLE_STEPS steps; the call counts gated, folded rows
+  held against one-theta calls, and the gradient kernels against their
+  plain versions on the ADVI and SMC folded plans;
 - ds_kernels: the exact-mode kernels against their plain versions at every
   width and on the plans of main path D and sampler_D (1, 4 and 16
   chains), timed there, and the sweep of the directions a launch
@@ -43,8 +52,8 @@ through the entry points a user calls:
   (16 thetas folded), held against the float64 fused4 route;
 - sampler_D: dense-mass NUTS (``inference.sample_nuts``) in exact mode over
   SAMPLER_D_CHAINS folded chains, SAMPLER_D_WARMUP warmup and
-  SAMPLER_D_SAMPLES sampling transitions, tree depth 6 in warmup and
-  SAMPLER_D_DEPTH in sampling;
+  SAMPLER_D_SAMPLES sampling transitions, tree depth SAMPLER_WARMUP_DEPTH
+  in warmup and SAMPLER_D_DEPTH in sampling;
 - adjoint_kernels: the four adjoint kernels against their plain versions at
   padded widths 13 and 16 on a small plan and on main path E's own plans
   (1, 4 and 16 chains), timed there;
@@ -56,7 +65,8 @@ through the entry points a user calls:
   prefix, the sequential solver; with the lanes-a-chain sweep;
 - sampler_E: dense-mass NUTS on E's log probability in float64 over 4
   folded chains, SAMPLER_E_WARMUP warmup and SAMPLER_E_SAMPLES sampling
-  transitions, tree depth 6 in warmup and SAMPLER_E_DEPTH in sampling;
+  transitions, tree depth SAMPLER_WARMUP_DEPTH in warmup and
+  SAMPLER_E_DEPTH in sampling;
 - solver_kernels: the three pallas_solver kernels against their plain
   versions at padded widths 2, 8, 13 and 16 on small plans (an odd lane
   count and a padded tail) and on main path F's own plans, timed there;
@@ -85,7 +95,8 @@ through the entry points a user calls:
 - lane_sweep_G: the tangent route's lanes a chain;
 - sampler_G: dense-mass NUTS on config[2] through the tangent route over
   SAMPLER_G_CHAINS folded chains, SAMPLER_G_WARMUP warmup and
-  SAMPLER_G_SAMPLES sampling transitions, tree depth SAMPLER_G_DEPTH;
+  SAMPLER_G_SAMPLES sampling transitions, tree depth SAMPLER_WARMUP_DEPTH
+  in warmup and SAMPLER_G_DEPTH in sampling;
 - onepass_kernels: the three one-pass kernels against their plain
   versions at padded widths 2, 8 and 16 on small plans and on main path
   H's own plans, timed there;
@@ -112,8 +123,10 @@ without a CUDA device it exits non-zero before printing anything.
 """
 
 import concurrent.futures
+import contextlib
 import ctypes
 import functools
+import io
 import json
 import math
 import re
@@ -126,7 +139,8 @@ import torch
 
 import celerite_torch
 from celerite_torch import _build, inference, ops, terms
-from celerite_torch.inference import adaptation, diagnostics
+from celerite_torch.examples import config3_complex_advi
+from celerite_torch.inference import adaptation, advi, diagnostics, optimize
 from celerite_torch.ops import (adjoint, blocked, dsfused, fused, fused4,
                                 lanes, lanes4, onepass, pallas_solver,
                                 tangent)
@@ -218,9 +232,11 @@ PORT_KERNELS = ("primal_scan_kernel", "primal_seed_kernel",
                                      "assemble")) + (
     "onepass_sweep_kernel", "onepass_fwd_kernel", "onepass_bwd_kernel")
 SAMPLER_CHAINS = 16
-# sampler_C's warmup and sampling transitions, each (nuts_config2.py's HMC
-# settings; cut from 60 to make room for main path G, PERF.md §4).
-SAMPLER_C_TRANSITIONS = 40
+# sampler_C's warmup and sampling transitions (nuts_config2.py's HMC
+# settings; each cut from 60 to 40 to make room for main path G, and the
+# sampling 40 -> 16 for main path J, PERF.md §4).
+SAMPLER_C_WARMUP = 40
+SAMPLER_C_SAMPLES = 16
 # Directions a launch swept on main path D's 16-chain plan (C = 17 at
 # config[2]).
 TAN_SWEEP = (1, 2, 4, 8, 17)
@@ -235,6 +251,11 @@ SAMPLER_D_CHAINS = 4
 SAMPLER_D_WARMUP = 20
 SAMPLER_D_SAMPLES = 4
 SAMPLER_D_DEPTH = 6
+# The NUTS samplers' (D, E, G) warmup tree depth: warmup is most of each
+# phase (on a slow host 93 of sampler_D's 114 s, 58 of E's 59, 40 of G's
+# 53 at depth 6), so 6 -> 5 gave the script back margin under its 1200 s
+# limit when main path J came in (PERF.md §4).
+SAMPLER_WARMUP_DEPTH = 5
 # Padded widths of the adjoint kernels this script builds and holds, lanes
 # a chain swept on main path E, and sampler_E's chains (the example's
 # --chains default, examples/config2_asteroseismic.py) and transitions,
@@ -255,7 +276,7 @@ SAMPLER_E_DEPTH = 6
 SOLVER_WIDTHS = (2, 8, 13, 16)
 F_LANES = (64, 128, 256, 512, 1024, 2048, 4096)
 F_BLOCKS = (64, 128, 256, 512, 1024, 2048)
-F_SWEEP_ROUNDS = 3
+F_SWEEP_ROUNDS = 2
 # Padded widths of the single-sweep kernel and of the tangent kernels this
 # script builds and holds, main path G's lanes a chain swept, and
 # sampler_G's chains and transitions (config[2]'s NUTS settings cut as
@@ -939,8 +960,8 @@ def fold_sweep_c(t, y, yerr, cf, pr, pc, dev, chains=SAMPLER_CHAINS):
             del plan
 
 
-def sampler_c(lp, theta, dev, warmup=SAMPLER_C_TRANSITIONS,
-              samples=SAMPLER_C_TRANSITIONS, leapfrog=8):
+def sampler_c(lp, theta, dev, warmup=SAMPLER_C_WARMUP,
+              samples=SAMPLER_C_SAMPLES, leapfrog=8):
     """Dense-mass HMC on config[2], 16 folded chains, float64."""
     gen = torch.Generator(device=dev).manual_seed(2026)
     dim = theta.shape[0]
@@ -1042,6 +1063,304 @@ def sampler_c(lp, theta, dev, warmup=SAMPLER_C_TRANSITIONS,
         fail("sampler_C: gradient kernels launched fewer times than "
              "leapfrogs: {0}".format(grew))
     return grew
+
+
+# ---------------------------------------------------------------------------
+# Main path J: ADVI with its Laplace check, MAP fitting and SMC on
+# config[2] (the folded gradient kernels), and the config[3] example
+# ---------------------------------------------------------------------------
+
+# Steps of laplace_fit (Adam at J_LAPLACE_LR), of fit_advi (J_ADVI_MC draws
+# a step) and of map_fit; SMC's particles and settings; the config[3]
+# example's steps (examples/config3_complex_advi.py runs 3000).
+J_LAPLACE_STEPS = 150
+J_LAPLACE_LR = 2e-2
+J_ADVI_STEPS = 150
+J_ADVI_MC = 8
+J_MAP_STEPS = 50
+J_SMC_PARTICLES = 128
+J_SMC = {"num_mutations": 2, "num_leapfrog": 4, "max_stages": 6}
+J_EXAMPLE_STEPS = 100
+# The Laplace Hessian's folded call against 2 dim one-theta calls, against
+# its largest entry: the same kernels on a 16-chain and a one-chain plan
+# (a chain's lanes are the same in both).
+J_HESS_RTOL = 1e-8
+# Rows of ADVI's and SMC's folded calls on the main path's own inputs
+# against one-theta calls, value and gradient each against its largest
+# entry: a chain's lanes are the same as the one-chain plan's, so the two
+# differ at most by rounding (the Hessian's reads 0).
+J_ROWS_RTOL = 1e-12
+
+
+class CountedLogprob:
+    """A log probability passed through unchanged, counting its
+    value-and-gradient calls, the rows of its batched ones and each batched
+    call's row count (``rows_per_call``, the distinct counts)."""
+
+    def __init__(self, lp):
+        self.lp = lp
+        self.calls = self._zero()
+
+    @staticmethod
+    def _zero():
+        return {"value_and_grad": 0, "value_and_grad_batch": 0, "rows": 0,
+                "rows_per_call": []}
+
+    def __call__(self, theta):
+        return self.lp(theta)
+
+    def value_and_grad(self, theta):
+        self.calls["value_and_grad"] += 1
+        return self.lp.value_and_grad(theta)
+
+    def value_and_grad_batch(self, thetas):
+        self.calls["value_and_grad_batch"] += 1
+        self.calls["rows"] += thetas.shape[0]
+        if thetas.shape[0] not in self.calls["rows_per_call"]:
+            self.calls["rows_per_call"].append(thetas.shape[0])
+        return self.lp.value_and_grad_batch(thetas)
+
+    def take(self):
+        out, self.calls = self.calls, self._zero()
+        return out
+
+
+def fold_chunk(rows, cap):
+    """The chains of each folded call ``value_and_grad_batch`` makes of
+    ``rows`` rows: the power of two above, at most ``cap``."""
+    return min(1 << max(0, rows - 1).bit_length(), cap)
+
+
+def rows_vs_one_theta(lp, qs, picks):
+    """Rows ``picks`` of one folded ``value_and_grad_batch(qs)`` call
+    against one-theta ``value_and_grad`` calls: the largest relative
+    difference of the value and of the gradient (each against its largest
+    entry), inf where their finite entries differ in place."""
+    lp_b, g_b = lp.value_and_grad_batch(qs)
+    worst = 0.0
+    for i in picks:
+        lp1, g1 = lp.value_and_grad(qs[i])
+        for a, b in ((lp_b[i].reshape(1), lp1.reshape(1)), (g_b[i], g1)):
+            fin = torch.isfinite(b)
+            if not torch.equal(torch.isfinite(a), fin):
+                return math.inf
+            if bool(fin.any()):
+                worst = max(worst, float((a[fin] - b[fin]).abs().max()
+                                         / b[fin].abs().max().clamp_min(
+                                             1e-300)))
+    return worst
+
+
+def grad_kernels_on_j(gp, grad_errs, plans, around):
+    """The gradient kernels on the folded plans phase J launches them on
+    that main path C did not check: each kernel against its plain version
+    (grad_kernel_vs_plain, case ``main_path_J``) on ``nc`` rows of
+    ``around + 0.02 N(0, 1)``, float64.  ``plans``: ``{tag: (plan, nc)}``.
+    """
+    pr, pc = gp.kernel.padded_size
+    gen = torch.Generator(device=around.device).manual_seed(6)
+    for tag, (plan, nc) in plans.items():
+        ths = around[None] + 0.02 * torch.randn(
+            nc, around.shape[0], generator=gen, dtype=around.dtype,
+            device=around.device)
+        cf = torch.stack([packed_cf(gp, th) for th in ths])
+        grad_case(grad_errs, "main_path_J", cf, plan, pr, pc, n=plan.n,
+                  n_chain=nc, lanes=plan.t.shape[1],
+                  steps_per_lane=plan.t.shape[0], call=tag)
+
+
+def timed(fn):
+    """``(fn(), seconds)``, synchronized on the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def all_finite(*xs):
+    return all(bool(torch.isfinite(torch.as_tensor(x)).all()) for x in xs)
+
+
+def main_path_j(gp, lp, prior, theta, t, y, yerr, dev, grad_errs):
+    """config[2] at B's data (N = 1e5, float64) through the inference
+    engine's entry points: ``laplace_fit``, ``fit_advi``, ``map_fit`` and
+    ``sample_smc`` (prior draws, the likelihood's and the tempered target's
+    batched entries folded onto the gradient kernels' lanes), and
+    ``examples.config3_complex_advi.main`` at its own N = 512.
+
+    Gates: finite results; the ELBO's mean over the last 10% of steps above
+    the first 10%'s; |grad| at the Laplace mode below |grad| at the start;
+    ``cov`` symmetric to 1e-10 and positive definite; the Hessian's folded
+    call against 2 dim one-theta calls to J_HESS_RTOL; SMC's temperature
+    strictly rising, its evidence finite and its last acceptance in (0.05,
+    1]; one batched call a step for ADVI (J_ADVI_MC rows), one of 2 dim
+    rows for the Hessian and J_SMC_PARTICLES rows in every SMC call; rows
+    of an ADVI-sized and an SMC-sized folded call on the path's own draws
+    against one-theta calls to J_ROWS_RTOL; each of fused4's four gradient
+    kernels launched.  After the counts are read, the kernels are held
+    against their plain versions on the ADVI and SMC folded plans (the
+    Hessian's 2 dim rows fold onto C's 16-chain plan of the same closure,
+    checked there)."""
+    t_j = time.perf_counter()
+    reset_counts()
+    target = CountedLogprob(lp)
+    dim = theta.shape[0]
+    g_start = lp.value_and_grad(theta)[1]
+    (mode, cov), s_lap = timed(lambda: inference.laplace_fit(
+        target, theta, num_steps=J_LAPLACE_STEPS,
+        learning_rate=J_LAPLACE_LR))
+    calls_lap = target.take()
+    g_mode = lp.value_and_grad(mode)[1]
+    hess = advi._fd_hessian(lp.value_and_grad_batch, mode)
+    h = 1e-4 * (1.0 + torch.abs(mode))
+    eye = torch.eye(dim, dtype=mode.dtype, device=dev)
+    cols = torch.stack([-(lp.value_and_grad(mode + h[i] * eye[i])[1]
+                          - lp.value_and_grad(mode - h[i] * eye[i])[1])
+                        / (2.0 * h[i]) for i in range(dim)])
+    one_theta = 0.5 * (cols + cols.T)
+    e_hess = float((hess - one_theta).abs().max() / one_theta.abs().max())
+    e_sym = float((cov - cov.T).abs().max() / cov.abs().max())
+    eig = torch.linalg.eigvalsh(0.5 * (cov + cov.T))
+
+    gen = torch.Generator(device=dev).manual_seed(2030)
+    res, s_advi = timed(lambda: inference.fit_advi(
+        target, theta, gen, num_steps=J_ADVI_STEPS, num_mc=J_ADVI_MC))
+    calls_advi = target.take()
+    k = max(1, J_ADVI_STEPS // 10)
+    elbo_first = float(res.elbo_trace[:k].mean())
+    elbo_last = float(res.elbo_trace[-k:].mean())
+    sd_laplace = torch.sqrt(torch.diagonal(cov))
+    drift_sd = float((torch.abs(res.mu - mode) / sd_laplace).max())
+
+    gp_map = celerite_torch.GP(config2_kernel(terms))
+    (params, trace), s_map = timed(lambda: optimize.map_fit(
+        gp_map, t, y, yerr=yerr, log_prior=prior, num_steps=J_MAP_STEPS))
+
+    def flat(th):
+        return torch.zeros((), dtype=th.dtype, device=th.device)
+
+    like = CountedLogprob(gp.build_logprob(t, y, yerr=yerr, log_prior=flat))
+
+    def prior_rows(qs):
+        return (-0.5 * torch.sum((qs / 3.0) ** 2, dim=-1), -qs / 9.0)
+
+    prior_smc = lambda th: prior(th)  # noqa: E731
+    prior_smc.value_and_grad_batch = prior_rows
+    init = 3.0 * torch.randn(J_SMC_PARTICLES, dim, generator=gen,
+                             dtype=theta.dtype, device=dev)
+    smc_res, s_smc = timed(lambda: inference.sample_smc(
+        prior_smc, like, init, gen, **J_SMC))
+    calls_smc = like.take()
+
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        example, s_example = timed(lambda: config3_complex_advi.main(
+            num_steps=J_EXAMPLE_STEPS))
+    counts = grad_counts()
+    betas = smc_res.betas.tolist()
+
+    # Launches below compare; they are not the path's.
+    nc_advi = fold_chunk(J_ADVI_MC, lp.loglik.value_ok_grad_batch.fold_cap)
+    fold_cap = like.lp.loglik.value_ok_grad_batch.fold_cap
+    nc_smc = fold_chunk(J_SMC_PARTICLES, fold_cap)
+    nc_hess = fold_chunk(2 * dim, lp.loglik.value_ok_grad_batch.fold_cap)
+    plans = {"fit_advi": (lp.loglik.value_ok_grad_batch.folded_plan(nc_advi),
+                          nc_advi),
+             "sample_smc": (like.lp.loglik.value_ok_grad_batch.folded_plan(
+                 nc_smc), nc_smc)}
+    grad_kernels_on_j(gp, grad_errs, plans, mode)
+    e_rows_advi = rows_vs_one_theta(lp, res.sample(gen, J_ADVI_MC),
+                                    (0, J_ADVI_MC - 1))
+    picks = sorted({0, nc_smc - 1, min(nc_smc, J_SMC_PARTICLES - 1),
+                    J_SMC_PARTICLES - 1})
+    e_rows_smc = rows_vs_one_theta(like.lp, smc_res.particles, picks)
+    emit("main_path_J", model="config[2] 2xSHO + jitter (P=8)", n=len(t),
+         dtype="float64",
+         laplace={"steps": J_LAPLACE_STEPS, "seconds": s_lap,
+                  "ms_per_step": 1e3 * s_lap / J_LAPLACE_STEPS,
+                  "calls": calls_lap, "mode": mode.tolist(),
+                  "sd": sd_laplace.tolist(),
+                  "grad_norm_start": float(g_start.norm()),
+                  "grad_norm_mode": float(g_mode.norm()),
+                  "rel_err_hessian_folded_vs_one_theta": e_hess,
+                  "hessian_rows_fold_onto": nc_hess,
+                  "cov_asymmetry": e_sym, "cov_eigenvalues": eig.tolist()},
+         advi={"steps": J_ADVI_STEPS, "num_mc": J_ADVI_MC,
+               "seconds": s_advi, "ms_per_step": 1e3 * s_advi / J_ADVI_STEPS,
+               "calls": calls_advi, "mu": res.mu.tolist(),
+               "sigma": res.sigma.tolist(), "elbo_first_10pct": elbo_first,
+               "elbo_last_10pct": elbo_last,
+               "drift_in_laplace_sd": drift_sd,
+               "rel_err_rows_folded_vs_one_theta": e_rows_advi},
+         map_fit={"steps": J_MAP_STEPS, "seconds": s_map,
+                  "ms_per_step": 1e3 * s_map / J_MAP_STEPS,
+                  "params": params.tolist(), "logprob_first": float(trace[0]),
+                  "logprob_last": float(trace[-1])},
+         smc={"particles": J_SMC_PARTICLES, **J_SMC, "seconds": s_smc,
+              "stages": smc_res.num_stages,
+              "ms_per_stage": 1e3 * s_smc / max(1, smc_res.num_stages),
+              "calls": calls_smc,
+              "ms_per_batched_call": 1e3 * s_smc / max(
+                  1, calls_smc["value_and_grad_batch"]),
+              "fold_cap": fold_cap, "chains_per_call": nc_smc,
+              "rel_err_rows_folded_vs_one_theta": e_rows_smc,
+              "betas": betas, "beta_reached": betas[-1] if betas else 0.0,
+              "log_evidence": float(smc_res.log_evidence),
+              "final_accept": float(smc_res.final_accept)},
+         example_config3={"n": 512, "steps": J_EXAMPLE_STEPS,
+                          "seconds": s_example,
+                          "drift_in_laplace_sd": example["drift_sd"],
+                          "printed": captured.getvalue().splitlines()},
+         launches=counts, seconds=time.perf_counter() - t_j)
+    ex = example["advi"]
+    if not all_finite(mode, cov, g_mode, res.mu, res.sigma, res.elbo_trace,
+                      params, trace, smc_res.particles,
+                      smc_res.log_evidence, ex.mu, ex.sigma, ex.elbo_trace,
+                      example["mode"], example["cov"]):
+        fail("main path J gave a non-finite result")
+    if not elbo_last > elbo_first:
+        fail("main path J: the ELBO did not improve ({0} -> {1})".format(
+            elbo_first, elbo_last))
+    if not float(g_mode.norm()) < float(g_start.norm()):
+        fail("main path J: |grad| at the Laplace mode is not below the "
+             "start's")
+    if e_sym > 1e-10 or not float(eig.min()) > 0:
+        fail("main path J: the Laplace covariance is not symmetric positive "
+             "definite (asymmetry {0}, eigenvalues {1})".format(
+                 e_sym, eig.tolist()))
+    if e_hess > J_HESS_RTOL:
+        fail("main path J: the folded Hessian call is {0} from one-theta "
+             "calls".format(e_hess))
+    if not (betas and all(b > a for a, b in zip([0.0] + betas, betas))):
+        fail("main path J: SMC's temperature did not rise: {0}".format(
+            betas))
+    if not 0.05 < float(smc_res.final_accept) <= 1.0:
+        fail("main path J: SMC's last acceptance {0} outside (0.05, 1]"
+             .format(float(smc_res.final_accept)))
+    want_lap = {"value_and_grad": J_LAPLACE_STEPS, "value_and_grad_batch": 1,
+                "rows": 2 * dim, "rows_per_call": [2 * dim]}
+    want_advi = {"value_and_grad": 0, "value_and_grad_batch": J_ADVI_STEPS,
+                 "rows": J_ADVI_STEPS * J_ADVI_MC,
+                 "rows_per_call": [J_ADVI_MC]}
+    if calls_lap != want_lap or calls_advi != want_advi:
+        fail("main path J: laplace_fit / fit_advi made {0} / {1} calls, "
+             "not {2} / {3}".format(calls_lap, calls_advi, want_lap,
+                                    want_advi))
+    if (calls_smc["value_and_grad"] != 0
+            or calls_smc["rows_per_call"] != [J_SMC_PARTICLES]):
+        fail("main path J: sample_smc's calls were not all of the whole "
+             "cloud: {0}".format(calls_smc))
+    if nc_hess != SAMPLER_CHAINS:
+        fail("main path J: the Hessian's {0} rows fold onto a {1}-chain "
+             "plan, which C did not check".format(2 * dim, nc_hess))
+    if not max(e_rows_advi, e_rows_smc) <= J_ROWS_RTOL:
+        fail("main path J: folded rows differ from one-theta calls (ADVI "
+             "{0}, SMC {1})".format(e_rows_advi, e_rows_smc))
+    if min(counts.values()) < 1:
+        fail("main path J did not launch every gradient kernel: "
+             "{0}".format(counts))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -1614,7 +1933,7 @@ def main_path_e(gp, lpe, prior, theta, thetas, t, y, yerr):
     return counts
 
 
-def lane_sweep_e(gp, t, y, yerr, prior, theta, thetas, rounds=3):
+def lane_sweep_e(gp, t, y, yerr, prior, theta, thetas, rounds=2):
     """E's value-and-gradient ms over lanes a chain, float64, for one
     theta, for sampler_E's 4 folded and for 16 folded: the kernels want
     many lanes, the glue few.  The lane counts take turns, ``rounds``
@@ -1644,7 +1963,8 @@ def sampler_nuts(phase, lp, theta, dev, counts, chains, warmup, samples,
                  seed, max_tree_depth=8):
     """Dense-mass NUTS on ``lp`` over ``chains`` folded chains:
     ``sample_nuts`` with the step-size search, windowed warmup, target
-    0.8, tree depth 6 in warmup and ``max_tree_depth`` in sampling.
+    0.8, tree depth SAMPLER_WARMUP_DEPTH in warmup and ``max_tree_depth``
+    in sampling.
     ``counts()`` reads the launch counters of the route's kernels; every
     one must have launched at least once a batched call."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1670,7 +1990,8 @@ def sampler_nuts(phase, lp, theta, dev, counts, chains, warmup, samples,
     t0 = time.perf_counter()
     chain, info = inference.sample_nuts(
         target, q0, gen, num_warmup=warmup, num_samples=samples,
-        max_tree_depth=max_tree_depth, warmup_max_tree_depth=6,
+        max_tree_depth=max_tree_depth,
+        warmup_max_tree_depth=SAMPLER_WARMUP_DEPTH,
         target_accept=0.8,
         initial_step_size="auto", dense_mass=True, chunk_size=10,
         progress=progress)
@@ -1686,7 +2007,7 @@ def sampler_nuts(phase, lp, theta, dev, counts, chains, warmup, samples,
     out = {
         "n_chains": chains, "dim": dim, "warmup": warmup,
         "samples": samples, "max_tree_depth": max_tree_depth,
-        "warmup_max_tree_depth": 6, "target_accept": 0.8,
+        "warmup_max_tree_depth": SAMPLER_WARMUP_DEPTH, "target_accept": 0.8,
         "step_size": float(info["step_size"]),
         "warmup_s": t_warm_end - t0, "sampling_s": t_samp,
         "transitions_per_s": samples / t_samp,
@@ -2540,7 +2861,7 @@ def main_path_g(gpb, gpe, lpg, prior, thetab, thetasb, thetae, thetase, t,
     return counts
 
 
-def lane_sweep_g(gpb, t, y, yerr, prior, thetab, thetasb, rounds=2):
+def lane_sweep_g(gpb, t, y, yerr, prior, thetab, thetasb, rounds=1):
     """G's config[2] calls over lanes a chain, float64: one theta's value
     and value-and-gradient, sampler_G's 4 folded and 16 folded.  The lane
     counts take turns, ``rounds`` rounds of 3 calls each; each count's
@@ -3303,6 +3624,11 @@ def main():
     # ---- sampler_C: dense-mass HMC over 16 folded chains, float64 ----
     grew = sampler_c(lps[torch.float64], theta, dev)
 
+    # ---- main path J: ADVI, Laplace, MAP and SMC on config[2] ----
+    counts_j = main_path_j(gp, lps[torch.float64], prior, theta, t, y, yerr,
+                           dev, grad_errs)
+    torch.cuda.empty_cache()
+
     # ---- exact mode: ds_kernels, main path D, sampler_D ----
     lpd = gp.build_logprob(t, y, yerr=yerr, log_prior=prior, precision="ds")
     if lpd.loglik.route != "dsfused":
@@ -3412,7 +3738,8 @@ def main():
             "route": "cuda",
             "source": "celerite_torch/csrc/fused4_grad.cu",
             "replaces": GRAD_REPLACES[name],
-            "launches": counts_ca[name] + counts_c[name] + grew[name],
+            "launches": (counts_ca[name] + counts_c[name] + grew[name]
+                         + counts_j[name]),
             "max_abs_err": max(grad_errs[name]),
             "ms": row["ms_float64"],
             "plain_ms": row["plain_ms_float64"],
