@@ -11,7 +11,7 @@ Entry points compute on ``cuda`` unless given ``device="cpu"``.
 
 from . import modeling, ops, solver, terms
 from .gp import GP
-from .solver import CholeskySolver, LinAlgError
+from .solver import CARMASolver, CholeskySolver, LinAlgError
 from .modeling import ConstantModel, Model, ModelSet
 
 __version__ = "0.1.0"
@@ -20,6 +20,7 @@ __library_version__ = solver.__library_version__
 __all__ = [
     "GP",
     "CholeskySolver",
+    "CARMASolver",
     "LinAlgError",
     "Model",
     "ModelSet",

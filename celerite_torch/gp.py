@@ -7,8 +7,10 @@ Port of ``celerite_tpu/gp.py:34-277, 279-810, 1160-1412``: a ModelSet of
 (``theta_active -> ll + log prior``), and the solver surface: ``compute``
 factors through :class:`solver.CholeskySolver` (the ``solver`` property;
 ``dirty`` / ``computed`` refactor after a parameter change), and
-``apply_inverse``, ``dot``, ``predict`` (the mean and ``return_cov``),
-``get_matrix``, ``sample`` and ``sample_conditional`` run on it.
+``apply_inverse``, ``dot``, ``predict`` (the mean and ``return_cov``; with
+``return_var`` the Kalman/RTS smoother of ``ops/smoother`` and
+``ops/pkalman``), ``get_matrix``, ``sample`` and ``sample_conditional`` run
+on it.
 
 Routing of ``solver="auto"``: on the CPU the sequential solver below
 N = 4096 points (the JAX package's CPU route) and the plain fused primal
@@ -77,7 +79,7 @@ import torch
 from . import terms
 from .modeling import ConstantModel, ModelSet
 from .ops import (adjoint, blocked, dense, dsfused, fused, fused4, lanes,
-                  lanes4, pallas_solver, seq, tangent)
+                  lanes4, pallas_solver, pkalman, seq, smoother, tangent)
 from .ops.lower import Coefficients, lower
 from .solver import CholeskySolver, LinAlgError, _not_in_slice
 
@@ -491,15 +493,21 @@ class GP(ModelSet):
                                t, np.ascontiguousarray(y, dtype=float))
 
     def predict(self, y, t=None, return_cov=True, return_var=False):
-        """Conditional predictive distribution at coordinates ``t``: ``mu``
-        or ``(mu, cov)``.  The mean is O(N) (the lag-state recursions, in
-        parallel on the blocked route), the covariance dense O(N M)
-        (reference celerite.py:399-474).  ``return_var=True`` takes the
-        JAX package's Kalman/RTS smoother (ops/smoother.py), not ported
-        (ROADMAP queue 1, item 11)."""
-        if return_var:
-            raise _not_in_slice("predict(return_var=True)",
-                                "queue 1, item 11")
+        """Conditional predictive distribution at coordinates ``t``: ``mu``,
+        ``(mu, cov)`` or ``(mu, var)`` (celerite_tpu/gp.py:1260-1355).
+
+        ``return_var=True`` on a kernel with a Gauss-Markov realization
+        (``ops.smoother.realize``) takes the O((N+M) p^2) Kalman/RTS
+        smoother over the merged train and test grid, which gives the mean
+        too: on the card the blocked engine (``ops.pkalman``) at every size
+        (faster than the sequential one at every size measured,
+        tools/kalman_tune.py: the JAX package's gate of 16384 points is not
+        kept), on the CPU the sequential one (``ops.smoother``).  Any
+        other kernel takes
+        the dense O(N M) variance k(0) - sum(Kxs^T * K^-1 Kxs^T).  The mean
+        is otherwise O(N) (the lag-state recursions, in parallel on the
+        blocked route), the covariance dense O(N M) (reference
+        celerite.py:399-474)."""
         y = self._process_input(y)
         if y.ndim > 1:
             raise ValueError("dimension mismatch")
@@ -511,18 +519,37 @@ class GP(ModelSet):
                 raise ValueError("dimension mismatch")
         self._recompute()
         resid = y - self.mean.get_value(self._t)
+        if return_var:
+            coeffs = Coefficients(*self.kernel.coefficients,
+                                  jitter=self.kernel.jitter)
+            if smoother.realize(coeffs) is not None:
+                device = lanes4.resolve_device(self.device)
+                engine = (pkalman.predict_var_parallel
+                          if device.type == "cuda" else smoother.predict_var)
+                mu, var = engine(coeffs, self._t, self._yerr ** 2, resid, xs,
+                                 device=device)
+                return self.mean.get_value(xs) + mu, var
         if t is None:
             alpha = self.solver.solve(resid).reshape(-1)
             alpha = resid - (self._yerr ** 2 + self.kernel.jitter) * alpha
         else:
             alpha = self.solver.predict(resid, xs)
         mu = self.mean.get_value(xs) + alpha
+        if return_var:
+            return mu, self._dense_var(xs)
         if not return_cov:
             return mu
         Kxs = self.get_matrix(xs, self._t)
         cov = self.get_matrix(xs, xs)
         cov -= Kxs @ self.apply_inverse(np.ascontiguousarray(Kxs.T))
         return mu, cov
+
+    def _dense_var(self, xs):
+        """The dense O(N M) predictive variance at ``xs``: k(0) -
+        sum(Kxs^T * K^-1 Kxs^T) (celerite_tpu/gp.py:1332-1336)."""
+        KxsT = np.ascontiguousarray(self.get_matrix(xs, self._t).T)
+        var = -np.sum(KxsT * self.apply_inverse(KxsT), axis=0)
+        return var + self.kernel.get_value(0.0)
 
     def get_matrix(self, x1=None, x2=None, include_diagonal=None,
                    include_general=None):

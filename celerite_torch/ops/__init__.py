@@ -22,9 +22,14 @@
   widths up to 16): the CUDA kernels and their plain versions
 - ``adjoint``: the adjoint pipeline on those streams (padded widths up to
   16): the CUDA kernels and their plain versions
+- ``smoother``: the Gauss-Markov realization (numpy), the sequential
+  Kalman/RTS smoother and the prior sampler
+- ``pkalman``: the associative-scan and blocked Kalman/RTS engines and the
+  merged-grid predictive variance
+- ``carma``: CARMA(p, q) Kalman likelihood and its celerite conversion
 """
 
-from . import blocked, fused, seq
+from . import blocked, carma, fused, pkalman, seq, smoother
 
 
 def best_ll(ssm, resid):

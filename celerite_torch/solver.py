@@ -5,7 +5,8 @@ Port of ``celerite_tpu/solver.py:41-593``, the reference's pybind11 module
 / dot_L / dot / predict / log_determinant / computed /
 grad_log_likelihood`` and pickling, the free functions
 ``get_kernel_value``, ``get_psd_value``, ``check_coefficients``,
-``has_autodiff`` and ``get_library_version``, and ``LinAlgError``.
+``has_autodiff`` and ``get_library_version``, and ``LinAlgError``; it
+re-exports ``ops.carma.CARMASolver`` as the JAX package's does.
 
 The class adds state, numpy conversion, dimension checks and exceptions
 to the pure ops: ``ops.seq`` (``method="scan"``), ``ops.blocked``
@@ -26,10 +27,11 @@ import torch
 
 from . import native
 from .ops import blocked, kernels, lanes4, seq
+from .ops.carma import CARMASolver  # noqa: F401  (parity re-export)
 from .ops.lower import SSM, Coefficients, lower
 from .ops.poly import check_coefficients as _check_coefficients
 
-__all__ = ["CholeskySolver", "LinAlgError", "get_kernel_value",
+__all__ = ["CholeskySolver", "CARMASolver", "LinAlgError", "get_kernel_value",
            "get_psd_value", "check_coefficients", "has_autodiff",
            "get_library_version"]
 

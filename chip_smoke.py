@@ -107,7 +107,15 @@ through the entry points a user calls:
 - I: the GP facade on the card (``GP.compute``, ``apply_inverse``, ``dot``,
   ``dot_L``, ``sample``, ``predict``, ``get_matrix``; the factor on the
   three-pass kernels) for config[2] at N = 1e5, held against the CPU
-  float64 route and, on a 4096-point prefix, the sequential solver.
+  float64 route and, on a 4096-point prefix, the sequential solver;
+- K: ``GP.predict(..., return_var=True)`` for config[2] at N = 1e5 (the
+  blocked Kalman/RTS engine of ``ops/pkalman``, sorted and shuffled test
+  points) held against the lag-state mean, ``GP.log_likelihood`` and the
+  dense variance, the blocked and flat engines against the sequential
+  one, their timings (and A's N = 1e6), ``sample_prior``,
+  ``CARMASolver`` against its CPU route and its celerite conversion, and
+  ``utils.check_backends_agree`` with the three-pass kernels (which
+  launches subst).
 
 Each main path resets every kernel's launch counter just before it runs and
 reads the counters just after; a kernel of the path that did not launch
@@ -143,7 +151,7 @@ from celerite_torch.examples import config3_complex_advi
 from celerite_torch.inference import adaptation, advi, diagnostics, optimize
 from celerite_torch.ops import (adjoint, blocked, dsfused, fused, fused4,
                                 lanes, lanes4, onepass, pallas_solver,
-                                tangent)
+                                pkalman, smoother, tangent)
 from celerite_torch.ops.lower import Coefficients, lower
 from celerite_torch.testing import (CASES, bench_kernel, blocked_streams,
                                     compare_adjoint_kernels,
@@ -156,6 +164,7 @@ from celerite_torch.testing import (CASES, bench_kernel, blocked_streams,
                                     onepass_cotangents, onepass_f32_floor,
                                     pack_values, pack_values_ds, wide_kernel,
                                     width_kernel)
+from celerite_torch.utils import check_backends_agree
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): memory rate and the
 # non-tensor-core float rates.
@@ -288,6 +297,12 @@ SAMPLER_G_CHAINS = 4
 SAMPLER_G_WARMUP = 20
 SAMPLER_G_SAMPLES = 4
 SAMPLER_G_DEPTH = 6
+# The floors the NUTS samplers' (D, E, G) sampling transitions must clear:
+# their mean acceptance, and at least one of them not divergent.  A warmup
+# too short to adapt the step after the metric is set fails them: at 16
+# warmup transitions sampler_E read 0.0 and sampler_G 0.016 with 16 and 15
+# of 16 divergent; at 20, E 0.034, G 0.27 and D 0.73 (PERF.md §4).
+SAMPLER_ACCEPT_FLOOR = 0.02
 # The plan each new kernel's line in the kernels JSON is timed on: where
 # most of its launches run (main path G's value plan, sampler_G's 4-chain
 # plan, G's folded batch of E's model).
@@ -2035,6 +2050,12 @@ def sampler_nuts(phase, lp, theta, dev, counts, chains, warmup, samples,
         fail("{0}: a draw is not finite".format(phase))
     if not all(moved):
         fail("{0}: a chain never moved".format(phase))
+    if (out["mean_accept_sampling"] < SAMPLER_ACCEPT_FLOOR
+            or out["divergences_sampling"] >= chains * samples):
+        fail("{0}: sampling collapsed: mean acceptance {1}, {2} of {3} "
+             "transitions divergent".format(
+                 phase, out["mean_accept_sampling"],
+                 out["divergences_sampling"], chains * samples))
     if min(grew.values()) < calls[0]:
         fail("{0}: kernels launched fewer times than batched calls: "
              "{1}".format(phase, grew))
@@ -2224,6 +2245,15 @@ def bench_data(n=1_000_000):
     rng = np.random.default_rng(42)
     t = np.sort(rng.uniform(0, 1000.0, n))
     return t, rng.standard_normal(n), np.full(n, 0.1)
+
+
+def b_data(n=100_000):
+    """Main path B's data: config[2]'s two modes in noise, N = 1e5."""
+    rng = np.random.default_rng(2)
+    t = np.sort(rng.uniform(0, 100.0, n))
+    yerr = np.full(n, 0.3)
+    y = np.sin(t) + 0.5 * np.sin(3.1 * t) + yerr * rng.standard_normal(n)
+    return t, y, yerr
 
 
 def autograd_value_and_grad(fn, theta):
@@ -3281,6 +3311,292 @@ def main_path_i(t, y, yerr, dev):
     return counts
 
 
+# ---- main path K: the predictive variance, CARMA and the backend check ----
+K_M = 10_000                    # test points at B's N = 1e5
+K_A_M = 100_000                 # test points at A's N = 1e6
+K_REPS = 5                      # medians of K_REPS calls
+K_ENGINES_N = 4096              # merged points, engines against sequential
+K_PREFIX = 2000                 # var against the dense fallback
+K_BACKENDS_N = 4096             # check_backends_agree's prefix
+K_CARMA = {2: (0.0, [1.0, 0.5], [0.1]), 3: (0.1, [1.3, 0.4, 0.1], [0.5])}
+K_MEAN_RTOL = 1e-8    # smoother mean against the lag-state mean, of max |mu|
+K_LL_RTOL = 1e-9      # the blocked engine's ll against GP.log_likelihood
+K_VAR_RTOL = 1e-8     # var against the dense fallback, of k(0): the dense
+                      # variance is k(0) less a quadratic form, so its
+                      # rounding scales with k(0), not with var
+K_MOMENTS = {"rtol": 1e-9, "atol": 1e-11}  # the JAX suite's engine bars
+K_ENGINE_LL_RTOL = 1e-11
+K_SHUFFLE_RTOL = 1e-12  # shuffled test points against sorted, of max
+K_CARMA_RTOL = 1e-10    # CARMA on the card against the CPU f64 route
+K_CARMA_CHOL_RTOL = 1e-8  # its converted kernel's ll (the JAX suite's bar)
+K_BACKENDS_RTOL = 1e-9
+# Built beside the run for main path K: CARMA(3, 1)'s celerite conversion
+# factors on the card at padded width 3.
+K_BUILDS = (("pallas_solver.cu", 3),)
+
+
+def unrealizable_kernel(terms):
+    """A product of two SHO terms: positive definite as a whole, its second
+    complex term with a c < b d, so with no Gauss-Markov realization."""
+    return (terms.SHOTerm(log_S0=0.0, log_Q=1.0, log_omega0=0.5)
+            * terms.SHOTerm(log_S0=0.0, log_Q=1.0, log_omega0=1.5))
+
+
+def timed_ms(fn, reps=K_REPS):
+    """(median ms, last result) of ``reps`` synchronised calls, host
+    clock."""
+    per, out = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        per.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(per)), out
+
+
+def max_rel(got, want):
+    """max |got - want| over max |want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def moments_within(got, want, rtol, atol):
+    """Whether two arrays agree elementwise at (rtol, atol)."""
+    got, want = np.asarray(got), np.asarray(want)
+    return bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want)))
+
+
+def kalman_coefficients(gp):
+    """The GP kernel's coefficients as ops.smoother takes them."""
+    return Coefficients(*gp.kernel.coefficients, jitter=gp.kernel.jitter)
+
+
+def engine_grid(t, yerr, y, m, jitter, dev, seed):
+    """A merged grid: the ``len(t)`` training points and ``m`` sorted test
+    points over their span, as tensors on ``dev`` (dt, yv, rv, obs)."""
+    xs = np.sort(np.random.default_rng(seed).uniform(t[0], t[-1], m))
+    dt, yv, rv, obs, _, _ = smoother._merge_grid(t, yerr**2, y, xs, jitter)
+    return xs, [torch.as_tensor(x, device=dev) for x in (dt, yv, rv, obs)]
+
+
+def main_path_k(t, y, yerr, dev):
+    """The predictive variance, CARMA and the backend check on the card
+    (ROADMAP queue 1 items 11, 16 and 18), float64.
+
+    config[2] on B's data (N = 1e5): ``GP.predict(y, x, return_var=True)``
+    at K_M sorted and shuffled points (the blocked Kalman/RTS engine, the
+    grid merged on the card by a stable argsort), its mean held against
+    ``predict(return_cov=False)``'s lag-state mean, the searchsorted merge
+    equal to the argsort one bit for bit on the same points, shuffled
+    against sorted, 0 <= var <= k(0); the blocked engine's ll on the
+    training grid against ``GP.log_likelihood``; on a K_PREFIX-point
+    prefix the variance against the dense fallback, and an unrealizable
+    kernel's (the dense fallback on the card) against the CPU route; the
+    blocked and flat engines against the sequential one at K_ENGINES_N
+    merged points; timings: the predict (median of K_REPS, profiled
+    once), A's N = 1e6 with K_A_M points in one call, ``sample_prior`` at
+    N = 1e5 (the engines' sweeps that set their constants are
+    tools/kalman_tune.py's).  CARMA at p =
+    2 and 3 on 2000 of B's points against the CPU route and its converted
+    kernel's ll through the facade.  ``utils.check_backends_agree`` with
+    the three-pass kernels on a K_BACKENDS_N-point prefix.  Returns the
+    three-pass kernels' launch counts."""
+    t_k = time.perf_counter()
+    reset_counts()
+    n = len(t)
+    gp = celerite_torch.GP(config2_kernel(terms))
+    gp.compute(t, yerr)
+    coeffs = kalman_coefficients(gp)
+    real_ = smoother.realize(coeffs)
+    k0 = float(gp.kernel.get_value(0.0))
+    rng = np.random.default_rng(19)
+    xs = np.sort(rng.uniform(0.0, t[-1], K_M))
+    perm = rng.permutation(K_M)
+    checks, out, parts = {}, {}, {}
+    mark = [t_k]
+
+    def part(name):
+        """Seconds since the last part, under ``name``."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = now - mark[0]
+        mark[0] = now
+
+    # The blocked predict, sorted and shuffled, against the lag-state mean.
+    ms_sorted, (mu, var) = timed_ms(
+        lambda: gp.predict(y, xs, return_var=True))
+    ms_shuffled, (mu_sh, var_sh) = timed_ms(
+        lambda: gp.predict(y, xs[perm], return_var=True))
+    mu_lag = gp.predict(y, xs, return_cov=False)
+    out["rel_err_mean_vs_lag_state"] = max_rel(mu, mu_lag)
+    out["rel_err_shuffled_vs_sorted"] = max(max_rel(mu_sh, mu[perm]),
+                                            max_rel(var_sh, var[perm]))
+    out["var_min"], out["var_max"], out["k0"] = (float(var.min()),
+                                                 float(var.max()), k0)
+    checks["mean"] = out["rel_err_mean_vs_lag_state"] <= K_MEAN_RTOL
+    checks["shuffled"] = out["rel_err_shuffled_vs_sorted"] <= K_SHUFFLE_RTOL
+    checks["var_range"] = bool(0.0 <= var.min() and var.max() <= k0
+                               and np.all(np.isfinite(mu)))
+    # The two device merges on the same sorted points: one grid.
+    put = functools.partial(torch.as_tensor, dtype=torch.float64, device=dev)
+    args = (put(t), put(yerr**2), put(y), put(xs))
+    L = pkalman._BLOCK
+    merged = {s: pkalman._predict_var_device(
+        real_, *args, coeffs.jitter, pkalman.blocked_filter_smoother,
+        sorted_test=s) for s in (True, False)}
+    checks["merges_bitwise"] = all(
+        torch.equal(a, b) for a, b in zip(merged[True], merged[False]))
+    del merged, args
+    part("predict")
+
+    # The blocked engine's ll on the training grid.
+    grid = [put(x) for x in (np.concatenate([[0.0], np.diff(t)]), y,
+                             yerr**2 + coeffs.jitter, np.ones(n))]
+    _, _, ll_b = pkalman.blocked_filter_smoother(real_, *grid)
+    ll_gp = gp.log_likelihood(y)
+    out["ll_blocked"], out["ll_gp"] = float(ll_b), ll_gp
+    out["rel_err_ll_blocked_vs_gp"] = rel(ll_b, ll_gp)
+    checks["ll"] = out["rel_err_ll_blocked_vs_gp"] <= K_LL_RTOL
+    del grid
+    part("ll")
+
+    # The variance against the dense fallback on a prefix; an unrealizable
+    # kernel (the dense fallback on the card) against the CPU route.
+    m = K_PREFIX
+    x2 = np.sort(rng.uniform(0.0, t[m - 1], 200))
+    gp2 = celerite_torch.GP(config2_kernel(terms))
+    gp2.compute(t[:m], yerr[:m])
+    ms_prefix, (_, var2) = timed_ms(
+        lambda: gp2.predict(y[:m], x2, return_var=True), reps=1)
+    dense = gp2._dense_var(x2)
+    out["rel_err_var_vs_dense"] = float(np.abs(var2 - dense).max()) / k0
+    out["rel_err_var_vs_dense_of_max_var"] = max_rel(var2, dense)
+    gpu = celerite_torch.GP(unrealizable_kernel(terms))
+    gpu.compute(t[:m], yerr[:m])
+    cpu = celerite_torch.GP(unrealizable_kernel(terms), device="cpu")
+    cpu.compute(t[:m], yerr[:m])
+    mu_u, var_u = gpu.predict(y[:m], x2, return_var=True)
+    mu_c, var_c = cpu.predict(y[:m], x2, return_var=True)
+    out["unrealizable"] = smoother.realize(kalman_coefficients(gpu)) is None
+    out["rel_err_unrealizable_vs_cpu"] = max(
+        max_rel(mu_u, mu_c),
+        float(np.abs(var_u - var_c).max()) / float(
+            gpu.kernel.get_value(0.0)))
+    checks["var_dense"] = out["rel_err_var_vs_dense"] <= K_VAR_RTOL
+    checks["unrealizable"] = (out["unrealizable"] and
+                              out["rel_err_unrealizable_vs_cpu"] <= K_VAR_RTOL
+                              and bool(np.all(var_u >= 0)))
+    part("dense")
+
+    # The blocked and flat engines against the sequential one at
+    # K_ENGINES_N merged points.
+    nt = K_ENGINES_N * 7 // 8
+    _, g = engine_grid(t[:nt], yerr[:nt], y[:nt], K_ENGINES_N - nt,
+                       coeffs.jitter, dev, seed=23)
+    ms_seq, seq = timed_ms(lambda: smoother._filter_smoother(real_, *g),
+                           reps=1)
+    seq = [x.cpu().numpy() for x in seq]
+    ms_engines = {"seq": ms_seq}
+    out["engines_rel_err"] = {}
+    checks["engines"] = True
+    for name, engine in (("blocked", pkalman.blocked_filter_smoother),
+                         ("flat", pkalman.parallel_filter_smoother)):
+        ms_engines[name], got = timed_ms(lambda: engine(real_, *g), reps=3)
+        got = [x.cpu().numpy() for x in got]
+        out["engines_rel_err"][name] = {"mean": max_rel(got[0], seq[0]),
+                                        "var": max_rel(got[1], seq[1]),
+                                        "ll": rel(got[2], seq[2])}
+        checks["engines"] &= (
+            moments_within(got[0], seq[0], **K_MOMENTS)
+            and moments_within(got[1], seq[1], **K_MOMENTS)
+            and out["engines_rel_err"][name]["ll"] <= K_ENGINE_LL_RTOL)
+    del g
+    prof = profile_evals(lambda _: gp.predict(y, xs, return_var=True), None,
+                         evals=1)
+    prof = {k: v for k, v in prof.items()
+            if k in ("wall_ms_per_eval", "device_busy_ms_per_eval",
+                     "device_idle_share", "kernel_launches_per_eval")}
+    part("engines")
+
+    # A's size: N = 1e6 with K_A_M test points, one call.
+    ta, ya, yerra = bench_data()
+    gpa = celerite_torch.GP(bench_kernel(terms))
+    gpa.compute(ta, yerra)
+    xa = np.sort(np.random.default_rng(29).uniform(0.0, ta[-1], K_A_M))
+    ms_a, (mu_a, var_a) = timed_ms(
+        lambda: gpa.predict(ya, xa, return_var=True), reps=1)
+    k0a = float(gpa.kernel.get_value(0.0))
+    checks["a_size"] = bool(np.all(np.isfinite(mu_a)) and var_a.min() >= 0
+                            and var_a.max() <= k0a)
+    a_size = {"n": len(ta), "m": K_A_M, "ms": ms_a, "block": L}
+    del gpa, ta, ya, yerra, mu_a, var_a
+    part("a_size")
+
+    # sample_prior at N = 1e5 (host float64, the transitions on the card).
+    t0 = time.perf_counter()
+    draw = smoother.sample_prior(kalman_coefficients(
+        celerite_torch.GP(config2_kernel(terms))), t, seed=2, device=dev)
+    s_prior = time.perf_counter() - t0
+    checks["sample_prior"] = bool(draw.shape == (n,)
+                                  and np.all(np.isfinite(draw)))
+    part("sample_prior")
+
+    # CARMA on the card against the CPU route; its converted kernel.
+    tc, yc, ec = t[::50], y[::50], yerr[::50]
+    carma_rows = {}
+    for p, (ls, ar, ma) in K_CARMA.items():
+        card = celerite_torch.CARMASolver(ls, ar, ma)
+        host = celerite_torch.CARMASolver(ls, ar, ma, device="cpu")
+        ms_c, ll_card = timed_ms(lambda: card.log_likelihood(tc, yc, ec),
+                                 reps=1)
+        ms_h, ll_host = timed_ms(lambda: host.log_likelihood(tc, yc, ec),
+                                 reps=1)
+        chol = celerite_torch.CholeskySolver()
+        chol.compute(0.0, *card.get_celerite_coeffs(), t=tc, diag=ec**2)
+        ll_chol = -0.5 * (chol.dot_solve(yc) + chol.log_determinant()
+                          + len(tc) * math.log(2 * math.pi))
+        carma_rows[p] = {"n": len(tc), "ms": ms_c, "ms_cpu": ms_h,
+                         "ll": ll_card,
+                         "rel_err_vs_cpu": rel(ll_card, ll_host),
+                         "rel_err_vs_celerite": rel(ll_chol, ll_card)}
+    checks["carma"] = all(r["rel_err_vs_cpu"] <= K_CARMA_RTOL
+                          and r["rel_err_vs_celerite"] <= K_CARMA_CHOL_RTOL
+                          for r in carma_rows.values())
+    part("carma")
+
+    # utils.check_backends_agree with the three-pass kernels.
+    m = K_BACKENDS_N
+    resid = y - gp.mean.get_value(t)
+    kc = Coefficients(*(put(c) for c in gp.kernel.coefficients),
+                      jitter=put(gp.kernel.jitter))
+    ssm = lower(kc, put(t[:m]), put(yerr[:m] ** 2))
+    try:
+        backends = check_backends_agree(ssm, put(resid[:m]),
+                                        rtol=K_BACKENDS_RTOL,
+                                        include_pallas=True)
+        checks["backends"] = "pallas" in backends
+    except AssertionError as err:
+        backends = str(err)
+        checks["backends"] = False
+    part("backends")
+    counts = solver_counts()
+    emit("main_path_K", model="config[2] 2xSHO + jitter (P=8)", n=n, m=K_M,
+         block=L, **out, ms_predict_sorted=ms_sorted,
+         ms_predict_shuffled=ms_shuffled, profile_predict=prof,
+         ms_prefix_seq=ms_prefix, ms_engines=ms_engines, a_size=a_size,
+         sample_prior_s=s_prior, carma=carma_rows, backends=backends,
+         launches=counts, checks=checks, seconds_by_part=parts,
+         seconds=time.perf_counter() - t_k)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail("main path K failed: {0}".format(bad))
+    if min(counts.values()) < 1:
+        fail("main path K did not launch every three-pass kernel: "
+             "{0}".format(counts))
+    return counts
+
+
 def redesigned_summary(smi, ptxas, primal_rows, grad_rows, tangent_rows,
                        adj_rows, onepass_rows, solver_rows):
     """The kernels redesigned for this card and those sharing their code,
@@ -3388,7 +3704,7 @@ def main():
                   "fused.cu": FUSED_WIDTHS}
     jobs = [(src, p) for src, ps in widths.items() for p in ps]
     first = [j for j in jobs if j[1] in run_widths.get(j[0], widths[j[0]])]
-    later = [j for j in jobs if j not in first]
+    later = [j for j in jobs if j not in first] + list(K_BUILDS)
     paths = dict(zip(first, _build.build(
         [(src, {"CELERITE_P": p}) for src, p in first])))
     ptxas = {}
@@ -3532,11 +3848,8 @@ def main():
     del lpa, fns
 
     # ---- main path B: config[2] at N = 1e5 through build_logprob ----
-    n = 100_000
-    rng = np.random.default_rng(2)
-    t = np.sort(rng.uniform(0, 100.0, n))
-    yerr = np.full(n, 0.3)
-    y = np.sin(t) + 0.5 * np.sin(3.1 * t) + yerr * rng.standard_normal(n)
+    t, y, yerr = b_data()
+    n = len(t)
     gp = celerite_torch.GP(config2_kernel(terms))
     pr, pc = gp.kernel.padded_size
 
@@ -3716,6 +4029,10 @@ def main():
     counts_i = main_path_i(t, y, yerr, dev)
     emit("main_path_I_done", seconds=time.perf_counter() - t_h)
 
+    # ---- main path K: predict(return_var=True), CARMA, backend check ----
+    counts_k = main_path_k(t, y, yerr, dev)
+    torch.cuda.empty_cache()
+
     kernels = [{
         "name": "fused4_primal",
         "route": "cuda",
@@ -3790,7 +4107,7 @@ def main():
             "route": "cuda",
             "source": "celerite_torch/csrc/pallas_solver.cu",
             "replaces": SOLVER_REPLACES[name],
-            "launches": counts_f[name] + counts_i[name],
+            "launches": counts_f[name] + counts_i[name] + counts_k[name],
             "max_abs_err": max(solver_errs[name]),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

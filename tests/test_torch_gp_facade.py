@@ -9,8 +9,8 @@ rectangular) and ``sample(seed=...)``, each within 1e-10 of the JAX
 package's relative to its largest entry, at N = 300 (the native core where
 g++ is there) and N = 5000 (the sequential solver).  Also the shape of
 ``sample_conditional``, ``dirty`` / ``computed`` after a parameter change,
-a pickle round trip, ``predict(return_var=True)`` naming ROADMAP queue 1
-item 11, and, without CUDA, a GP with no device raising on ``compute``,
+a pickle round trip, ``predict(return_var=True)`` (the Kalman/RTS
+smoother) within 1e-10 of the JAX package's, and, without CUDA, a GP with no device raising on ``compute``,
 ``apply_inverse``, ``predict`` and ``sample``.
 """
 
@@ -72,7 +72,8 @@ def test_facade_matches_jax(n):
 def test_state_pickling_and_conditional():
     """``dirty`` / ``computed`` follow a parameter change and the next
     solve refactors; a computed GP pickles; ``sample_conditional`` draws
-    (size, M); ``return_var=True`` names item 11."""
+    (size, M); ``return_var=True`` (the Kalman/RTS smoother) gives the JAX
+    package's mean and variance."""
     jgp, tgp, t, y = _pair(200, seed=4)
     assert tgp.computed and not tgp.dirty
     before = tgp.apply_inverse(y)
@@ -89,8 +90,10 @@ def test_state_pickling_and_conditional():
     np.random.seed(0)
     assert tgp.sample_conditional(y, x, size=4).shape == (4, 7)
     assert tgp.sample_conditional(y, x).shape == (7,)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tgp.predict(y, x, return_var=True)
+    mu, var = tgp.predict(y, x, return_var=True)
+    jmu, jvar = jgp.predict(y, x, return_var=True)
+    _close(mu, jmu)
+    _close(var, jvar)
 
 
 def test_no_device_raises_without_cuda():

@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package.
 
-An AST scan of ``celerite_torch/**/*.py`` and ``chip_smoke.py`` finds no
+An AST scan of ``celerite_torch/**/*.py``, ``chip_smoke.py`` and the
+port's card scripts (``tools/*.py``) finds no
 import of ``jax`` or ``celerite_tpu``; a subprocess with ``jax`` blocked
 imports ``celerite_torch`` and every module of it.
 """
@@ -13,7 +14,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "celerite_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "celerite_torch").rglob("*.py"))
+         + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")))
 FORBIDDEN = ("jax", "jaxlib", "celerite_tpu")
 
 

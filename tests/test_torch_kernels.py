@@ -1306,3 +1306,50 @@ def test_smc_on_the_card(cuda_device):
     assert bool(torch.isfinite(res.particles).all())
     assert math.isfinite(float(res.log_evidence))
     assert 0.0 < float(res.final_accept) <= 1.0
+
+
+def test_predict_var_on_the_card(cuda_device):
+    """``GP.predict(..., return_var=True)`` for config[2] at N = 4096 with
+    512 test points on the card (the blocked Kalman/RTS engine, the grid
+    merged by a stable argsort) against the CPU route (the sequential
+    engine), and ``predict_var_parallel`` on the card on the sorted and on
+    shuffled points against it, within 1e-9 of the largest value; the
+    three-pass kernels launch in ``compute``."""
+    from celerite_torch import GP, terms
+    from celerite_torch.ops import pallas_solver, pkalman
+    from celerite_torch.ops.lower import Coefficients
+    from celerite_torch.testing import config2_kernel
+
+    t, y, yerr = make_data(4096, seed=3, t_max=100.0)
+    x = np.sort(np.random.default_rng(4).uniform(-1.0, 101.0, 512))
+    before = pallas_solver.factor_cuda.launches
+    gp = GP(config2_kernel(terms))
+    gp.compute(t, yerr)
+    assert pallas_solver.factor_cuda.launches > before
+    cpu = GP(config2_kernel(terms), device="cpu")
+    cpu.compute(t, yerr)
+    want = cpu.predict(y, x, return_var=True)
+    coeffs = Coefficients(*gp.kernel.coefficients, jitter=gp.kernel.jitter)
+    perm = np.random.default_rng(5).permutation(len(x))
+    shuffled = pkalman.predict_var_parallel(coeffs, t, yerr**2, y, x[perm],
+                                            device="cuda")
+    for got in (gp.predict(y, x, return_var=True),
+                pkalman.predict_var_parallel(coeffs, t, yerr**2, y, x,
+                                             device="cuda"),
+                tuple(v[np.argsort(perm)] for v in shuffled)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=0,
+                                       atol=1e-9 * np.abs(w).max())
+    assert np.all(want[1] >= 0)
+
+
+def test_carma_on_the_card(cuda_device):
+    """``CARMASolver`` on the card against its CPU route within 1e-10, at
+    p = 3, q = 1 on 500 points."""
+    from celerite_torch import CARMASolver
+
+    t, y, yerr = make_data(500, seed=6, t_max=50.0)
+    args = (0.1, [1.3, 0.4, 0.1], [0.5])
+    ll = CARMASolver(*args).log_likelihood(t, y, yerr)
+    want = CARMASolver(*args, device="cpu").log_likelihood(t, y, yerr)
+    assert abs(ll - want) <= 1e-10 * abs(want)
