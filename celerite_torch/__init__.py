@@ -9,7 +9,7 @@ imports neither JAX nor ``celerite_tpu``.
 Entry points compute on ``cuda`` unless given ``device="cpu"``.
 """
 
-from . import modeling, ops, solver, terms
+from . import data, modeling, ops, solver, terms
 from .gp import GP
 from .solver import CARMASolver, CholeskySolver, LinAlgError
 from .modeling import ConstantModel, Model, ModelSet
@@ -25,6 +25,7 @@ __all__ = [
     "Model",
     "ModelSet",
     "ConstantModel",
+    "data",
     "modeling",
     "ops",
     "solver",

@@ -2,17 +2,18 @@
 with the Laplace check, adaptive-tempering SMC, MAP fitting and sampler
 checkpoints.
 
-Ported (ROADMAP queue 1, items 9 and 12): the chain-batched NUTS sampler
-(``nuts``: metric, momentum, leapfrog, step-size search, ``nuts_kernel``,
-``sample_nuts``), plain HMC (``hmc``), dual averaging and Welford mass
+Ported (ROADMAP queue 1, items 9, 12 and 13): the chain-batched NUTS
+sampler (``nuts``: metric, momentum, leapfrog, step-size search,
+``nuts_kernel``, ``sample_nuts``, and ``sample_nuts_batch``, the fleet
+primitive: many problems' chains as the rows of one batched run, adapted
+per problem), plain HMC (``hmc``), dual averaging and Welford mass
 adaptation (``adaptation``), the numpy diagnostics (``diagnostics``),
 mean-field ADVI and ``laplace_fit`` (``advi``), SMC (``smc``), ``minimize``
 and ``map_fit`` (``optimize``) and ``checkpoint``.  Every algorithm takes
 the log probability's batched value and gradient
 (``GP.build_logprob(...).value_and_grad_batch``, chain-folded onto the
-gradient kernels' lanes) for all its rows at once.  ``sample_nuts_batch``,
-the fleet primitive, waits for the fleet slice (queue 1, item 13), and the
-particle-sharded SMC for ``parallel`` (item 15).
+gradient kernels' lanes) for all its rows at once.  The particle-sharded
+SMC waits for ``parallel`` (item 15).
 """
 
 from . import (  # noqa: F401
@@ -38,5 +39,6 @@ from .nuts import (  # noqa: F401
     find_reasonable_step_size,
     nuts_kernel,
     sample_nuts,
+    sample_nuts_batch,
 )
 from .smc import sample_smc  # noqa: F401

@@ -87,37 +87,42 @@ class WelfordState(NamedTuple):
     m2: torch.Tensor
 
 
-def welford_init(dim, dtype=torch.float64, device=None):
+def welford_init(dim, dtype=torch.float64, device=None, batch=()):
+    """Diagonal Welford accumulator; ``batch`` adds leading axes, one
+    independent accumulator each (``nuts.sample_nuts_batch``'s problems)."""
     return WelfordState(
-        count=torch.zeros((), dtype=dtype, device=device),
-        mean=torch.zeros(dim, dtype=dtype, device=device),
-        m2=torch.zeros(dim, dtype=dtype, device=device),
+        count=torch.zeros(batch, dtype=dtype, device=device),
+        mean=torch.zeros(*batch, dim, dtype=dtype, device=device),
+        m2=torch.zeros(*batch, dim, dtype=dtype, device=device),
     )
 
 
 def _batch_moments(s, xs):
     xs = torch.atleast_2d(torch.as_tensor(xs)).to(s.mean)
-    n = torch.tensor(float(xs.shape[0]), dtype=s.count.dtype,
+    n = torch.tensor(float(xs.shape[-2]), dtype=s.count.dtype,
                      device=s.count.device)
-    batch_mean = xs.sum(0) / n
+    batch_mean = xs.sum(-2) / n
     count = s.count + n
     delta = batch_mean - s.mean
-    mean = s.mean + delta * (n / count)
-    return xs - batch_mean, n, count, delta, mean
+    mean = s.mean + delta * (n / count)[..., None]
+    return xs - batch_mean[..., None, :], n, count, delta, mean
 
 
 def welford_update(s: WelfordState, xs):
-    """Batch update with ``xs`` of shape (n_chains, dim): pools all chains."""
+    """Batch update with ``xs`` of shape (n_chains, dim): pools all chains.
+    With a batched state, ``xs`` is ``(*batch, n_chains, dim)``."""
     dev, n, count, delta, mean = _batch_moments(s, xs)
-    m2 = s.m2 + torch.sum(dev**2, dim=0) + delta**2 * (n * s.count / count)
+    m2 = s.m2 + torch.sum(dev**2, dim=-2) \
+        + delta**2 * (n * s.count / count)[..., None]
     return WelfordState(count=count, mean=mean, m2=m2)
 
 
 def welford_variance(s: WelfordState, regularize=True):
-    var = s.m2 / torch.clamp(s.count - 1.0, min=1.0)
+    count = s.count[..., None]
+    var = s.m2 / torch.clamp(count - 1.0, min=1.0)
     if regularize:
         # Stan's shrinkage toward unit scale for small sample counts.
-        w = s.count / (s.count + 5.0)
+        w = count / (count + 5.0)
         var = w * var + (1.0 - w) * 1e-3
     return var
 

@@ -1,14 +1,16 @@
 """The No-U-Turn Sampler and its Hamiltonian building blocks, batched over
 chains.
 
-Port of ``celerite_tpu/inference/nuts.py`` but ``sample_nuts_batch`` (the
-fleet primitive, ROADMAP queue 1 item 13): the metric (a diagonal or dense
-inverse mass matrix), momentum draws, the leapfrog step, the Hoffman &
-Gelman step-size search, the iterative multinomial NUTS transition
-(``nuts_kernel``: doublings of a trajectory with checkpoint slots for the
-sub-tree U-turn checks, divergence threshold 1000), the warmup and sample
-segments (``_build_segments``: dual-averaged step size and windowed
-diagonal or dense mass) and ``sample_nuts``, chunked.
+Port of ``celerite_tpu/inference/nuts.py``: the metric (a diagonal or
+dense inverse mass matrix, or a diagonal one a row), momentum draws, the
+leapfrog step, the Hoffman & Gelman step-size search, the iterative
+multinomial NUTS transition (``nuts_kernel``: doublings of a trajectory
+with checkpoint slots for the sub-tree U-turn checks, divergence threshold
+1000), the warmup and sample segments (``_build_segments``: dual-averaged
+step size and windowed diagonal or dense mass), ``sample_nuts``, chunked,
+and ``sample_nuts_batch``, the fleet primitive: B problems' chains folded
+into the rows of one batched run, each problem adapting its own step size
+and metric.
 
 Where the JAX package maps one chain's function over chains with ``vmap``,
 these take the chains as the leading axis of a ``(n_chains, dim)`` batch,
@@ -31,8 +33,9 @@ import torch
 
 from . import adaptation
 
-__all__ = ["NUTSInfo", "nuts_kernel", "sample_nuts",
-           "find_reasonable_step_size", "value_and_grad_batch"]
+__all__ = ["NUTSInfo", "RowDiagonal", "nuts_kernel", "sample_nuts",
+           "sample_nuts_batch", "find_reasonable_step_size",
+           "value_and_grad_batch"]
 
 
 class NUTSInfo(NamedTuple):
@@ -94,10 +97,21 @@ def value_and_grad_batch(logprob_fn):
     return autograd_batch
 
 
+class RowDiagonal(NamedTuple):
+    """A diagonal inverse mass for each row of the batch, ``(n, dim)``:
+    :func:`sample_nuts_batch`'s per-problem metrics, one row a chain."""
+
+    diag: torch.Tensor
+
+
 def _velocity(inv_mass, p):
-    """dq/dt = M^-1 p for a diagonal (vector) or dense (matrix) metric;
-    ``p`` is one momentum or a batch of rows (the JAX package's
-    ``_velocity`` and ``_velocity_rows`` in one)."""
+    """dq/dt = M^-1 p for a diagonal (vector), dense (matrix) or per-row
+    diagonal (:class:`RowDiagonal`) metric; ``p`` is one momentum or a
+    batch of rows, with any axes between the rows and ``dim`` (the JAX
+    package's ``_velocity`` and ``_velocity_rows`` in one)."""
+    if isinstance(inv_mass, RowDiagonal):
+        d = inv_mass.diag
+        return d.reshape(d.shape[0], *([1] * (p.ndim - 2)), d.shape[1]) * p
     if inv_mass.ndim == 2:
         return p @ inv_mass  # symmetric, so right-multiply works
     return inv_mass * p
@@ -109,6 +123,10 @@ def _sample_momentum(generator, n, dim, dtype, inv_mass):
     Dense path: inv_mass = L L^T, so p = L^-T xi has covariance
     (L L^T)^-1 = M.
     """
+    if isinstance(inv_mass, RowDiagonal):
+        xi = torch.randn(n, dim, generator=generator, dtype=dtype,
+                         device=inv_mass.diag.device)
+        return xi / torch.sqrt(inv_mass.diag)
     xi = torch.randn(n, dim, generator=generator, dtype=dtype,
                      device=inv_mass.device)
     if inv_mass.ndim == 2:
@@ -136,6 +154,8 @@ def _leapfrog(grad_fn, q, p, grad, eps, inv_mass):
 def _metric(inv_mass, dim, dtype, device):
     if inv_mass is None:
         return torch.ones(dim, dtype=dtype, device=device)
+    if isinstance(inv_mass, RowDiagonal):
+        return RowDiagonal(inv_mass.diag.to(device=device, dtype=dtype))
     inv_mass = torch.as_tensor(inv_mass, dtype=dtype).to(device)
     if inv_mass.ndim < 2:
         inv_mass = inv_mass.expand(dim)
@@ -194,8 +214,10 @@ def nuts_kernel(logprob_fn, q, generator, step_size, inv_mass,
     """One NUTS transition of every chain; returns ``(q_new, NUTSInfo)``.
 
     ``q`` is ``(n_chains, dim)``; ``inv_mass`` a (dim,) diagonal or dense
-    (dim, dim) inverse mass matrix shared by the chains; ``generator`` a
-    ``torch.Generator`` on ``q``'s device.  The chains double their trees
+    (dim, dim) inverse mass matrix shared by the chains, or a
+    :class:`RowDiagonal` of one diagonal a chain; ``step_size`` a scalar or
+    one a chain; ``generator`` a ``torch.Generator`` on ``q``'s device.
+    The chains double their trees
     together: a doubling of depth d streams its 2^d leaves, each one
     batched value-and-gradient call for every chain, and a chain whose
     subtree turned or diverged, or whose tree has stopped, keeps its state.
@@ -322,7 +344,7 @@ def nuts_kernel(logprob_fn, q, generator, step_size, inv_mass,
 
 def _build_segments(logprob_fn, n_chains, dim, dtype, max_tree_depth,
                     target_accept, warmup_max_tree_depth=None,
-                    dense_mass=False, device=None):
+                    dense_mass=False, device=None, problems=None):
     """Warmup and sample segments of ``sample_nuts``.
 
     Returns ``(init_carry, warmup_segment, sample_segment)``.
@@ -337,7 +359,16 @@ def _build_segments(logprob_fn, n_chains, dim, dtype, max_tree_depth,
     ``num`` transitions and returns the draws, acceptances, divergences,
     leapfrog slots and energies, each stacked on a transition axis.
     ``warmup_max_tree_depth`` caps the tree depth in warmup only.
+
+    ``problems`` (``sample_nuts_batch``): the rows are that many problems
+    of ``n_chains`` chains each, problem-major; the step size and the
+    diagonal metric are one a problem (``(problems,)``, ``(problems,
+    dim)``), pooled over that problem's chains, and the pooled acceptance
+    and divergence count come back per problem.
     """
+    if problems is not None and dense_mass:
+        raise NotImplementedError("batched problems take a diagonal metric")
+    batch = () if problems is None else (problems,)
     if dense_mass:
         def wf_init():
             return adaptation.welford_cov_init(dim, dtype, device)
@@ -359,16 +390,42 @@ def _build_segments(logprob_fn, n_chains, dim, dtype, max_tree_depth,
             return new if good else old
     else:
         def wf_init():
-            return adaptation.welford_init(dim, dtype, device)
+            return adaptation.welford_init(dim, dtype, device, batch=batch)
 
         wf_update = adaptation.welford_update
         wf_estimate = adaptation.welford_variance
 
         def im_init():
-            return torch.ones(dim, dtype=dtype, device=device)
+            return torch.ones(*batch, dim, dtype=dtype, device=device)
 
         def im_sane(new, old):
             return torch.where(torch.isfinite(new) & (new > 0), new, old)
+
+    if problems is None:
+        def metric(step_size, inv_mass):
+            return step_size, inv_mass
+
+        def pooled_mean(x):
+            return x.mean()
+
+        def pooled_sum(x):
+            return x.sum()
+
+        def by_problem(qs):
+            return qs
+    else:
+        def metric(step_size, inv_mass):
+            return (torch.as_tensor(step_size).repeat_interleave(n_chains),
+                    RowDiagonal(inv_mass.repeat_interleave(n_chains, 0)))
+
+        def pooled_mean(x):
+            return x.reshape(problems, n_chains).mean(1)
+
+        def pooled_sum(x):
+            return x.reshape(problems, n_chains).sum(1)
+
+        def by_problem(qs):
+            return qs.reshape(problems, n_chains, dim)
 
     if warmup_max_tree_depth is None:
         warmup_max_tree_depth = max_tree_depth
@@ -383,32 +440,114 @@ def _build_segments(logprob_fn, n_chains, dim, dtype, max_tree_depth,
         accepts, divs = [], []
         for in_window, at_end in zip(mass_flags, end_flags):
             qs, info = nuts_kernel(logprob_fn, qs, generator,
-                                   torch.exp(da.log_step), inv_mass,
+                                   *metric(torch.exp(da.log_step), inv_mass),
                                    max_tree_depth=warmup_max_tree_depth)
-            accept = info.accept_prob.mean()
+            accept = pooled_mean(info.accept_prob)
             da = adaptation.da_update(da, accept)
             if bool(in_window):
-                wf = wf_update(wf, qs)
+                wf = wf_update(wf, by_problem(qs))
             if bool(at_end):
                 inv_mass = im_sane(wf_estimate(wf), inv_mass)
                 da = adaptation.da_init(torch.exp(da.log_step),
                                         target_accept)
                 wf = wf_init()
             accepts.append(accept)
-            divs.append(info.diverging.sum())
+            divs.append(pooled_sum(info.diverging))
         return (qs, da, wf, inv_mass), (torch.stack(accepts),
                                          torch.stack(divs))
 
     def sample_segment(qs, generator, num, step_size, inv_mass):
         out = []
         for _ in range(num):
-            qs, info = nuts_kernel(logprob_fn, qs, generator, step_size,
-                                   inv_mass, max_tree_depth=max_tree_depth)
+            qs, info = nuts_kernel(logprob_fn, qs, generator,
+                                   *metric(step_size, inv_mass),
+                                   max_tree_depth=max_tree_depth)
             out.append((qs, info.accept_prob, info.diverging,
                         info.num_steps, info.energy))
         return qs, tuple(torch.stack(x) for x in zip(*out))
 
     return init_carry, warmup_segment, sample_segment
+
+
+def _emitter(progress):
+    def emit(rec):
+        if callable(progress):
+            progress(rec)
+        elif progress:
+            print("[nuts] " + "  ".join(
+                "{0}={1}".format(k, v) for k, v in rec.items()), flush=True)
+
+    return emit
+
+
+def _drive(segments, carry, generator, num_warmup, num_samples, chunk_size,
+           rows, progress):
+    """Warmup, then sampling, in host segments of at most ``chunk_size``
+    transitions, ``progress`` called after each (the same results as one
+    segment).  Returns ``(step_size, inv_mass, draws, accept, div, steps,
+    energy, warmup accept, warmup div)``, the sampling records stacked on
+    a leading transition axis, each ``(num_samples, rows, ...)``."""
+    _, warmup_segment, sample_segment = segments
+    emit = _emitter(progress)
+    in_window, window_end = adaptation.window_boundaries(num_warmup)
+    chunk = chunk_size or max(num_warmup, num_samples, 1)
+
+    warm_acc, warm_div = [], []
+    for lo in range(0, num_warmup, chunk):
+        hi = min(lo + chunk, num_warmup)
+        t0 = time.perf_counter()
+        carry, (acc, div) = warmup_segment(carry, generator,
+                                           in_window[lo:hi],
+                                           window_end[lo:hi])
+        warm_acc.append(acc)
+        warm_div.append(div)
+        if progress:
+            emit({"phase": "warmup", "done": hi, "total": num_warmup,
+                  "trans/s": (hi - lo) / (time.perf_counter() - t0),
+                  "accept": float(acc.mean()),
+                  "step_size": float(torch.exp(carry[1].log_step).mean())})
+    qs, da, _, inv_mass = carry
+    step_size = adaptation.da_final(da)
+
+    parts = []
+    for lo in range(0, num_samples, chunk):
+        hi = min(lo + chunk, num_samples)
+        t0 = time.perf_counter()
+        qs, part = sample_segment(qs, generator, hi - lo, step_size,
+                                  inv_mass)
+        parts.append(part)
+        if progress:
+            _, acc, div, steps, _ = part
+            dt = time.perf_counter() - t0
+            emit({"phase": "sample", "done": hi, "total": num_samples,
+                  "samples/s": rows * (hi - lo) / dt,
+                  "leapfrogs/s": float(steps.sum()) / dt,
+                  "accept": float(acc.mean()),
+                  "divergences": int(div.sum())})
+    dtype, dev = qs.dtype, qs.device
+    empty = torch.zeros(0, rows, dtype=dtype, device=dev)
+    records = tuple(torch.cat(x) for x in zip(*parts)) if parts else (
+        torch.zeros(0, *qs.shape, dtype=dtype, device=dev), empty, empty,
+        empty, empty)
+    warm = [torch.cat(x) if x else torch.zeros(0, dtype=dtype, device=dev)
+            for x in (warm_acc, warm_div)]
+    return (step_size, inv_mass, *records, *warm)
+
+
+def _initial_step(logprob_fn, init_params, generator, initial_step_size,
+                  num_warmup, problems=None):
+    """The dual averaging's start and anchor ``(step, mu)``: with
+    ``initial_step_size="auto"`` the Hoffman & Gelman search on every row
+    and their geometric mean (per problem), anchored there."""
+    if initial_step_size != "auto" or num_warmup == 0:
+        return initial_step_size, None
+    eps = find_reasonable_step_size(logprob_fn, init_params, generator)
+    log_eps = torch.log(eps)
+    if problems is None:
+        step = torch.exp(torch.mean(log_eps)).cpu()
+    else:
+        step = torch.exp(torch.mean(log_eps.reshape(problems, -1), 1)).cpu()
+    return step, torch.log(step)
 
 
 def sample_nuts(logprob_fn, init_params, generator, num_warmup=500,
@@ -444,74 +583,124 @@ def sample_nuts(logprob_fn, init_params, generator, num_warmup=500,
     init_params = torch.atleast_2d(torch.as_tensor(init_params))
     n_chains, dim = init_params.shape
     dtype, dev = init_params.dtype, init_params.device
-    init_carry, warmup_segment, sample_segment = _build_segments(
+    segments = _build_segments(
         logprob_fn, n_chains, dim, dtype, max_tree_depth, target_accept,
         warmup_max_tree_depth=warmup_max_tree_depth, dense_mass=dense_mass,
         device=dev)
-
-    def emit(rec):
-        if callable(progress):
-            progress(rec)
-        elif progress:
-            print("[nuts] " + "  ".join(
-                "{0}={1}".format(k, v) for k, v in rec.items()), flush=True)
-
-    in_window, window_end = adaptation.window_boundaries(num_warmup)
-    mu = None
-    if initial_step_size == "auto" and num_warmup > 0:
-        eps = find_reasonable_step_size(logprob_fn, init_params, generator)
-        initial_step_size = torch.exp(torch.mean(torch.log(eps))).cpu()
-        mu = torch.log(initial_step_size)
-    carry = init_carry(init_params, initial_step_size, mu=mu)
-    chunk = chunk_size or max(num_warmup, num_samples, 1)
-
-    warm_acc, warm_div = [], []
-    for lo in range(0, num_warmup, chunk):
-        hi = min(lo + chunk, num_warmup)
-        t0 = time.perf_counter()
-        carry, (acc, div) = warmup_segment(carry, generator,
-                                           in_window[lo:hi],
-                                           window_end[lo:hi])
-        warm_acc.append(acc)
-        warm_div.append(div)
-        if progress:
-            emit({"phase": "warmup", "done": hi, "total": num_warmup,
-                  "trans/s": (hi - lo) / (time.perf_counter() - t0),
-                  "accept": float(acc.mean()),
-                  "step_size": float(torch.exp(carry[1].log_step))})
-    qs, da, _, inv_mass = carry
-    step_size = adaptation.da_final(da)
-
-    parts = []
-    for lo in range(0, num_samples, chunk):
-        hi = min(lo + chunk, num_samples)
-        t0 = time.perf_counter()
-        qs, part = sample_segment(qs, generator, hi - lo, step_size,
-                                  inv_mass)
-        parts.append(part)
-        if progress:
-            _, acc, div, steps, _ = part
-            dt = time.perf_counter() - t0
-            emit({"phase": "sample", "done": hi, "total": num_samples,
-                  "samples/s": n_chains * (hi - lo) / dt,
-                  "leapfrogs/s": float(steps.sum()) / dt,
-                  "accept": float(acc.mean()),
-                  "divergences": int(div.sum())})
-    empty = torch.zeros(0, dtype=dtype, device=dev)
-    chain, accept, div, steps, energy = (
-        torch.cat(x) for x in zip(*parts)) if parts else (
-        torch.zeros(0, n_chains, dim, dtype=dtype, device=dev), empty,
-        empty, empty, torch.zeros(0, n_chains, dtype=dtype, device=dev))
+    step0, mu = _initial_step(logprob_fn, init_params, generator,
+                              initial_step_size, num_warmup)
+    carry = segments[0](init_params, step0, mu=mu)
+    (step_size, inv_mass, chain, accept, div, steps, energy, warm_acc,
+     warm_div) = _drive(segments, carry, generator, num_warmup, num_samples,
+                        chunk_size, n_chains, progress)
     info = {
         "step_size": step_size,
         "inv_mass": inv_mass,
-        "accept_prob": accept.mean() if accept.numel() else empty.sum(),
+        "accept_prob": accept.mean() if accept.numel() else accept.sum(),
         "divergences": div.sum(),
         "num_steps": steps.sum(),
         # (n_chains, num_samples): input to diagnostics.ebfmi.
         "energy": energy.T,
-        "warmup_accept_prob": torch.cat(warm_acc) if warm_acc else empty,
-        "warmup_divergences": (torch.cat(warm_div).sum() if warm_div
-                               else empty.sum()),
+        "warmup_accept_prob": warm_acc,
+        "warmup_divergences": warm_div.sum(),
     }
     return chain.transpose(0, 1)[:, ::thin], info
+
+
+def _rows_logprob(logprob_fn, data_batch, n_chains):
+    """The log probability over the problem-major rows of a batch, as a
+    closure carrying its ``value_and_grad_batch``.
+
+    Each leaf of ``data_batch`` (a tensor, or a tuple, list or dict of
+    them, leading axis the problems) is repeated ``n_chains`` times, so
+    row ``b n_chains + c`` is problem ``b``'s chain ``c``.  The rows' value
+    and gradient are one call: ``logprob_fn.value_and_grad_batch(data_rows,
+    thetas)`` where the function has one, else ``torch.func.vmap`` of
+    ``torch.func.grad_and_value`` of ``logprob_fn(data, theta)``.
+    """
+    from torch.utils import _pytree
+
+    data_rows = _pytree.tree_map(
+        lambda x: torch.as_tensor(x).repeat_interleave(n_chains, 0),
+        data_batch)
+    batch_fn = getattr(logprob_fn, "value_and_grad_batch", None)
+    if batch_fn is not None:
+        def vag(qs):
+            return batch_fn(data_rows, qs)
+    else:
+        rows_fn = torch.func.vmap(
+            torch.func.grad_and_value(logprob_fn, argnums=1))
+
+        def vag(qs):
+            grad, val = rows_fn(data_rows, qs)
+            return val, grad
+
+    def logprob(q):
+        return vag(q[None])[0][0]
+
+    logprob.value_and_grad_batch = vag
+    return logprob
+
+
+def sample_nuts_batch(logprob_fn, data_batch, init_params, generator,
+                      num_warmup=500, num_samples=500, max_tree_depth=10,
+                      target_accept=0.8, initial_step_size=0.1, thin=1,
+                      chunk_size=None, warmup_max_tree_depth=None):
+    """Independent NUTS fits for a batch of problems in one batched run.
+
+    The port of nuts.py:820-938, the fleet-fitting primitive (BASELINE
+    configs[4]: thousands of light curves, each with its own
+    hyperparameters).  Where the JAX package vmaps one ``sample_nuts`` per
+    problem, the B problems' ``n_chains`` chains are the ``B n_chains``
+    rows of one batched transition, so one value-and-gradient call serves
+    every row at every leapfrog (see :func:`_rows_logprob`).  Adaptation is
+    per problem: dual averaging on each problem's pooled acceptance, and
+    Welford windows over each problem's chains for its diagonal metric.
+
+    ``logprob_fn(data, theta)`` is one problem's log probability;
+    ``data_batch`` a tensor or a tuple, list or dict of tensors with
+    leading axis B; ``init_params`` ``(B, n_chains, dim)``; ``generator`` a
+    ``torch.Generator`` on their device.  ``chunk_size`` runs host
+    segments of at most that many transitions, with the same draws as one
+    segment.
+    Returns ``(chains, info)``: chains ``(B, n_chains, num_samples // thin,
+    dim)``; info's ``step_size`` ``(B,)``, ``inv_mass`` ``(B, dim)``,
+    ``accept_prob`` ``(B,)`` (mean over sampling and chains),
+    ``divergences`` and ``num_steps`` ``(B,)`` (sums), ``energy`` ``(B,
+    n_chains, num_samples)``, ``warmup_accept_prob`` ``(num_warmup, B)``
+    and ``warmup_divergences`` ``(B,)``.
+    """
+    init_params = torch.as_tensor(init_params)
+    b, n_chains, dim = init_params.shape
+    dtype, dev = init_params.dtype, init_params.device
+    rows = b * n_chains
+    target = _rows_logprob(logprob_fn, data_batch, n_chains)
+    segments = _build_segments(
+        target, n_chains, dim, dtype, max_tree_depth, target_accept,
+        warmup_max_tree_depth=warmup_max_tree_depth, device=dev, problems=b)
+    qs0 = init_params.reshape(rows, dim)
+    step0, mu = _initial_step(target, qs0, generator, initial_step_size,
+                              num_warmup, problems=b)
+    step0 = torch.as_tensor(step0, dtype=torch.float64).expand(b)
+    mu = None if mu is None else torch.as_tensor(mu).expand(b)
+    carry = segments[0](qs0, step0, mu=mu)
+    (step_size, inv_mass, chain, accept, div, steps, energy, warm_acc,
+     warm_div) = _drive(segments, carry, generator, num_warmup, num_samples,
+                        chunk_size, rows, None)
+
+    def per_problem(x):
+        """(num_samples, rows) -> (B, n_chains, num_samples)."""
+        return x.reshape(x.shape[0], b, n_chains).permute(1, 2, 0)
+
+    chain = chain.reshape(-1, b, n_chains, dim).permute(1, 2, 0, 3)
+    info = {
+        "step_size": step_size,
+        "inv_mass": inv_mass,
+        "accept_prob": per_problem(accept).mean(dim=(1, 2)),
+        "divergences": per_problem(div).sum(dim=(1, 2)),
+        "num_steps": per_problem(steps).sum(dim=(1, 2)),
+        "energy": per_problem(energy),
+        "warmup_accept_prob": warm_acc,
+        "warmup_divergences": warm_div.sum(0),
+    }
+    return chain[:, :, ::thin], info

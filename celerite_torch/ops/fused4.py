@@ -592,12 +592,22 @@ def lane_quad(M, m, Qm, qv, q0, seg):
         + torch.sum(h * Qh, dim=0)
 
 
+def _n_term(n, like):
+    """``n log 2 pi`` in ``like``'s dtype: ``n`` is a point count, or a
+    tensor of them per segment (a fleet plan's ``Plan4.n``)."""
+    if isinstance(n, torch.Tensor):
+        n = n.to(device=like.device, dtype=like.dtype)
+    return n * math.log(2.0 * math.pi)
+
+
 def assemble_ll(quad, ld, n, seg):
-    """Per-segment ``ll = -0.5 (sum quad + sum ld + n log 2 pi)``."""
+    """Per-segment ``ll = -0.5 (sum quad + sum ld + n log 2 pi)``; ``n`` is
+    the plan's count, per segment for a fleet plan."""
     nseg = quad.shape[0] // seg
+    quad = quad.double()
     return -0.5 * (quad.reshape(nseg, seg).sum(1)
                    + ld.double().reshape(nseg, seg).sum(1)
-                   + n * math.log(2.0 * math.pi))
+                   + _n_term(n, quad))
 
 
 # ---------------------------------------------------------------------------
@@ -628,8 +638,12 @@ def _launch_setup(what, cf, plan: Plan4, jr, jc, seg, streams):
     """Check a launch's inputs; returns ``(cf rows, streams, seg)``.
 
     The kernels take padded widths 1..12, float32 or float64 CUDA streams
-    of one dtype shaped ``(L, B)``, and one coefficient row per segment of
-    ``seg`` lanes (``cf`` is ``(C,)`` or one row per chain).
+    of one dtype shaped ``(L, B)``, and one coefficient row per state
+    segment of ``seg`` lanes.  ``cf`` is ``(C,)`` or one row per chain
+    (chain ``c`` owns lanes ``[c B / n_chain, (c + 1) B / n_chain)``); each
+    row is repeated over its chain's state segments, so the segments of the
+    prefixes and the coefficient rows need not coincide (a fleet plan: one
+    chain of many one-lane segments).
     """
     L, b = plan.t.shape
     p = jr + 2 * jc
@@ -651,10 +665,10 @@ def _launch_setup(what, cf, plan: Plan4, jr, jc, seg, streams):
         raise ValueError("lane count must be a multiple of the chain count")
     if seg is None:
         seg = b // nc
-    if b % seg or nc not in (1, b // seg):
-        raise ValueError("segments must tile the lanes, one cf row each")
-    cf2 = cf2.expand(b // seg, cf2.shape[1]).contiguous()
-    return cf2, [x.contiguous() for x in streams], seg
+    if (b // nc) % seg:
+        raise ValueError("state segments must tile each chain's lanes")
+    cf2 = torch.repeat_interleave(cf2, b // nc // seg, dim=0)
+    return cf2.contiguous(), [x.contiguous() for x in streams], seg
 
 
 def _cuda_tensor(x, shape, dtype, device):
@@ -880,7 +894,40 @@ def _check_seg(cf, plan):
     return nc, b // nc
 
 
-def build_ll_and_grad(plan: Plan4, jr, jc, n_chain=1):
+def _segments_of(cf, plan, n_seg, state_seg):
+    """``(seg, state_seg, scalar)`` of a call (fused4.py:437-446).
+
+    ``n_seg`` (default: the coefficient rows) is the number of
+    log-likelihoods returned, one per ``seg = B / n_seg`` lanes;
+    ``state_seg`` (default ``seg``) the lanes of one independent prefix
+    segment, which must tile the output segments.  A batched ``cf``
+    requires ``n_seg == n_chain``.  ``scalar``: one model, one output.
+    """
+    b = plan.t.shape[1]
+    nc = 1 if cf.ndim == 1 else cf.shape[0]
+    if n_seg is None:
+        n_seg = nc
+    elif nc != 1 and nc != n_seg:
+        raise ValueError("batched cf requires n_seg == n_chain")
+    if b % n_seg:
+        raise ValueError("lane count must be a multiple of the segment count")
+    seg = b // n_seg
+    if state_seg is None:
+        state_seg = seg
+    if seg % state_seg:
+        raise ValueError("state segments must tile the output segments")
+    return seg, state_seg, cf.ndim == 1 and n_seg == 1
+
+
+def _ll_ok(ll, mind, seg):
+    """``(ll, ok)`` per output segment: ``ok`` needs every pivot of the
+    segment positive and ``ll`` finite; ``ll`` is -inf where not ok."""
+    ok = (mind.reshape(-1, seg).amin(1) > 0) & torch.isfinite(ll.detach())
+    return torch.where(ok, ll, torch.full_like(ll, -math.inf)), ok
+
+
+def build_ll_and_grad(plan: Plan4, jr, jc, n_chain=1, n_seg=None,
+                      state_seg=None):
     """``(cf, y4=None) -> (ll, ok)`` differentiable w.r.t. ``cf`` and ``y4``.
 
     The port of fused4.py:1057 ``build_ll_and_grad``: the forward runs the
@@ -888,22 +935,30 @@ def build_ll_and_grad(plan: Plan4, jr, jc, n_chain=1):
     on a CUDA plan, the plain versions on a CPU plan).  With ``n_chain >
     1`` the plan is chain-folded (``make_plan4(..., n_chain=n_chain)``),
     ``cf`` is ``(n_chain, C)`` and ``(ll, ok)`` come back per chain.
+
+    ``n_seg`` (default ``n_chain``) decouples the outputs from the
+    coefficient rows, and ``state_seg`` the prefixes' segments from both:
+    a fleet plan (``make_plan4_curves``) holds one light curve a lane
+    (``state_seg = 1``) sharing one ``(C,)`` row, and ``(ll, ok)`` come
+    back per curve (``n_seg`` = lanes) or, folded, per chain; the
+    coefficient cotangent sums over every lane of its row.
     """
+    if n_seg is not None and n_chain != 1 and n_chain != n_seg:
+        raise ValueError("batched cf requires n_seg == n_chain")
 
     def fn(cf, y4=None):
         y4 = plan.y if y4 is None else y4
-        nc, seg = _check_seg(cf, plan)
+        nc = 1 if cf.ndim == 1 else cf.shape[0]
         if nc != n_chain:
             raise ValueError("expected {0} coefficient rows, got {1}".format(
                 n_chain, nc))
+        seg, sseg, scalar = _segments_of(cf, plan, n_seg, state_seg)
         M, mv, Qm, qv, q0, ld, mind = _GradCore.apply(cf, y4, plan, jr, jc,
-                                                      seg)
-        ll = assemble_ll(lane_quad(M, mv, Qm, qv, q0, seg), ld, plan.n, seg)
-        ok = (mind.reshape(nc, seg).amin(1) > 0) & torch.isfinite(ll.detach())
-        ll = torch.where(ok, ll, -math.inf).to(plan.t.dtype)
-        if cf.ndim == 1:
-            return ll[0], ok[0]
-        return ll, ok
+                                                      sseg)
+        ll = assemble_ll(lane_quad(M, mv, Qm, qv, q0, sseg), ld, plan.n, seg)
+        ll, ok = _ll_ok(ll, mind, seg)
+        ll = ll.to(plan.t.dtype)
+        return (ll[0], ok[0]) if scalar else (ll, ok)
 
     return fn
 
@@ -944,34 +999,29 @@ class _PrimalKernel(torch.autograd.Function):
         return hcf, hy, None, None, None, None
 
 
-def run_primal(cf, plan: Plan4, jr, jc, y=None):
+def run_primal(cf, plan: Plan4, jr, jc, y=None, n_seg=None, state_seg=None):
     """(ll, ok) from the packed coefficient vector and a plan.
 
     ``cf`` is a ``(C,)`` vector for a single model, or an ``(n_chain, C)``
     batch on a chain-folded plan (``make_plan4(..., n_chain=...)``); then
-    (ll, ok) come back per chain.  ``y`` overrides the plan's data stream
-    (mean-model residuals), shaped ``(L, B)``.  CPU plans take the plain
-    version, CUDA plans the kernel.
+    (ll, ok) come back per chain.  ``n_seg`` and ``state_seg`` split the
+    outputs and the prefixes' segments as in :func:`build_ll_and_grad`
+    (fused4.py:419-491; a fleet plan takes ``state_seg = 1``).  ``y``
+    overrides the plan's data stream (mean-model residuals), shaped ``(L,
+    B)``.  CPU plans take the plain version, CUDA plans the kernel.
     """
-    b = plan.t.shape[1]
-    nc = 1 if cf.ndim == 1 else cf.shape[0]
-    seg = b // nc
+    seg, sseg, scalar = _segments_of(cf, plan, n_seg, state_seg)
     y = plan.y if y is None else y
     if plan.t.device.type == "cuda":
-        quad, ld, mind = _PrimalKernel.apply(cf, y, plan, jr, jc, seg)
+        quad, ld, mind = _PrimalKernel.apply(cf, y, plan, jr, jc, sseg)
     elif plan.t.device.type == "cpu":
-        quad, ld, mind = primal_reference(cf, plan, jr, jc, y=y, seg=seg)
+        quad, ld, mind = primal_reference(cf, plan, jr, jc, y=y, seg=sseg)
     else:
         raise ValueError("unsupported device {0}".format(plan.t.device))
-    llv = -0.5 * (
-        quad.reshape(nc, seg).sum(1) + ld.reshape(nc, seg).sum(1)
-        + plan.n * math.log(2.0 * math.pi)
-    )
-    okv = (mind.reshape(nc, seg).amin(1) > 0) & torch.isfinite(llv)
-    llv = torch.where(okv, llv, torch.full_like(llv, -math.inf))
-    if cf.ndim == 1:
-        return llv[0], okv[0]
-    return llv, okv
+    llv = -0.5 * (quad.reshape(-1, seg).sum(1) + ld.reshape(-1, seg).sum(1)
+                  + _n_term(plan.n, quad))
+    llv, okv = _ll_ok(llv, mind, seg)
+    return (llv[0], okv[0]) if scalar else (llv, okv)
 
 
 def build_ll(plan: Plan4, jr, jc):

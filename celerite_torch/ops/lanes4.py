@@ -1,6 +1,6 @@
 """Lane plan: the static per-dataset streams of the fused primal kernel.
 
-Port of ``celerite_tpu/ops/lanes4.py:46-144, 253-274``.  The N points are
+Port of ``celerite_tpu/ops/lanes4.py:46-274``.  The N points are
 cut into B contiguous chunks, one per virtual lane; lane ``l`` owns
 points ``[l*L, (l+1)*L)`` and every stream is stored ``(L, B)``, so step
 ``i`` of lane ``l`` lies at ``i*B + l``: neighbouring CUDA threads read
@@ -10,7 +10,8 @@ order is the same.
 
 The streams (time grid with its double-single lo part, exact spacings,
 per-point variance, data, mask) are built on the host in float64 once per
-dataset; the kernel lowers the coefficients per step from them.
+dataset; the kernel lowers the coefficients per step from them.  A fleet
+plan (:func:`make_plan4_curves`) gives each light curve a lane of its own.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 
 from .lower import Coefficients
 
-__all__ = ["Plan4", "make_plan4", "fold_lanes", "pack_cf", "cf_len",
+__all__ = ["Plan4", "make_plan4", "make_plan4_curves", "fold_lanes",
+           "pack_cf", "cf_len",
            "default_num_blocks4", "default_grad_blocks4", "resolve_device"]
 
 # Lane counts on an H100 from the sweeps of chip_smoke.py (PERF.md): the
@@ -49,7 +51,7 @@ class Plan4(NamedTuple):
     diag: torch.Tensor   # per-point variance (yerr^2), 0 on pad
     y: torch.Tensor      # data, 0 on pad
     mask: torch.Tensor   # 1.0 on real rows, 0.0 on pad
-    n: int               # unpadded point count
+    n: int               # unpadded point count (per segment: a tensor)
     num_blocks: int      # B virtual lanes (all chains together)
 
 
@@ -160,6 +162,76 @@ def make_plan4(t, y, diag, num_blocks, dtype=torch.float32, n_chain=1,
         },
         n=n,
         num_blocks=bt,
+    )
+
+
+def make_plan4_curves(t, y, diag, lengths, n_chain=1, dtype=torch.float32,
+                      device=None) -> Plan4:
+    """Fleet folding: one virtual lane per light curve.
+
+    Port of ``celerite_tpu/ops/lanes4.py:167-250`` in this package's
+    ``(L, B)`` layout.  ``t, y, diag``: ``(n_curves, Lmax)`` padded
+    per-curve arrays (pad tail arbitrary); ``lengths``: ``(n_curves,)``
+    valid counts.  Lane ``l`` is curve row ``l`` with ``Lmax`` steps, and
+    every lane is its own state segment (``state_seg = 1`` in
+    ``fused4.run_primal`` / ``build_ll_and_grad``): a whole fleet's
+    likelihoods come from one launch of each kernel, ragged tails under
+    the mask.
+
+    The lane count is padded so that ``lanes * n_chain`` is a multiple of
+    8, as the JAX package pads to full sublane tiles; padded lanes are all
+    mask (``ll = 0``).  ``n_chain > 1`` (a power of two) tiles the fleet
+    per chain: lanes ``[c lanes, (c + 1) lanes)`` are chain ``c``'s copy,
+    and with an ``(n_chain, C)`` coefficient batch and ``n_seg = n_chain``
+    the kernels return each chain's fleet sum.
+
+    ``Plan4.n`` is an int64 tensor of the per-segment point counts: per
+    lane for ``n_chain == 1``, each chain's total otherwise.  ``device``
+    defaults to ``cuda`` (raising without CUDA).
+    """
+    t = np.asarray(t, np.float64)
+    y = np.asarray(y, np.float64)
+    diag = np.broadcast_to(np.asarray(diag, np.float64), t.shape)
+    lengths = np.asarray(lengths, np.int64)
+    ncur, lmax = t.shape
+    nc = int(n_chain)
+    if nc & (nc - 1) or nc < 1:
+        raise ValueError("n_chain must be a power of two")
+    device = resolve_device(device)
+
+    lanes = ncur
+    while (lanes * nc) % 8:
+        lanes += 1
+    pad_l = lanes - ncur
+
+    mask = (np.arange(lmax)[None, :] < lengths[:, None]).astype(np.float64)
+    dt = np.zeros_like(t)
+    dt[:, 1:] = np.diff(t, axis=1)
+    dt *= mask * np.concatenate([np.zeros((ncur, 1)), mask[:, :-1]], axis=1)
+
+    def padlanes(x):
+        return np.concatenate([x, np.zeros((pad_l, lmax))]) if pad_l else x
+
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    t2 = padlanes(t * mask)
+    t_hi = np.asarray(t2, np_dtype)
+    streams = dict(
+        t=t_hi,
+        t_lo=np.asarray(t2 - np.asarray(t_hi, np.float64), np_dtype),
+        dt=padlanes(dt),
+        diag=padlanes(diag * mask),
+        y=padlanes(y * mask),
+        mask=padlanes(mask),
+    )
+    n_lane = np.concatenate([lengths, np.zeros(pad_l, np.int64)])
+    n_seg = np.full(nc, int(lengths.sum()), np.int64) if nc > 1 else n_lane
+    # One chain's (Lmax, lanes) streams go to the device, tiled there.
+    return Plan4(
+        **{k: torch.as_tensor(np.ascontiguousarray(
+            np.asarray(v, np_dtype).T), device=device).repeat(1, nc)
+           for k, v in streams.items()},
+        n=torch.as_tensor(n_seg, device=device),
+        num_blocks=lanes * nc,
     )
 
 

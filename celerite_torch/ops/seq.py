@@ -1,6 +1,6 @@
 """Sequential semiseparable solver: the oracle and the CPU small-N route.
 
-Port of ``celerite_tpu/ops/seq.py:46-136, 165-441`` (the reference's
+Port of ``celerite_tpu/ops/seq.py:46-441`` (the reference's
 Cholesky recursion, cholesky.h:41-698): the factor and the log-likelihood,
 and the solves and products on a factor (``solve_lower``, ``solve``,
 ``dot_solve``, ``dot_L``, ``matmul``, ``predict_mean``) that the facade's
@@ -28,7 +28,8 @@ import torch
 
 from .lower import SSM
 
-__all__ = ["FactorResult", "factor", "gp_log_likelihood", "solve_lower",
+__all__ = ["FactorResult", "factor", "gp_log_likelihood",
+           "gp_log_likelihood_masked", "solve_lower",
            "solve", "dot_solve", "dot_L", "matmul", "predict_mean"]
 
 
@@ -93,6 +94,49 @@ def gp_log_likelihood(ssm: SSM, resid: torch.Tensor):
         min_d = torch.minimum(min_d, d)
     n = resid.shape[0]
     ll = -0.5 * (quad + logdet + n * math.log(2.0 * math.pi))
+    ok = (min_d > 0) & torch.isfinite(ll)
+    return torch.where(ok, ll, torch.full_like(ll, -math.inf)), ok
+
+
+def gp_log_likelihood_masked(ssm: SSM, resid, mask, n_valid):
+    """(ll, ok) over padded series, with any leading batch axes.
+
+    The port of seq.py:137-162.  ``ssm``'s arrays are ``(..., N, P)`` /
+    ``(..., N)``, ``resid`` and ``mask`` (1/0 validity) ``(..., N)``,
+    ``n_valid`` the true counts ``(...)``.  Padded rows are made inert: U =
+    V = 0, phi = 1, A = 1, resid = 0, so they add nothing to the quadratic
+    form or the log-determinant.  One loop over the N steps serves every
+    series of the batch (the JAX package vmaps one scan per series).
+    """
+    keep = mask > 0
+    U = torch.where(keep[..., None], ssm.U, 0.0)
+    V = torch.where(keep[..., None], ssm.V, 0.0)
+    phi = torch.where(keep[..., None], ssm.phi, 1.0)
+    A = torch.where(keep, ssm.A, 1.0)
+    resid = torch.where(keep, resid, 0.0)
+    batch, p = U.shape[:-2], U.shape[-1]
+    S = U.new_zeros(*batch, p, p)
+    d = U.new_zeros(batch)
+    w = U.new_zeros(*batch, p)
+    f = torch.zeros_like(w)
+    z = torch.zeros_like(d)
+    quad = torch.zeros_like(d)
+    logdet = torch.zeros_like(d)
+    min_d = torch.full_like(d, math.inf)
+    for n in range(U.shape[-2]):
+        u, ph = U[..., n, :], phi[..., n, :]
+        f = ph * (f + w * z[..., None])
+        S = (ph[..., :, None] * ph[..., None, :]) * (
+            S + d[..., None, None] * (w[..., :, None] * w[..., None, :]))
+        su = torch.sum(S * u[..., None, :], dim=-1)
+        d = A[..., n] - torch.sum(u * su, dim=-1)
+        w = (V[..., n, :] - su) / d[..., None]
+        z = resid[..., n] - torch.sum(u * f, dim=-1)
+        quad = quad + z * z / d
+        logdet = logdet + torch.log(d)
+        min_d = torch.minimum(min_d, d)
+    n_valid = torch.as_tensor(n_valid, device=quad.device).to(quad.dtype)
+    ll = -0.5 * (quad + logdet + n_valid * math.log(2.0 * math.pi))
     ok = (min_d > 0) & torch.isfinite(ll)
     return torch.where(ok, ll, torch.full_like(ll, -math.inf)), ok
 

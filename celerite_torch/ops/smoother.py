@@ -452,6 +452,7 @@ def sample_prior(coeffs, t, seed=None, rng=None, device=None):
     x[0] = np.linalg.cholesky(
         Pinf + 1e-12 * np.trace(Pinf) / p * np.eye(p)
     ) @ eps[0]
+    noise = np.einsum("nij,nj->ni", L, eps)
     for k in range(1, n):
-        x[k] = A[k] @ x[k - 1] + L[k] @ eps[k]
+        x[k] = A[k] @ x[k - 1] + noise[k]
     return x @ H

@@ -115,7 +115,15 @@ through the entry points a user calls:
   one, their timings (and A's N = 1e6), ``sample_prior``,
   ``CARMASolver`` against its CPU route and its celerite conversion, and
   ``utils.check_backends_agree`` with the three-pass kernels (which
-  launches subst).
+  launches subst);
+- L: the light-curve fleet (BASELINE config[4]) at benchmarks/
+  fleet_smc.py's size, 10,240 curves of 96-160 points, one lane a curve:
+  ``data.make_fleet_loglik`` at one chain (per-curve ll and the shared
+  gradient, float64 and float32) against the CPU route, at 16 folded
+  chains against one-chain calls, the config[4] example's ``sample_smc``
+  and ``inference.sample_nuts_batch`` on per-curve fits; then rows 1-5
+  against their plain versions on the fleet plans (pad lanes included)
+  and the fleet's value and gradient timed and profiled.
 
 Each main path resets every kernel's launch counter just before it runs and
 reads the counters just after; a kernel of the path that did not launch
@@ -146,8 +154,8 @@ import numpy as np
 import torch
 
 import celerite_torch
-from celerite_torch import _build, inference, ops, terms
-from celerite_torch.examples import config3_complex_advi
+from celerite_torch import _build, data, inference, ops, terms
+from celerite_torch.examples import config3_complex_advi, config4_pod_smc
 from celerite_torch.inference import adaptation, advi, diagnostics, optimize
 from celerite_torch.ops import (adjoint, blocked, dsfused, fused, fused4,
                                 lanes, lanes4, onepass, pallas_solver,
@@ -528,9 +536,14 @@ def plain_ll(cf, plan, jr, jc, nc=1):
 
 def packed_cf(gp, theta):
     """The float64 packed coefficients the closures compute for ``theta``."""
-    kp = theta[:gp.kernel.full_size]
-    return lanes4.pack_cf(Coefficients(*gp.kernel.get_padded_coefficients(kp),
-                                       jitter=gp.kernel.get_jitter(kp)),
+    return kernel_cf(gp.kernel, theta[:gp.kernel.full_size])
+
+
+def kernel_cf(kernel, kp):
+    """The float64 packed coefficients of ``kernel`` at its parameters
+    ``kp``."""
+    return lanes4.pack_cf(Coefficients(*kernel.get_padded_coefficients(kp),
+                                       jitter=kernel.get_jitter(kp)),
                           dtype=torch.float64)
 
 
@@ -3597,6 +3610,325 @@ def main_path_k(t, y, yerr, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Main path L: the light-curve fleet (BASELINE config[4])
+# ---------------------------------------------------------------------------
+
+# benchmarks/fleet_smc.py:49-84's fleet: L_CURVES curves of 96-160 points
+# on a regular cadence (Delta = 1), yerr 0.3, drawn at seed 4 from a
+# ComplexTerm (a, b, c, d) = (0.8, 0, 0.25, 2.0) plus noise; the fleet's
+# likelihood at its sampler's kernel, ComplexTerm(log_a=0, log_c=-1,
+# log_d=0.5) (P = 2).
+L_CURVES = 10_240
+L_LENGTHS = (96, 161)
+L_YERR = 0.3
+L_DRAW = (0.8, 0.25, 2.0)
+L_THETA = (0.0, -1.0, 0.5)
+# One sample_prior call draws every curve, their grids L_GAP apart: the
+# decay exp(-0.25 L_GAP) is 0, so the curves are independent draws.
+L_GAP = 1e4
+L_CHAINS = 16
+L_LL_RTOL = 1e-10     # f64 per-curve ll on the card against the CPU route
+L_GRAD_RTOL = 1e-8    # the shared gradient, of its norm
+L_F32_RTOL = 1e-4     # f32 against f64, per curve and of the gradient's norm
+L_FOLD_RTOL = 1e-12   # a folded chain against its one-chain call
+# The fleet plan with pad lanes for rows 1-5 against plain: the first
+# L_PAD_CURVES curves cut to L_PAD_STEPS points (the plain versions' time
+# follows the steps), 7 pad lanes alone and 3 a chain at 2 chains.
+L_PAD_CURVES = 1001
+L_PAD_STEPS = 48
+L_REPS = 5
+# The config[4] example's model and size (32 curves), 128 particles, two
+# stages; benchmarks/fleet.py:113-141's per-curve NUTS fits cut to 16
+# curves of 2 chains, 20 warmup and 8 sampling transitions at depth 4.
+L_SMC = {"n_curves": 32, "n_particles": 128, "max_stages": 2}
+L_NUTS = {"curves": 16, "chains": 2, "warmup": 20, "samples": 8,
+          "depth": 4}
+
+
+def fleet_batch(n_curves, dev, seed=4):
+    """benchmarks/fleet_smc.py's fleet of ``n_curves`` curves: lengths
+    drawn from 96-160, t = 0, 1, ..., y from ``ops.smoother.sample_prior``
+    (one call over the curves' grids set L_GAP apart) plus N(0, yerr^2)
+    noise.  Returns the LightCurveBatch."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(*L_LENGTHS, n_curves)
+    a, c, d = L_DRAW
+    coeffs = Coefficients(np.zeros(0), np.zeros(0), np.array([a]),
+                          np.array([0.0]), np.array([c]), np.array([d]),
+                          np.zeros(()))
+    grids = [np.arange(n, dtype=np.float64) for n in lengths]
+    t_all = np.concatenate([L_GAP * i + g for i, g in enumerate(grids)])
+    y_all = smoother.sample_prior(coeffs, t_all, seed=seed, device=dev)
+    y_all = y_all + L_YERR * rng.standard_normal(t_all.size)
+    return data.LightCurveBatch.from_ragged(
+        grids, np.split(y_all, np.cumsum(lengths)[:-1]),
+        [np.full(n, L_YERR) for n in lengths])
+
+
+def fleet_value_and_grad(fn, theta, dev):
+    """``(ll, ok, grad)`` of a fleet closure: autograd of its lls' sum."""
+    th = torch.as_tensor(theta).to(dev).detach().requires_grad_()
+    ll, ok = fn(th)
+    (grad,) = torch.autograd.grad(ll.sum(), th)
+    return ll.detach(), ok, grad
+
+
+def per_lane_rel(got, want):
+    """max over lanes of |got - want| / |want| (0 where both are 0)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = torch.where(want == 0, torch.ones_like(want), want.abs())
+    return float(((got - want).abs() / scale).max())
+
+
+def fleet_kernels_vs_plain(kernel, batch, theta, thetas, dev, errs,
+                           grad_errs):
+    """Rows 1-5 against their plain versions on fleet plans (state_seg =
+    1): the full fleet at one chain and at L_CHAINS, the first
+    L_PAD_CURVES curves cut to L_PAD_STEPS points at one chain and two
+    (pad lanes), float64 and float32; and the pad lanes' ll (0) from
+    run_primal.  Row 1 per lane against its largest value (F64_RTOL,
+    F32_PLAIN_RTOL); rows 2-5 as grad_case (GRAD_F64_RTOL, float32 at
+    GRAD_F32_PATH_RTOL)."""
+    jr, jc = kernel.padded_size
+    cf1 = kernel_cf(kernel, theta.to(dev))
+    cfs = torch.stack([kernel_cf(kernel, th) for th in thetas.to(dev)])
+    head = data.LightCurveBatch(
+        *(x[:L_PAD_CURVES, :L_PAD_STEPS] for x in batch[:4]),
+        np.minimum(batch.lengths[:L_PAD_CURVES], L_PAD_STEPS))
+    cases = [("fleet", batch, 1, cf1), ("fleet_folded", batch, L_CHAINS, cfs),
+             ("pad", head, 1, cf1), ("pad_folded", head, 2, cfs[:2])]
+    rows = []
+    for tag, b, nc, cf64 in cases:
+        for dt in (torch.float64, torch.float32):
+            plan = lanes4.make_plan4_curves(
+                b.t, b.y, b.yerr**2, b.lengths, n_chain=nc, dtype=dt,
+                device=dev)
+            cf = cf64.to(dt)
+            lanes = plan.num_blocks
+            got = fused4.primal_cuda(cf, plan, jr, jc, seg=1)
+            want = fused4.primal_reference(cf, plan, jr, jc, seg=1)
+            e_primal = max(max_rel(g.double().cpu(), w.double().cpu())
+                           for g, w in zip(got, want))
+            limit = F64_RTOL if dt == torch.float64 else F32_PLAIN_RTOL
+            if dt == torch.float64:
+                errs.append(max(float((g - w).abs().max())
+                                for g, w in zip(got, want)))
+            ll, ok = fused4.run_primal(cf, plan, jr, jc,
+                                       n_seg=nc if nc > 1 else lanes,
+                                       state_seg=1)
+            pad_zero = nc > 1 or bool((ll[len(b):] == 0).all())
+            rows.append({"case": tag, "dtype": str(dt).split(".")[1],
+                         "curves": len(b), "n_chain": nc, "lanes": lanes,
+                         "pad_lanes": lanes - len(b) * nc,
+                         "steps": plan.t.shape[0],
+                         "primal_max_rel_err": e_primal,
+                         "ok": bool(ok.all()), "pad_ll_zero": pad_zero})
+            if e_primal > limit or not bool(ok.all()) or not pad_zero:
+                fail("fleet primal disagrees with plain: {0}".format(
+                    rows[-1]))
+            grad_case(grad_errs, tag, cf, plan, jr, jc, seg=1,
+                      f32_limit=GRAD_F32_PATH_RTOL, curves=len(b),
+                      n_chain=nc, lanes=lanes, steps_per_lane=plan.t.shape[0])
+            del plan, got, want
+    return rows
+
+
+def fleet_nuts(batch, kernel, theta, dev, seed=2030):
+    """``inference.sample_nuts_batch`` over the first L_NUTS["curves"]
+    curves, L_NUTS["chains"] chains each: benchmarks/fleet.py's per-curve
+    masked likelihood with a N(0, 3^2) prior (``data.make_curve_logprob``,
+    every leapfrog one call of rows 2-5 over all rows), the step-size
+    search per problem, L_NUTS's transitions and depth.  Gated on finite
+    draws and the mean sampling acceptance against SAMPLER_ACCEPT_FLOOR."""
+    ncur, nch = L_NUTS["curves"], L_NUTS["chains"]
+    sub = data.LightCurveBatch(*(x[:ncur] for x in batch))
+    lp = data.make_curve_logprob(
+        kernel, lambda th: -0.5 * torch.sum((th / 3.0) ** 2))
+    vag = lp.value_and_grad_batch
+    calls = []
+
+    def counted(rows, qs):
+        calls.append(qs.shape[0])
+        return vag(rows, qs)
+
+    lp.value_and_grad_batch = counted
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    init = torch.as_tensor(theta, dtype=torch.float64, device=dev) \
+        + 0.05 * torch.randn(ncur, nch, 3, generator=gen,
+                             dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    chains, info = inference.sample_nuts_batch(
+        lp, data.curve_rows(sub, device=dev), init, gen,
+        num_warmup=L_NUTS["warmup"], num_samples=L_NUTS["samples"],
+        max_tree_depth=L_NUTS["depth"], initial_step_size="auto")
+    torch.cuda.synchronize()
+    out = {"curves": ncur, "chains": nch, "warmup": L_NUTS["warmup"],
+           "samples": L_NUTS["samples"], "max_tree_depth": L_NUTS["depth"],
+           "seconds": time.perf_counter() - t0,
+           "batched_calls": len(calls), "rows_a_call": sorted(set(calls)),
+           "shape": list(chains.shape),
+           "step_size": info["step_size"].tolist(),
+           "mean_accept_sampling": float(info["accept_prob"].mean()),
+           "divergences_sampling": int(info["divergences"].sum()),
+           "leapfrogs_sampling": int(info["num_steps"].sum()),
+           "finite": bool(torch.isfinite(chains).all())}
+    if not out["finite"] or out["shape"] != [ncur, nch, L_NUTS["samples"], 3]:
+        fail("fleet NUTS: draws not finite or misshapen: {0}".format(out))
+    if out["mean_accept_sampling"] < SAMPLER_ACCEPT_FLOOR:
+        fail("fleet NUTS: sampling collapsed: {0}".format(out))
+    if set(calls) != {ncur * nch}:
+        fail("fleet NUTS: a call did not take every row: {0}".format(
+            sorted(set(calls))))
+    return out
+
+
+def main_path_l(dev, errs, grad_errs):
+    """The light-curve fleet on the card (ROADMAP queue 1 items 7, 13 and
+    14; BASELINE config[4]), one lane a curve.
+
+    On ``fleet_batch(L_CURVES)`` at ComplexTerm L_THETA (P = 2):
+    ``data.make_fleet_loglik`` at one chain, per-curve ll and the shared
+    gradient (rows 2-5) and the value alone (row 1), float64 and float32,
+    against the CPU route (``batched_gp_log_likelihood``, float64) over
+    all curves; at L_CHAINS chains folded (16 parameter sets), each
+    chain's fleet sum and gradient against one-chain calls; the config[4]
+    example (``config4_pod_smc.main``: 32 curves, 128 particles, two
+    stages of ``sample_smc``, each batch of particles one folded call);
+    ``inference.sample_nuts_batch`` on benchmarks/fleet.py's per-curve
+    likelihood (``fleet_nuts``).  The counters are read after these; then
+    rows 1-5 against their plain versions on the fleet plans
+    (``fleet_kernels_vs_plain``), and the timings: a value and gradient at
+    1 and L_CHAINS chains (median of L_REPS, host clock), profiled once.
+    Returns the launch counts of rows 1-5."""
+    t_l = time.perf_counter()
+    parts, mark = {}, [t_l]
+
+    def part(name):
+        """Seconds since the last part, under ``name``."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = now - mark[0]
+        mark[0] = now
+
+    batch = fleet_batch(L_CURVES, dev)
+    part("data")
+    kernel = terms.ComplexTerm(*L_THETA)
+    theta = torch.tensor(L_THETA, dtype=torch.float64)
+    thetas = theta + 0.05 * torch.as_tensor(
+        np.random.default_rng(6).standard_normal((L_CHAINS, 3)))
+    ref_ll, ref_ok, ref_g = fleet_value_and_grad(
+        lambda th: data.batched_gp_log_likelihood(kernel, th, batch,
+                                                  device="cpu"),
+        theta, "cpu")
+    part("cpu_reference")
+    fleets = {dt: data.make_fleet_loglik(kernel, batch, dtype=dt, device=dev)
+              for dt in (torch.float64, torch.float32)}
+    folded = data.make_fleet_loglik(kernel, batch, n_chain=L_CHAINS,
+                                    device=dev)
+    checks, out = {}, {}
+    part("plans")
+    reset_counts()
+    got = {dt: fleet_value_and_grad(f, theta, dev)
+           for dt, f in fleets.items()}
+    with torch.no_grad():
+        vals = {dt: f(theta.to(dev)) for dt, f in fleets.items()}
+        val16 = folded(thetas.to(dev))
+    got16 = fleet_value_and_grad(folded, thetas, dev)
+    ones = [fleet_value_and_grad(fleets[torch.float64], th, dev)
+            for th in thetas]
+    part("fleet_calls")
+    with contextlib.redirect_stdout(io.StringIO()) as smc_log:
+        smc_res, smc_like = config4_pod_smc.main(device=dev, **L_SMC)
+    part("smc_example")
+    nuts = fleet_nuts(batch, kernel, theta, dev)
+    part("nuts_batch")
+    counts = {"primal": fused4.primal_cuda.launches, **grad_counts()}
+
+    ll64, ok64, g64 = got[torch.float64]
+    ll32, ok32, g32 = got[torch.float32]
+    out["ll_shape"] = list(ll64.shape)
+    out["rel_err_ll_f64_vs_cpu"] = per_lane_rel(ll64, ref_ll)
+    out["rel_err_value_f64_vs_cpu"] = per_lane_rel(vals[torch.float64][0],
+                                                   ref_ll)
+    out["rel_err_grad_f64_vs_cpu"] = grad_rel(g64.cpu(), ref_g)
+    out["rel_err_ll_f32_vs_f64"] = per_lane_rel(ll32, ll64)
+    out["rel_err_value_f32_vs_f64"] = per_lane_rel(vals[torch.float32][0],
+                                                   ll64)
+    out["rel_err_grad_f32_vs_f64"] = grad_rel(g32.double(), g64)
+    checks["shape"] = out["ll_shape"] == [L_CURVES]
+    checks["ok"] = all(bool(x.all()) for x in (
+        ref_ok, ok64, ok32, vals[torch.float64][1], vals[torch.float32][1],
+        got16[1], val16[1]))
+    checks["f64"] = (out["rel_err_ll_f64_vs_cpu"] <= L_LL_RTOL
+                     and out["rel_err_value_f64_vs_cpu"] <= L_LL_RTOL
+                     and out["rel_err_grad_f64_vs_cpu"] <= L_GRAD_RTOL)
+    checks["f32"] = max(out["rel_err_ll_f32_vs_f64"],
+                        out["rel_err_value_f32_vs_f64"],
+                        out["rel_err_grad_f32_vs_f64"]) <= L_F32_RTOL
+    sums = torch.stack([o[0].sum() for o in ones])
+    grads = torch.stack([o[2] for o in ones])
+    out["rel_err_fold_ll"] = per_lane_rel(got16[0], sums)
+    out["rel_err_fold_value"] = per_lane_rel(val16[0], sums)
+    out["rel_err_fold_grad"] = max(grad_rel(got16[2][c], grads[c])
+                                   for c in range(L_CHAINS))
+    checks["folded"] = (out["rel_err_fold_ll"] <= L_FOLD_RTOL
+                        and out["rel_err_fold_grad"] <= L_FOLD_RTOL
+                        and out["rel_err_fold_value"] <= F64_RTOL)
+    out["smc"] = {"stages": smc_res.num_stages,
+                  "log_evidence": float(smc_res.log_evidence),
+                  "final_accept": float(smc_res.final_accept),
+                  "betas": smc_res.betas.tolist(),
+                  "particles_a_call": smc_like.chunk,
+                  "lanes_a_call": smc_like.plan.num_blocks,
+                  "log": smc_log.getvalue().strip().splitlines()}
+    checks["smc"] = (smc_res.num_stages >= 1
+                     and math.isfinite(out["smc"]["log_evidence"])
+                     and out["smc"]["final_accept"] > 0.0
+                     and bool(torch.isfinite(smc_res.particles).all()))
+    out["nuts"] = nuts
+    emit("main_path_L", model="ComplexTerm(log_a, log_c, log_d) (P=2)",
+         curves=L_CURVES, points=int(batch.lengths.sum()),
+         lanes=fleets[torch.float64].plan.num_blocks,
+         lanes_folded=folded.plan.num_blocks,
+         steps_per_lane=fleets[torch.float64].plan.t.shape[0],
+         launches=counts, **out, checks=checks, seconds_by_part=parts)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail("main path L failed: {0}".format(bad))
+    if min(counts.values()) < 1:
+        fail("main path L did not launch rows 1-5: {0}".format(counts))
+
+    rows = fleet_kernels_vs_plain(kernel, batch, theta, thetas, dev, errs,
+                                  grad_errs)
+    part("kernels_vs_plain")
+    timing = {}
+    for tag, fn, th, n_curves in (
+            ("one_chain", fleets[torch.float64], theta, L_CURVES),
+            ("folded", folded, thetas, L_CURVES * L_CHAINS)):
+        def call(fn=fn, th=th):
+            return fleet_value_and_grad(fn, th, dev)
+
+        before = dict(grad_counts())
+        ms, _ = timed_ms(call, reps=L_REPS)
+        launched = {k: v - before[k] for k, v in grad_counts().items()}
+        prof = profile_evals(lambda _: call(), None, evals=L_REPS)
+        timing[tag] = {"ms_value_and_grad": ms,
+                       "kernel_launches_a_call": {
+                           k: v / L_REPS for k, v in launched.items()},
+                       "curves_per_s": n_curves / ms * 1e3,
+                       "device_idle_share": prof["device_idle_share"],
+                       "device_busy_ms": prof["device_busy_ms_per_eval"],
+                       "launches_a_call": prof["kernel_launches_per_eval"],
+                       "kernel_ms": prof["kernel_ms_per_eval"],
+                       "glue_ms": prof["glue_ms_per_eval"]}
+    part("timing")
+    emit("main_path_L_kernels_and_times", kernels_vs_plain=rows,
+         timing=timing, seconds_by_part=parts,
+         seconds=time.perf_counter() - t_l)
+    return counts
+
+
 def redesigned_summary(smi, ptxas, primal_rows, grad_rows, tangent_rows,
                        adj_rows, onepass_rows, solver_rows):
     """The kernels redesigned for this card and those sharing their code,
@@ -4033,12 +4365,16 @@ def main():
     counts_k = main_path_k(t, y, yerr, dev)
     torch.cuda.empty_cache()
 
+    # ---- main path L: the light-curve fleet (config[4]) ----
+    counts_l = main_path_l(dev, errs, grad_errs)
+    torch.cuda.empty_cache()
+
     kernels = [{
         "name": "fused4_primal",
         "route": "cuda",
         "source": "celerite_torch/csrc/fused4_primal.cu",
         "replaces": "celerite_tpu/ops/fused4.py:275",
-        "launches": launches_a + launches_b,
+        "launches": launches_a + launches_b + counts_l["primal"],
         "max_abs_err": max(errs),
         "ms": ms_kernel,
         "plain_ms": ms_plain,
@@ -4056,7 +4392,7 @@ def main():
             "source": "celerite_torch/csrc/fused4_grad.cu",
             "replaces": GRAD_REPLACES[name],
             "launches": (counts_ca[name] + counts_c[name] + grew[name]
-                         + counts_j[name]),
+                         + counts_j[name] + counts_l[name]),
             "max_abs_err": max(grad_errs[name]),
             "ms": row["ms_float64"],
             "plain_ms": row["plain_ms_float64"],

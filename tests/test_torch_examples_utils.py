@@ -1,10 +1,11 @@
-"""The config[1] and config[2] examples, ``utils.debug`` and ``plot_setup``
-of the port on the CPU (no JAX).
+"""The config[1], config[2] and config[4] examples, ``utils.debug`` and
+``plot_setup`` of the port on the CPU (no JAX).
 
-Both examples at a few dozen points with a few NUTS transitions (trees of
-at most 8 leapfrogs: a test of their plumbing, not of the sampler):
-config[1] ends in ``GP.predict(return_var=True)``, config[2] draws its data
-with ``ops.smoother.sample_prior``.  ``check_backends_agree`` on config[2]'s
+The first two examples at a few dozen points with a few NUTS transitions
+(trees of at most 8 leapfrogs: a test of their plumbing, not of the
+sampler): config[1] ends in ``GP.predict(return_var=True)``, config[2]
+draws its data with ``ops.smoother.sample_prior``; config[4] at 3 curves
+and 8 particles for one SMC stage.  ``check_backends_agree`` on config[2]'s
 SSM (seq, blocked, native where g++ is there, and the three-pass solver's
 plain versions) and its AssertionError on a disagreement; ``debug_mode``
 switching autograd's anomaly detection on and back; ``plot_setup``
@@ -12,6 +13,7 @@ imported with matplotlib blocked, ``setup()`` then raising ImportError.
 """
 
 import importlib
+import math
 import sys
 
 import numpy as np
@@ -99,3 +101,27 @@ def test_plot_setup_without_matplotlib(monkeypatch):
     assert plot_setup.COLORS["DATA"] == "k"
     with pytest.raises(ImportError):
         plot_setup.setup()
+
+
+def test_example_config4_on_cpu(monkeypatch):
+    """The config[4] example at 3 curves and 8 particles, one stage of one
+    mutation of two leapfrogs: the fleet likelihood's folded calls (8
+    particles a call) through the gradient pipeline's plain versions."""
+    from celerite_torch.examples import config4_pod_smc
+    from celerite_torch.inference import sample_smc
+
+    def short(*args, **kwargs):
+        return sample_smc(*args, **{**kwargs, "num_leapfrog": 2})
+
+    monkeypatch.setattr(config4_pod_smc, "sample_smc", short)
+    res, log_like = config4_pod_smc.main(n_particles=8, n_curves=3,
+                                         device="cpu", num_mutations=1,
+                                         max_stages=1)
+    assert log_like.chunk == 8 and log_like.plan.num_blocks == 24
+    assert res.num_stages == 1
+    assert res.particles.shape == (8, 3)
+    assert bool(torch.isfinite(res.particles).all())
+    assert math.isfinite(float(res.log_evidence))
+    vals, grads = log_like.value_and_grad_batch(res.particles[:3])
+    assert vals.shape == (3,) and grads.shape == (3, 3)
+    assert bool(torch.isfinite(grads).all())

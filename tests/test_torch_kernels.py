@@ -1353,3 +1353,114 @@ def test_carma_on_the_card(cuda_device):
     ll = CARMASolver(*args).log_likelihood(t, y, yerr)
     want = CARMASolver(*args, device="cpu").log_likelihood(t, y, yerr)
     assert abs(ll - want) <= 1e-10 * abs(want)
+
+
+def _fleet(n_curves, seed=21):
+    """A LightCurveBatch of ``n_curves`` curves of 20-60 points."""
+    from celerite_torch.data import LightCurveBatch
+
+    rng = np.random.default_rng(seed)
+    ts, ys, es = [], [], []
+    for _ in range(n_curves):
+        n = int(rng.integers(20, 61))
+        t = np.sort(rng.uniform(0, 10, n))
+        e = rng.uniform(0.1, 0.2, n)
+        ts.append(t)
+        ys.append(np.sin(t) + e * rng.standard_normal(n))
+        es.append(e)
+    return LightCurveBatch.from_ragged(ts, ys, es)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chain", [1, 2, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fleet_kernels_match_plain(n_chain, dtype, cuda_device):
+    """Rows 1-5 on a fleet plan (``make_plan4_curves``: one lane and one
+    state segment a curve, ``seg = 1``): 1001 curves, so 7 pad lanes at
+    one chain and 3 a chain at two; 16 chains of 1001 lanes.  Every
+    lane's primal outputs and every gradient kernel's against the plain
+    versions, a coefficient row a chain; the pad lanes' ll is 0."""
+    jr, jc, vals = CASES[2]
+    b = _fleet(1001)
+    plan = lanes4.make_plan4_curves(b.t, b.y, b.yerr**2, b.lengths,
+                                    n_chain=n_chain, dtype=dtype,
+                                    device=cuda_device)
+    lanes = plan.num_blocks
+    assert lanes == {1: 1008, 2: 2008, 16: 16016}[n_chain]
+    cf = torch.as_tensor(pack_values(jr, jc, vals), device=cuda_device,
+                         dtype=dtype)
+    if n_chain > 1:
+        cf = torch.stack([cf * (0.9 + 0.2 * c / n_chain)
+                          for c in range(n_chain)])
+    got = fused4.primal_cuda(cf, plan, jr, jc, seg=1)
+    want = fused4.primal_reference(cf, plan, jr, jc, seg=1)
+    rtol = 1e-10 if dtype == torch.float64 else GRAD_F32_RTOL
+    if dtype == torch.float32:
+        _assert_lanes_close(got, want, F32_PLAIN_RTOL)
+    else:
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=1e-10, atol=1e-10)
+    _check_grad_kernels(cf, plan, jr, jc, rtol, seg=1)
+    ll, ok = fused4.run_primal(cf, plan, jr, jc,
+                               n_seg=lanes if n_chain == 1 else n_chain,
+                               state_seg=1)
+    assert bool(ok.all())
+    if n_chain == 1:
+        assert ll.shape == (lanes,) and bool((ll[1001:] == 0).all())
+
+
+@pytest.mark.cuda
+def test_fleet_loglik_on_the_card(cuda_device):
+    """``data.make_fleet_loglik`` on the card against the CPU route
+    (``batched_gp_log_likelihood``, float64): per-curve ll (1e-10) and
+    the shared gradient (1e-8 of its norm), and the value alone (the
+    primal); four folded chains against one-chain sums (1e-12); and
+    ``make_curve_logprob``'s batched entry (rows 2-5, a coefficient row a
+    lane) against its CPU plain versions."""
+    from celerite_torch import data, terms
+
+    b = _fleet(300)
+    kernel = terms.SHOTerm(0.1, 1.0, 0.5)
+    theta = torch.tensor([0.1, 1.0, 0.5], dtype=torch.float64)
+
+    def vg(fn, th):
+        th = th.detach().requires_grad_()
+        ll, ok = fn(th)
+        (g,) = torch.autograd.grad(ll.sum(), th)
+        return ll.detach(), ok, g
+
+    want, okw, gw = vg(lambda th: data.batched_gp_log_likelihood(
+        kernel, th, b, device="cpu"), theta)
+    fleet = data.make_fleet_loglik(kernel, b, device=cuda_device)
+    ll, ok, g = vg(fleet, theta.to(cuda_device))
+    assert bool(ok.all()) and bool(okw.all()) and ll.shape == (300,)
+    np.testing.assert_allclose(ll.cpu().numpy(), want.numpy(), rtol=1e-10)
+    assert float((g.cpu() - gw).norm() / gw.norm()) < 1e-8
+    before = fused4.primal_cuda.launches
+    with torch.no_grad():
+        val, _ = fleet(theta.to(cuda_device))
+    assert fused4.primal_cuda.launches == before + 1
+    np.testing.assert_allclose(val.cpu().numpy(), want.numpy(), rtol=1e-10)
+
+    thetas = theta + 0.05 * torch.as_tensor(
+        np.random.default_rng(3).standard_normal((4, 3)))
+    folded = data.make_fleet_loglik(kernel, b, n_chain=4, device=cuda_device)
+    ll4, ok4, g4 = vg(folded, thetas.to(cuda_device))
+    assert bool(ok4.all())
+    for c in range(4):
+        l1, _, g1 = vg(fleet, thetas[c].to(cuda_device))
+        np.testing.assert_allclose(float(ll4[c]), float(l1.sum()),
+                                   rtol=1e-12)
+        assert float((g4[c] - g1).norm() / g1.norm()) < 1e-12
+
+    lp = data.make_curve_logprob(kernel)
+    rows = {k: v[:16] for k, v in data.curve_rows(b, device="cpu").items()}
+    th16 = thetas[torch.arange(16) % 4]
+    vc, gc = lp.value_and_grad_batch(rows, th16)
+    vk, gk = lp.value_and_grad_batch(
+        {k: v.to(cuda_device) for k, v in rows.items()},
+        th16.to(cuda_device))
+    np.testing.assert_allclose(vk.cpu().numpy(), vc.numpy(), rtol=1e-10)
+    np.testing.assert_allclose(gk.cpu().numpy(), gc.numpy(), rtol=1e-8,
+                               atol=1e-8 * float(gc.abs().max()))
