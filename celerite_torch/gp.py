@@ -59,6 +59,18 @@ the JAX package passes it (gp.py:940-973).  ``solver="auto"`` takes
 (ROADMAP queue 2, item 10): there ``"fused"``, ``"pallas"``, a truthy
 ``fast_grad`` with ``"blocked"`` and ``fast_grad="tangent"`` raise.
 
+General (A, U, V) blocks (``compute(..., A=, U=, V=)``) are phi = 1
+columns after the kernel's (``ops.lower``); P counts the general rank.
+They never take a lane route (fused4, the adjoint or tangent plans),
+which lower from coefficients and would drop them: as in the JAX package
+(celerite_tpu/gp.py:503-561), ``solver="auto"`` takes ``"seq"`` on the
+CPU below 4096 points, else ``"blocked"``, and ``"fused"`` is the
+SSM-level ``fused.gp_log_likelihood`` (the single-sweep kernel at P <= 8,
+the three-pass kernels above), with ``fast_grad`` as for ``"pallas"`` and
+``"blocked"``.  These closures carry no value-and-gradient entries, so
+samplers take autograd row by row; the dense oracle and the variance of
+``predict`` add the blocks at the computed coordinates.
+
 Exact mode, ``precision="ds"``, is routed as the JAX package routes it
 (celerite_tpu/gp.py:410-433): a kernel of padded width 1-8 with a frozen
 mean, N >= 2048 points and no ``block_size`` takes the forward-mode
@@ -323,6 +335,9 @@ class GP(ModelSet):
         self._t = None
         self._yerr = None
         self._diag = None
+        self._A = np.empty(0)
+        self._U = np.empty((0, 0))
+        self._V = np.empty((0, 0))
         if log_white_noise is not None:
             warnings.warn(
                 "The 'log_white_noise' parameter is deprecated. "
@@ -373,16 +388,17 @@ class GP(ModelSet):
     # -- compute / log_likelihood ------------------------------------------
     def compute(self, t, yerr=1.123e-12, check_sorted=True, A=None, U=None,
                 V=None):
-        """Store the coordinates and per-point variances, lower the kernel
-        at the current parameters and factor it through :attr:`solver`
-        (celerite_tpu/gp.py:134-171).
+        """Store the coordinates, per-point variances and general blocks,
+        lower the kernel at the current parameters and factor it through
+        :attr:`solver` (celerite_tpu/gp.py:134-171).
 
-        Raises ValueError for unsorted input and LinAlgError when the
-        covariance matrix does not factor (not positive definite).
+        ``A`` (N,), ``U`` and ``V`` (J_general, N) are general semiseparable
+        blocks added to the covariance (:func:`ops.dense.build_matrix`); the
+        closures of :meth:`build_loglik` and the facade's ops take them
+        too.  Raises ValueError for unsorted input or blocks of the wrong
+        shape, and LinAlgError when the covariance matrix does not factor
+        (not positive definite).
         """
-        if any(x is not None and np.size(x) > 0 for x in (A, U, V)):
-            raise _not_in_slice("general (A, U, V) blocks",
-                                "queue 1, item 10")
         t = np.atleast_1d(np.asarray(t, dtype=float))
         if check_sorted and np.any(np.diff(t) < 0.0):
             raise ValueError("the input coordinates must be sorted")
@@ -391,6 +407,9 @@ class GP(ModelSet):
         self._t = t
         self._yerr = np.empty_like(t)
         self._yerr[:] = yerr
+        self._A = np.empty(0) if A is None else np.asarray(A)
+        self._U = np.empty((0, 0)) if U is None else np.asarray(U)
+        self._V = np.empty((0, 0)) if V is None else np.asarray(V)
         self._diag = self._yerr ** 2
         self._refactor()
 
@@ -401,7 +420,8 @@ class GP(ModelSet):
         coeffs = [c.detach().cpu().numpy()
                   for c in self.kernel.get_padded_coefficients(kp)]
         self.solver.compute(float(self.kernel.get_jitter(kp)), *coeffs,
-                            t=self._t, diag=self._diag)
+                            A=self._A, U=self._U, V=self._V, t=self._t,
+                            diag=self._diag)
         self.dirty = False
 
     def _recompute(self):
@@ -475,8 +495,9 @@ class GP(ModelSet):
 
     def dot(self, y, t=None, A=None, U=None, V=None, kernel=None,
             check_sorted=True):
-        """K y without the yerr diagonal (reference celerite.py:330-397), at
-        the computed coordinates or at ``t``."""
+        """K y without the yerr diagonal (reference celerite.py:330-397): at
+        the computed coordinates with the stored general blocks, or at ``t``
+        with the general blocks ``A, U, V`` given here."""
         if kernel is None:
             kernel = self.kernel
         if t is not None:
@@ -488,7 +509,7 @@ class GP(ModelSet):
         else:
             if not self.computed:
                 raise RuntimeError("you must call 'compute' first")
-            t = self._t
+            t, A, U, V = self._t, self._A, self._U, self._V
         return self.solver.dot(kernel.jitter, *kernel.coefficients, A, U, V,
                                t, np.ascontiguousarray(y, dtype=float))
 
@@ -503,11 +524,12 @@ class GP(ModelSet):
         (faster than the sequential one at every size measured,
         tools/kalman_tune.py: the JAX package's gate of 16384 points is not
         kept), on the CPU the sequential one (``ops.smoother``).  Any
-        other kernel takes
+        other kernel, and any model with general blocks, takes
         the dense O(N M) variance k(0) - sum(Kxs^T * K^-1 Kxs^T).  The mean
         is otherwise O(N) (the lag-state recursions, in parallel on the
-        blocked route), the covariance dense O(N M) (reference
-        celerite.py:399-474)."""
+        blocked route; with general blocks the dense ``K(xs, t) K^-1 r``,
+        celerite_tpu/gp.py:1318-1323), the covariance dense O(N M)
+        (reference celerite.py:399-474)."""
         y = self._process_input(y)
         if y.ndim > 1:
             raise ValueError("dimension mismatch")
@@ -519,7 +541,8 @@ class GP(ModelSet):
                 raise ValueError("dimension mismatch")
         self._recompute()
         resid = y - self.mean.get_value(self._t)
-        if return_var:
+        has_general = len(self._A) > 0
+        if return_var and not has_general:
             coeffs = Coefficients(*self.kernel.coefficients,
                                   jitter=self.kernel.jitter)
             if smoother.realize(coeffs) is not None:
@@ -532,8 +555,11 @@ class GP(ModelSet):
         if t is None:
             alpha = self.solver.solve(resid).reshape(-1)
             alpha = resid - (self._yerr ** 2 + self.kernel.jitter) * alpha
-        else:
+        elif not has_general:
             alpha = self.solver.predict(resid, xs)
+        else:
+            alpha = self.get_matrix(xs, self._t) @ self.solver.solve(
+                resid).reshape(-1)
         mu = self.mean.get_value(xs) + alpha
         if return_var:
             return mu, self._dense_var(xs)
@@ -554,9 +580,11 @@ class GP(ModelSet):
     def get_matrix(self, x1=None, x2=None, include_diagonal=None,
                    include_general=None):
         """Dense covariance matrix (reference celerite.py:476-516) on the
-        GP's device, as numpy: ``K(t, t)`` with the diagonal and jitter at
-        the computed coordinates, or the kernel's ``K(x1, x2)`` (jitter on
-        the diagonal of ``K(x1, x1)`` with ``include_diagonal``)."""
+        GP's device, as numpy: ``K(t, t)`` with the diagonal and jitter
+        (unless ``include_diagonal`` is False) and the general blocks
+        (unless ``include_general`` is False) at the computed coordinates,
+        or the kernel's ``K(x1, x2)`` (jitter on the diagonal of ``K(x1,
+        x1)`` with ``include_diagonal``)."""
         device = lanes4.resolve_device(self.device)
         coeffs = Coefficients(*(torch.as_tensor(c, device=device)
                                 for c in self.kernel.coefficients),
@@ -572,10 +600,14 @@ class GP(ModelSet):
             if self._t is None or not self.computed:
                 raise RuntimeError("you must call 'compute' first")
             use_diag = include_diagonal is None or include_diagonal
+            use_gen = ((include_general is None or include_general)
+                       and len(self._A) > 0)
+            gen = dict(A_gen=dev(self._A), U_gen=dev(self._U),
+                       V_gen=dev(self._V)) if use_gen else {}
             K = dense.build_matrix(
                 coeffs, dev(self._t),
                 diag=dev(self._yerr ** 2) if use_diag else None,
-                include_jitter=use_diag)
+                include_jitter=use_diag, **gen)
             return K.cpu().numpy()
         incl = False
         if x2 is None:
@@ -671,7 +703,11 @@ class GP(ModelSet):
 
         kernel = self.kernel
         pr, pc = kernel.padded_size
-        width = pr + 2 * pc
+        has_general = len(self._A) > 0
+        if has_general and len(self._A) != n:
+            raise ValueError("dimension mismatch")
+        # General rank counts in the padded width P.
+        width = pr + 2 * pc + (self._U.shape[0] if has_general else 0)
         mask = np.asarray(self.unfrozen_mask)
         idx = torch.as_tensor(np.flatnonzero(mask), device=device)
         fixed = torch.as_tensor(self.parameter_vector, device=device)
@@ -691,11 +727,12 @@ class GP(ModelSet):
             return coeffs, mp
 
         # Exact mode under the JAX package's gates (celerite_tpu/gp.py:
-        # 419-428; general blocks never reach here, compute() refuses them):
-        # the forward-mode kernels on the card, their plain versions on the
-        # CPU.  Other exact-mode calls take the float64 route below.
-        if (precision == "ds" and not mean_active and 0 < width <= 8
-                and n >= 2048 and block_size is None and not fast_compile):
+        # 419-428): the forward-mode kernels on the card, their plain
+        # versions on the CPU.  Other exact-mode calls, general blocks
+        # among them, take the float64 route below.
+        if (precision == "ds" and not mean_active and not has_general
+                and 0 < width <= 8 and n >= 2048 and block_size is None
+                and not fast_compile):
             return self._build_loglik_dsfused(t_np, y_np, diag_np,
                                               split_theta, fixed, nk,
                                               mean_fn, pr, pc, device)
@@ -703,7 +740,9 @@ class GP(ModelSet):
         if solver == "auto":
             if width == 0 or (device.type == "cpu" and n < _SEQ_BELOW):
                 solver = "seq"
-            elif width > adjoint.MAX_WIDTH:
+            elif has_general or width > adjoint.MAX_WIDTH:
+                # JAX's "auto" keeps general blocks off the lane routes
+                # (celerite_tpu/gp.py:503-515).
                 solver = "blocked"
             else:
                 solver = "fused"
@@ -726,10 +765,15 @@ class GP(ModelSet):
         diag_dev = torch.as_tensor(np.array(diag_np), dtype=dtype,
                                    device=device)
         lower_kw = {}
+        if has_general:
+            lower_kw = {k: torch.as_tensor(np.asarray(x, np.float64),
+                                           dtype=dtype, device=device)
+                        for k, x in (("A_gen", self._A), ("U_gen", self._U),
+                                     ("V_gen", self._V))}
         if dtype == torch.float32:
             # Static double-single grid: exact spacings and the lo half of
             # t (ops/ds.py).
-            lower_kw = dict(
+            lower_kw.update(
                 dt=torch.as_tensor(np.concatenate([[0.0], np.diff(t_np)]),
                                    dtype=dtype, device=device),
                 t_lo=torch.as_tensor(
@@ -742,6 +786,12 @@ class GP(ModelSet):
             return (lower(coeffs, t_dev, diag_dev, **lower_kw),
                     y_dev - mean_fn(mp, t_dev))
 
+        if solver == "fused" and has_general:
+            # The lane routes lower from coefficients and would drop the
+            # general columns: the SSM-level single sweep instead
+            # (celerite_tpu/gp.py:539-561).
+            return self._build_loglik_ssm(solver, ssm_resid, block_size,
+                                          fast_grad)
         if solver == "fused" and fast_grad == "tangent":
             return self._build_loglik_tangent(
                 t_np, y_np, diag_np, split_theta, fixed, nk, mean_fn,
@@ -816,15 +866,22 @@ class GP(ModelSet):
     @staticmethod
     def _build_loglik_ssm(solver, ssm_resid, block_size, fast_grad):
         """The closures over ``ssm_resid(theta) -> (lower(...), resid)``:
-        the sequential solver, the plain block-parallel solver or the
-        three-pass kernels.  Their backward: autograd; with
-        ``fast_grad="tangent"`` the forward-mode pipeline on ``block_size``
-        lanes (celerite_tpu/gp.py:940-973); with another truthy
-        ``fast_grad`` (not "seq") the adjoint pipeline (gp.py:974-999).
-        JAX passes ``block_size`` to both as the lane count."""
+        the sequential solver, the plain block-parallel solver, the
+        three-pass kernels or, for general blocks at ``solver="fused"``,
+        the SSM-level single sweep (``fused.gp_log_likelihood`` on
+        ``block_size`` lanes: the single-sweep kernel at padded width 8 or
+        less, the three-pass kernels above).  Their backward: autograd;
+        with ``fast_grad="tangent"`` the forward-mode pipeline on
+        ``block_size`` lanes (celerite_tpu/gp.py:940-973); with another
+        truthy ``fast_grad`` (not "seq") the adjoint pipeline (gp.py:
+        974-999).  JAX passes ``block_size`` to both as the lane count."""
         if solver == "seq":
             def value(theta):
                 return seq.gp_log_likelihood(*ssm_resid(theta))
+        elif solver == "fused":
+            def value(theta):
+                return fused.gp_log_likelihood(*ssm_resid(theta),
+                                               num_blocks=block_size)
         else:
             module = blocked if solver == "blocked" else pallas_solver
 

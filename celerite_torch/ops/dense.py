@@ -16,12 +16,15 @@ from .kernels import kernel_value
 __all__ = ["build_matrix", "log_likelihood"]
 
 
-def build_matrix(coeffs, t, diag=None, include_jitter=True, t2=None):
-    """Dense covariance matrix K(t, t) with diag and jitter.
+def build_matrix(coeffs, t, diag=None, include_jitter=True, t2=None,
+                 A_gen=None, U_gen=None, V_gen=None):
+    """Dense covariance matrix K(t, t) with diag, jitter and the general
+    (A, U, V) blocks: ``tril(U^T V, -1) + triu(V^T U, 1) + diag(A)``,
+    ``A`` (N,), ``U`` and ``V`` (J_general, N) (dense.py:21-52).
 
     With ``t2`` the rectangular cross-covariance ``K(t, t2)``: kernel
-    values only, the diagonal and jitter belong to the square case
-    (dense.py:21-69).
+    values only, the diagonal, jitter and general blocks belong to the
+    square case.
     """
     a_real, c_real, a_comp, b_comp, c_comp, d_comp, jitter = coeffs
     if t2 is not None:
@@ -35,6 +38,13 @@ def build_matrix(coeffs, t, diag=None, include_jitter=True, t2=None):
         k = k + jitter * eye
     if diag is not None:
         k = k + torch.diag(torch.as_tensor(diag, dtype=k.dtype, device=k.device))
+    if U_gen is not None and U_gen.shape[0] > 0:
+        def gen(x):
+            return torch.as_tensor(x, dtype=k.dtype, device=k.device)
+
+        low = gen(U_gen).T @ gen(V_gen)
+        k = k + torch.tril(low, -1) + torch.triu(low.T, 1) + torch.diag(
+            gen(A_gen))
     return k
 
 

@@ -3,18 +3,20 @@
 Port of ``celerite_tpu/ops/lower.py:35-144``.  Conventions (matching the
 reference recursion, cholesky.h:103-152):
 
-- ``P = J_real + 2 * J_complex`` semiseparable rank.
+- ``P = J_real + 2 * J_complex + J_general`` semiseparable rank.
 - ``U[n]``: real j: ``a_r[j]``; complex pair: ``(a cos(d t_n) + b sin(d t_n),
-  a sin(d t_n) - b cos(d t_n))``.
-- ``V[n]``: real: 1; complex pair: ``(cos(d t_n), sin(d t_n))``.
+  a sin(d t_n) - b cos(d t_n))``; general j: ``U_gen[j, n]``.
+- ``V[n]``: real: 1; complex pair: ``(cos(d t_n), sin(d t_n))``; general:
+  ``V_gen[j, n]``.
 - ``phi[n]`` decays state from ``t_{n-1}`` to ``t_n``; ``phi[0] = 1``:
-  real: ``exp(-c dt)``; complex pair: the same value twice.
-- ``A[n] = diag[n] + sum(a_r) + sum(a_c) + jitter``.
+  real: ``exp(-c dt)``; complex pair: the same value twice; general: 1.
+- ``A[n] = diag[n] + sum(a_r) + sum(a_c) + jitter (+ A_gen[n])``.
 
 The symmetric matrix represented is
 ``K = diag(A) + tril(U~ V~^T, -1) + triu(V~ U~^T, 1)`` where the tilde denotes
-the decay products accumulated through ``phi``.  General (A, U, V) blocks
-are not part of this slice of the port.
+the decay products accumulated through ``phi``.  General columns are data:
+no parameter moves them, so their tangents are zero and every solver, kernel
+or plain, takes them as any other phi = 1 column.
 """
 
 from __future__ import annotations
@@ -55,11 +57,17 @@ def lower(
     diag: torch.Tensor,
     dt: Optional[torch.Tensor] = None,
     t_lo: Optional[torch.Tensor] = None,
+    A_gen: Optional[torch.Tensor] = None,
+    U_gen: Optional[torch.Tensor] = None,
+    V_gen: Optional[torch.Tensor] = None,
 ) -> SSM:
     """Build the (U, V, phi, A) arrays for sorted input coordinates ``t``.
 
     ``diag`` is the per-point variance added to the diagonal (yerr**2).  The
-    arrays take ``t``'s dtype and device.
+    arrays take ``t``'s dtype and device.  Optional general semiseparable
+    blocks follow the reference convention: ``A_gen`` is (N,),
+    ``U_gen`` / ``V_gen`` are (J_general, N); their columns follow the
+    complex pairs with phi = 1 and ``A_gen`` adds to ``A``.
 
     Accuracy options for float32 (both static per dataset, see ops/ds.py):
     ``dt``: precomputed spacings (dt[0] == 0) — differencing a rounded f32
@@ -100,9 +108,18 @@ def lower(
     p_c = torch.stack([p_half, p_half], -1).reshape(n, 2 * jc)
 
     a = diag.to(t.dtype) + torch.sum(a_real) + torch.sum(a_comp) + jitter
+    parts_u, parts_v, parts_p = [u_r, u_c], [v_r, v_c], [p_r, p_c]
+    if U_gen is not None and U_gen.shape[0] > 0:
+        def gen(x):
+            return torch.as_tensor(x, dtype=t.dtype, device=t.device)
+
+        parts_u.append(gen(U_gen).T)
+        parts_v.append(gen(V_gen).T)
+        parts_p.append(t.new_ones((n, U_gen.shape[0])))
+        a = a + gen(A_gen)
     return SSM(
-        U=torch.cat([u_r, u_c], dim=1),
-        V=torch.cat([v_r, v_c], dim=1),
-        phi=torch.cat([p_r, p_c], dim=1),
+        U=torch.cat(parts_u, dim=1),
+        V=torch.cat(parts_v, dim=1),
+        phi=torch.cat(parts_p, dim=1),
         A=a,
     )

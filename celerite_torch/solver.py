@@ -18,6 +18,11 @@ native core below 4096 points when g++ is there, ``scan`` below 16384,
 only when asked for (on the host, whatever the device) and raises without
 g++.  The solver computes on ``cuda`` unless made with ``device="cpu"``,
 and raises when CUDA is missing.
+
+General semiseparable blocks ``(A, U, V)`` (``A`` (N,), ``U`` and ``V``
+(J_general, N)) lower with the kernel's terms on every route
+(``ops.lower``: phi = 1 columns after the complex pairs, ``A`` on the
+diagonal), with the JAX package's shape checks (solver.py:248-256).
 """
 
 from __future__ import annotations
@@ -94,18 +99,31 @@ def _coefficients(jitter, a_real, c_real, a_comp, b_comp, c_comp, d_comp):
                         float(np.asarray(jitter)))
 
 
-def _refuse_general(A, U, V):
-    if any(x is not None and np.size(x) > 0 for x in (A, U, V)):
-        raise _not_in_slice("general (A, U, V) blocks", "queue 1, item 10")
+def _general(A, U, V, n):
+    """The general blocks as float64 numpy ``dict(A_gen, U_gen, V_gen)``
+    for :func:`lower`, empty without them; the JAX package's checks
+    against ``n`` points (solver.py:248-256) raise ValueError."""
+    A = np.empty(0) if A is None else np.atleast_1d(np.asarray(A, float))
+    U = np.empty((0, 0)) if U is None else np.atleast_2d(np.asarray(U, float))
+    V = np.empty((0, 0)) if V is None else np.atleast_2d(np.asarray(V, float))
+    has_general = A.shape[0] != 0
+    if has_general and A.shape[0] != n:
+        raise ValueError("dimension mismatch")
+    if has_general and (U.shape[1] != n or V.shape[1] != n):
+        raise ValueError("dimension mismatch")
+    if U.shape[0] != V.shape[0]:
+        raise ValueError("dimension mismatch")
+    return dict(A_gen=A, U_gen=U, V_gen=V) if has_general else {}
 
 
-def _lower(coeffs, t, diag, device):
-    """The float64 SSM of numpy coefficients on ``device``."""
-    return lower(Coefficients(*(torch.as_tensor(c, dtype=torch.float64,
-                                                device=device)
-                                for c in coeffs)),
-                 torch.as_tensor(t, dtype=torch.float64, device=device),
-                 torch.as_tensor(diag, dtype=torch.float64, device=device))
+def _lower(coeffs, t, diag, device, general):
+    """The float64 SSM of numpy coefficients and general blocks on
+    ``device``."""
+    def dev(x):
+        return torch.as_tensor(x, dtype=torch.float64, device=device)
+
+    return lower(Coefficients(*map(dev, coeffs)), dev(t), dev(diag),
+                 **{k: dev(x) for k, x in general.items()})
 
 
 class CholeskySolver:
@@ -155,9 +173,8 @@ class CholeskySolver:
     # -- main entry ---------------------------------------------------------
     def compute(self, jitter, a_real, c_real, a_comp, b_comp, c_comp, d_comp,
                 A=None, U=None, V=None, t=None, diag=None):
-        """Factor K; raises LinAlgError on a negative pivot (cholesky.h:
-        41-210).  General semiseparable blocks (A, U, V) are not ported
-        (ROADMAP queue 1, item 10)."""
+        """Factor K, with the general blocks ``(A, U, V)`` where given;
+        raises LinAlgError on a negative pivot (cholesky.h:41-210)."""
         if t is None:
             raise ValueError("t is required")
         t = np.ascontiguousarray(np.atleast_1d(t), dtype=float)
@@ -167,12 +184,12 @@ class CholeskySolver:
             raise ValueError("dimension mismatch")
         coeffs = _coefficients(jitter, a_real, c_real, a_comp, b_comp,
                                c_comp, d_comp)
-        _refuse_general(A, U, V)
+        general = _general(A, U, V, n)
         # Drop a previous factor before either branch: a native factor
         # must never survive into a later torch recompute, or vice versa.
         self._reset()
         route, device = self._pick(n)
-        ssm = _lower(coeffs, t, diag, device)
+        ssm = _lower(coeffs, t, diag, device, general)
         if route == "native":
             ns = native.NativeSolver(*(x.numpy() for x in ssm))
             if not ns.ok or np.any(ns.D < 0):
@@ -271,9 +288,9 @@ class CholeskySolver:
             raise ValueError("dimension mismatch")
         coeffs = _coefficients(jitter, a_real, c_real, a_comp, b_comp,
                                c_comp, d_comp)
-        _refuse_general(A, U, V)
+        general = _general(A, U, V, t.shape[0])
         route, device = self._pick(t.shape[0])
-        ssm = _lower(coeffs, t, np.zeros(t.shape[0]), device)
+        ssm = _lower(coeffs, t, np.zeros(t.shape[0]), device, general)
         if route == "native":
             return self._native_columns(
                 lambda col: native.matmul(*(x.numpy() for x in ssm), col), z)
@@ -303,7 +320,7 @@ class CholeskySolver:
         t = np.ascontiguousarray(np.atleast_1d(t), dtype=float)
         resid = np.ascontiguousarray(resid, dtype=float)
         diag = np.ascontiguousarray(np.atleast_1d(diag), dtype=float)
-        _refuse_general(A, U, V)
+        general = _general(A, U, V, t.shape[0])
         blocks = [np.atleast_1d(np.asarray(jitter, dtype=float))] + [
             np.atleast_1d(np.asarray(v, dtype=float))
             for v in (a_real, c_real, a_comp, b_comp, c_comp, d_comp)]
@@ -315,7 +332,9 @@ class CholeskySolver:
         parts = torch.split(flat, [len(b) for b in blocks])
         coeffs = Coefficients(*parts[1:], jitter=parts[0][0])
         ssm = lower(coeffs, torch.as_tensor(t, device=device),
-                    torch.as_tensor(diag, device=device))
+                    torch.as_tensor(diag, device=device),
+                    **{k: torch.as_tensor(x, device=device)
+                       for k, x in general.items()})
         ll, ok = _OPS[route].gp_log_likelihood(
             ssm, torch.as_tensor(resid, device=device))
         if not bool(ok):

@@ -8,7 +8,9 @@ gradient, the exact-mode, the adjoint and the three-pass kernels against
 their plain versions on the card; :func:`compare_fused_kernel` and
 :func:`compare_tangent_kernels` the single-sweep kernel and the tangent
 kernels, on the streams :func:`blocked_streams` and
-:func:`lane_tangent_streams` make.
+:func:`lane_tangent_streams` make.  :func:`general_problem` and
+:func:`general_kernel` make a model with general (A, U, V) blocks, and
+:func:`general_lane_streams` its phi = 1 lane streams.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ __all__ = ["make_data", "CASES", "pack_values", "pack_values_ds",
            "blocked_streams", "lane_tangent_streams", "compare_grad_kernels",
            "compare_ds_kernels", "compare_adjoint_kernels",
            "compare_solver_kernels", "compare_fused_kernel",
-           "compare_tangent_kernels"]
+           "compare_tangent_kernels", "general_kernel", "general_problem",
+           "general_lane_streams"]
 
 # (jr, jc, coefficient values) of the fused primal tests: packed as
 # [a_real, c_real, a_comp, b_comp, c_comp, d_comp]; complex terms keep
@@ -117,20 +120,96 @@ def width_kernel(terms, width):
     return wide_kernel(terms, width)
 
 
-def blocked_streams(kernel, t, y, yerr, L, dtype=torch.float64,
-                    device="cpu"):
-    """The ``(u, v, ph, a, y)`` blocks of ``L`` steps (``blocked.
-    _pad_blocks``, a padded tail unless L divides N) of a ``celerite_torch``
-    kernel at its parameters, lowered in float64 and then cast."""
-    from .ops import blocked
+def general_kernel(terms):
+    """benchmarks/general_row.py:49-52's two SHO terms (Q = e and e^0.7,
+    both underdamped) as two ComplexTerms at their coefficients: the same
+    covariance at padded width 4, where each SHO term pads to (2, 1).  An
+    SHO term sits on the box prior's edge a c = b d, so log b is lowered
+    by 1e-12 for the prior to hold in rounding."""
+    out = []
+    for log_s0, log_q, log_w0 in ((-0.7, 1.0, 0.0), (-0.9, 0.7, 0.3)):
+        sho = terms.SHOTerm(log_S0=log_s0, log_Q=log_q, log_omega0=log_w0)
+        a, b, c, d = [float(x[0]) for x in sho.coefficients[2:6]]
+        out.append(terms.ComplexTerm(log_a=np.log(a),
+                                     log_b=np.log(b) - 1e-12,
+                                     log_c=np.log(c), log_d=np.log(d)))
+    return out[0] + out[1]
+
+
+def general_problem(n, rank, seed=11):
+    """benchmarks/general_row.py:27-36's data and general blocks at ``n``
+    points and general rank ``rank``: ``(t, y, yerr, A, U, V)``, ``A``
+    (n,), ``U`` and ``V`` (rank, n).  Its noise in V (0.01 N(0, 1)) makes
+    the covariance indefinite above ~8,000 points (the noise part of
+    ``tril(U^T V, -1)`` grows like n: K's least eigenvalue 0.33 at 4096
+    points, 0.16 at 8192, negative at 16384), so here it is scaled by
+    min(1, 4096 / n)."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.uniform(0, n / 100.0, n))
+    y = rng.standard_normal(n)
+    yerr = np.full(n, 0.316227766)
+    U = np.vander((t - t.min()) / (t.max() - t.min()), rank).T * 0.1
+    V = 0.5 * U + 0.01 * min(1.0, 4096 / n) * rng.standard_normal(U.shape)
+    A = np.sum(U * V, axis=0) + 0.3
+    return t, y, yerr, A, U, V
+
+
+def _ssm_resid_fn(kernel, t, y, yerr, general):
+    """``theta -> (lower(...), resid)`` of a kernel, with the general
+    blocks ``(A, U, V)`` where given, in float64 on the CPU."""
     from .ops.lower import Coefficients, lower
 
+    def f64(x):
+        return torch.as_tensor(np.asarray(x, np.float64))
+
+    gen = {} if general is None else dict(zip(("A_gen", "U_gen", "V_gen"),
+                                              map(f64, general)))
+    t64, diag, y64 = f64(t), f64(yerr) ** 2, f64(y)
+
+    def ssm_resid(th):
+        coeffs = Coefficients(*kernel.get_padded_coefficients(th),
+                              jitter=kernel.get_jitter(th))
+        return lower(coeffs, t64, diag, **gen), y64
+
+    return ssm_resid
+
+
+def general_lane_streams(kernel, t, y, yerr, general, num_blocks,
+                         dtype=torch.float64, device="cpu"):
+    """Lane streams ``(u, v, ph, a, y)`` ``(L, P, B)`` / ``(L, 1, B)`` of a
+    model with general blocks ``(A, U, V)`` on ``num_blocks`` lanes
+    (``blocked._time_major``, as the SSM-level routes lay them out), and
+    their tangents along the kernel's parameters ``(L, T, P, B)`` /
+    ``(L, T, 1, B)`` (``lanes.basis_jvp``; zero on the general columns),
+    lowered in float64 and then cast."""
+    from .ops import blocked, lanes, tangent
+
     th = torch.as_tensor(kernel.get_parameter_vector())
-    coeffs = Coefficients(*kernel.get_padded_coefficients(th),
-                          jitter=kernel.get_jitter(th))
-    ssm = lower(coeffs, torch.as_tensor(np.asarray(t, np.float64)),
-                torch.as_tensor(np.asarray(yerr, np.float64) ** 2))
-    streams = blocked._pad_blocks(ssm, torch.as_tensor(y), L)[:5]
+    (ssm, resid), (dssm, dresid) = lanes.basis_jvp(
+        _ssm_resid_fn(kernel, t, y, yerr, general), th)
+    n, b = ssm.U.shape[0], int(num_blocks)
+    L = -(-n // b)
+    streams = blocked._time_major(ssm, resid, b, L)
+    tangents = [tangent._to_lanes_tan(x, b, L, b * L - n)
+                for x in (dssm.U, dssm.V, dssm.phi, dssm.A, dresid)]
+
+    def cast(x):
+        return x.to(dtype=dtype, device=device).contiguous()
+
+    return tuple(map(cast, streams)), tuple(map(cast, tangents))
+
+
+def blocked_streams(kernel, t, y, yerr, L, dtype=torch.float64,
+                    device="cpu", general=None):
+    """The ``(u, v, ph, a, y)`` blocks of ``L`` steps (``blocked.
+    _pad_blocks``, a padded tail unless L divides N) of a ``celerite_torch``
+    kernel at its parameters, with the general blocks ``(A, U, V)`` where
+    given, lowered in float64 and then cast."""
+    from .ops import blocked
+
+    th = torch.as_tensor(kernel.get_parameter_vector())
+    ssm, resid = _ssm_resid_fn(kernel, t, y, yerr, general)(th)
+    streams = blocked._pad_blocks(ssm, resid, L)[:5]
     return tuple(x.to(dtype=dtype, device=device) for x in streams)
 
 

@@ -123,7 +123,17 @@ through the entry points a user calls:
   chains against one-chain calls, the config[4] example's ``sample_smc``
   and ``inference.sample_nuts_batch`` on per-curve fits; then rows 1-5
   against their plain versions on the fleet plans (pad lanes included)
-  and the fleet's value and gradient timed and profiled.
+  and the fleet's value and gradient timed and profiled;
+- M: general (A, U, V) blocks (benchmarks/general_row.py's data and its
+  two SHO terms as ComplexTerms, padded width 4) at general rank 4, 9 and
+  14 (P = 8 at N = 65,536, 13 at 16,384, 18 at 4,096): ``GP.compute``
+  (the three-pass factor), ``build_loglik`` by "auto", "fused", "pallas"
+  and ``fast_grad`` True and "tangent", value and gradient against the
+  CPU float64 ``blocked`` route, float32 against float64, "fused" raising
+  above P = 16; ``dot``, ``apply_inverse``, ``predict(return_var=True)``
+  and ``sample`` on 4,096 points against the dense K; ``sample_nuts`` on
+  that model; then rows 8-18 against their plain versions on the phi = 1
+  streams and each route's value and gradient timed and profiled.
 
 Each main path resets every kernel's launch counter just before it runs and
 reads the counters just after; a kernel of the path that did not launch
@@ -168,7 +178,9 @@ from celerite_torch.testing import (CASES, bench_kernel, blocked_streams,
                                     compare_onepass_kernels,
                                     compare_solver_kernels,
                                     compare_tangent_kernels, config2_kernel,
-                                    lane_tangent_streams, make_data,
+                                    general_kernel, general_lane_streams,
+                                    general_problem, lane_tangent_streams,
+                                    make_data,
                                     onepass_cotangents, onepass_f32_floor,
                                     pack_values, pack_values_ds, wide_kernel,
                                     width_kernel)
@@ -3929,6 +3941,356 @@ def main_path_l(dev, errs, grad_errs):
     return counts
 
 
+# ---- main path M: general (A, U, V) blocks ----
+# benchmarks/general_row.py's data and kernel (celerite_torch.testing.
+# general_problem / general_kernel: padded width 4) at general rank 4, 9
+# and 14: P = 8, 13 and 18, widths the script builds already (M3 above 16).
+M_CASES = {"M1": (4, 65_536), "M2": (9, 16_384), "M3": (14, 4_096)}
+# (name, build_loglik options) of each route at M1 and M2, and the rows
+# each runs on the card: rows 12-14 for "pallas" and for "fused" above
+# P = 8, row 15 for "fused" at P <= 8; "adjoint" the value on "fused" and
+# the gradient on rows 8-11; "tangent" the gradient on row 18 at P <= 8,
+# rows 16-17 above.  "auto" is the plain blocked solver.
+M_ROUTES = {
+    "M1": (("auto", {}), ("fused", {"solver": "fused"}),
+           ("pallas", {"solver": "pallas"}),
+           ("tangent", {"solver": "fused", "fast_grad": "tangent"})),
+    "M2": (("fused", {"solver": "fused"}),
+           ("adjoint", {"solver": "fused", "fast_grad": True}),
+           ("tangent", {"solver": "fused", "fast_grad": "tangent"})),
+}
+M_LL_RTOL = 1e-10     # f64 ll on the card against the CPU f64 blocked route
+M_GRAD_RTOL = 1e-8    # the gradient, of its norm
+M_F32_RTOL = 1e-4     # f32 ll against f64
+M_DENSE_N = 4096      # M1's prefix held against the dense K
+M_DENSE_RTOL = 1e-9
+M_PREDICT_M = 256
+M_NUTS = {"chains": 2, "warmup": 20, "samples": 8, "depth": 4}
+M_REPS = 5
+
+
+def m_counts():
+    """Rows 8-18's launch counters."""
+    return {**adjoint_counts(), **solver_counts(), **tangent_counts()}
+
+
+def m_problem(name):
+    rank, n = M_CASES[name]
+    t, y, yerr, A, U, V = general_problem(n, rank)
+    return t, y, yerr, (A, U, V)
+
+
+def m_gp(problem, device=None):
+    t, _, yerr, (A, U, V) = problem
+    gp = celerite_torch.GP(general_kernel(terms), device=device)
+    gp.compute(t, yerr, A=A, U=U, V=V)
+    return gp
+
+
+def m_reference(problem):
+    """(GP on the CPU, its log determinant, ll, ok, gradient): the CPU
+    float64 ``blocked`` route and autograd through it."""
+    t, y, yerr, _ = problem
+    cpu = m_gp(problem, device="cpu")
+    fn = cpu.build_loglik(t, y, yerr=yerr, solver="blocked")
+    theta = torch.as_tensor(cpu.get_parameter_vector())
+    ll, ok, grad = autograd_value_and_grad(fn, theta)
+    return cpu.solver.log_determinant(), float(ll), bool(ok), grad
+
+
+def m_dense_check(problem, dev):
+    """The first M_DENSE_N points of ``problem`` on the card against the
+    dense K (``dense.build_matrix`` with the general blocks, Cholesky on the
+    card): ll, ``apply_inverse``, ``dot``, ``predict(return_var=True)`` at
+    M_PREDICT_M points against the dense formulas; a ``sample``."""
+    t, y, yerr, (A, U, V) = problem
+    m = M_DENSE_N
+    sub = (t[:m], y[:m], yerr[:m], (A[:m], U[:, :m], V[:, :m]))
+    gp = m_gp(sub)
+    t4, y4, yerr4, gen = sub
+    kern = gp.kernel
+    kp = torch.as_tensor(kern.get_parameter_vector())
+
+    def d(x):
+        return torch.as_tensor(np.asarray(x, np.float64), device=dev)
+
+    coeffs = Coefficients(*(c.to(dev) for c in
+                            kern.get_padded_coefficients(kp)),
+                          jitter=kern.get_jitter(kp).to(dev))
+    K = ops.dense.build_matrix(coeffs, d(t4), diag=d(yerr4) ** 2,
+                               A_gen=d(gen[0]), U_gen=d(gen[1]),
+                               V_gen=d(gen[2]))
+    chol = torch.linalg.cholesky(K)
+    yd = d(y4)[:, None]
+    alpha = torch.cholesky_solve(yd, chol)[:, 0]
+    ll_dense = float(-0.5 * (yd[:, 0] @ alpha
+                             + 2 * torch.log(torch.diagonal(chol)).sum()
+                             + m * math.log(2 * math.pi)))
+    rng = np.random.default_rng(12)
+    z = rng.standard_normal(m)
+    xs = np.sort(rng.uniform(t4[0], t4[-1], M_PREDICT_M))
+    Kxs = ops.dense.build_matrix(coeffs, d(xs), t2=d(t4))
+    mu_dense = (Kxs @ alpha).cpu().numpy()
+    var_dense = (float(kern.get_value(0.0)) - torch.sum(
+        Kxs * torch.cholesky_solve(Kxs.T.contiguous(), chol).T,
+        dim=1)).cpu().numpy()
+    K0z = ((K - torch.diag(d(yerr4) ** 2)) @ d(z)).cpu().numpy()
+    mu, var = gp.predict(y4, xs, return_var=True)
+    draws = gp.sample(size=4, seed=3)
+    errs = {
+        "ll": rel(gp.log_likelihood(y4), ll_dense),
+        "apply_inverse": max_rel(gp.apply_inverse(y4).reshape(-1),
+                                 alpha.cpu().numpy()),
+        "dot": max_rel(gp.dot(z), K0z),
+        "predict_mean": max_rel(mu, mu_dense),
+        "predict_var": max_rel(var, var_dense),
+    }
+    return gp, sub, errs, bool(np.all(np.isfinite(draws))), list(
+        draws.shape)
+
+
+def m_nuts(gp, sub, dev):
+    """``inference.sample_nuts`` on the dense check's model, on data drawn
+    from it (``GP.sample``; general_row.py's y is white noise, on which 20
+    warmup transitions left 15 of 16 sampling transitions divergent):
+    M_NUTS's chains, warmup and sampling transitions and tree depth, a
+    dense mass, a Gaussian prior (sd 1) around the kernel's parameters;
+    the log probability through ``solver="fused", fast_grad="tangent"``
+    (the value on row 15, the gradient on row 18) under the samplers'
+    autograd fallback."""
+    t4, _, yerr4, _ = sub
+    y4 = gp.sample(seed=2032)
+    theta = torch.as_tensor(gp.get_parameter_vector(), device=dev)
+
+    def prior(th):
+        return -0.5 * torch.sum((th - theta) ** 2)
+
+    lp = gp.build_logprob(t4, y4, yerr=yerr4, log_prior=prior,
+                          solver="fused", fast_grad="tangent")
+    gen = torch.Generator(device=dev).manual_seed(2031)
+    q0 = theta[None] + 0.02 * torch.randn(
+        M_NUTS["chains"], theta.shape[0], generator=gen,
+        dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    chain, info = inference.sample_nuts(
+        lp, q0, gen, num_warmup=M_NUTS["warmup"],
+        num_samples=M_NUTS["samples"], max_tree_depth=M_NUTS["depth"],
+        warmup_max_tree_depth=M_NUTS["depth"], initial_step_size="auto",
+        dense_mass=True)
+    torch.cuda.synchronize()
+    out = {"route": lp.loglik.route, "seconds": time.perf_counter() - t0,
+           "step_size": float(info["step_size"]),
+           "mean_accept_sampling": float(info["accept_prob"]),
+           "divergences_sampling": int(info["divergences"]),
+           "leapfrog_slots_sampling": int(info["num_steps"]),
+           "finite": bool(torch.isfinite(chain).all()),
+           "shape": list(chain.shape)}
+    out["ok"] = (out["finite"]
+                 and out["mean_accept_sampling"] >= SAMPLER_ACCEPT_FLOOR
+                 and out["divergences_sampling"]
+                 < M_NUTS["chains"] * M_NUTS["samples"])
+    return out
+
+
+def m_rows_vs_plain(problems, dev, adj_errs, solver_errs, tangent_errs):
+    """Rows 8-18 against their plain versions on M1's and M2's phi = 1
+    streams, laid out as the routes lay them: rows 12-14 on the blocks of
+    ``pallas_solver.default_block_size`` steps; at M1 (P = 8) row 15 on
+    ``fused.default_num_blocks`` lanes, rows 16-18 on
+    ``tangent.default_jac_blocks`` lanes with the parameters' tangents
+    (zero on the general columns); at M2 (P = 13) rows 8-11 on
+    ``adjoint.default_adjoint_blocks`` lanes and rows 16-17 on the jac
+    lanes.  Float64, at F64_RTOL and TANGENT_F64_RTOL; each kernel's
+    error joins its row's ``max_abs_err``."""
+    kern = general_kernel(terms)
+    for name, problem in problems.items():
+        t, y, yerr, gen = problem
+        n = len(t)
+        tag = "main_path_" + name
+        info = {"n": n, "general_rank": M_CASES[name][0]}
+        solver_case(solver_errs, tag, blocked_streams(
+            kern, t, y, yerr, pallas_solver.default_block_size(dev),
+            device=dev, general=gen), F64_RTOL, **info)
+        b = tangent.default_jac_blocks(n, dev)
+        s, dirs = general_lane_streams(kern, t, y, yerr, gen, b, device=dev)
+        jac = ("jac",) if s[0].shape[1] <= fused.MAX_WIDTH else ()
+        tangent_case(tangent_errs, tag, s, dirs, b,
+                     ("elements_jvp", "factor_jvp") + jac, **info)
+        del s, dirs
+        if m_width(kern, gen) <= fused.MAX_WIDTH:
+            b = fused.default_num_blocks(n, dev)
+            s, _ = general_lane_streams(kern, t, y, yerr, gen, b,
+                                        device=dev)
+            tangent_case(tangent_errs, tag, s, None, b, ("fused",), **info)
+        else:
+            b = adjoint.default_adjoint_blocks(n, dev)
+            s, _ = general_lane_streams(kern, t, y, yerr, gen, b,
+                                        device=dev)
+            adjoint_case(adj_errs, tag, s, b, F64_RTOL, **info)
+        del s
+        torch.cuda.empty_cache()
+
+
+def m_width(kern, gen):
+    """Padded width P of a kernel with general blocks."""
+    pr, pc = kern.padded_size
+    return pr + 2 * pc + gen[1].shape[0]
+
+
+def m_value_and_grad_ms(fn, theta, profile_grad=True):
+    """A value (no autograd) and a value and gradient: each the median ms of
+    M_REPS synchronised calls (host clock) and its launches of rows 8-18 a
+    call; the value's device idle share profiled over three calls, the
+    value and gradient's over one where ``profile_grad`` (a backward
+    through plain ``blocked`` is ~19,500 launches, ~15 s under the
+    profiler, so M_ROUTES's routes that share it profile it once)."""
+    def value():
+        with torch.no_grad():
+            return fn(theta)
+
+    def vg():
+        return autograd_value_and_grad(fn, theta)
+
+    out = {}
+    for tag, call, evals in (("value", value, 3),
+                             ("value_and_grad", vg, profile_grad)):
+        call()
+        before = m_counts()
+        ms, _ = timed_ms(call, reps=M_REPS)
+        out[tag] = {"ms": ms, "row_launches_a_call": {
+            k: (v - before[k]) / M_REPS for k, v in m_counts().items()
+            if v > before[k]}}
+        if evals:
+            prof = profile_evals(lambda _: call(), None, evals=int(evals))
+            out[tag].update(
+                launches_a_call=prof["kernel_launches_per_eval"],
+                device_busy_ms=prof["device_busy_ms_per_eval"],
+                device_idle_share=prof["device_idle_share"])
+    return out
+
+
+def main_path_m(dev, adj_errs, solver_errs, tangent_errs):
+    """General (A, U, V) semiseparable blocks on the card (ROADMAP queue 1
+    item 10), on :func:`general_problem`'s data and
+    :func:`general_kernel` at M_CASES's general ranks and sizes, float64
+    but where stated:
+
+    - ``GP.compute`` (rows 12-13 through ``blocked.factor`` at M1 and M2,
+      the plain passes at M3): its log determinant against the CPU float64
+      route, M_LL_RTOL;
+    - ``build_loglik`` by each route of M_ROUTES at M1 and M2, and
+      ``"auto"`` at M3: ll against the CPU float64 ``blocked`` route
+      (M_LL_RTOL), the gradient (autograd through the closure, or its
+      ``fast_grad`` route) against autograd through it (M_GRAD_RTOL of its
+      norm); float32 ``"auto"``, ``"fused"`` and ``"pallas"`` at M1 against
+      float64 (M_F32_RTOL); ``"fused"`` at M3 (P = 18) raises naming queue 2
+      item 10;
+    - :func:`m_dense_check` on M1's first M_DENSE_N points and
+      :func:`m_nuts` on that model.
+
+    The counters of rows 8-18 are read after these and each must have
+    launched; then :func:`m_rows_vs_plain` and the timings of each route
+    (:func:`m_value_and_grad_ms`).  Returns the launch counts."""
+    t_m = time.perf_counter()
+    parts, mark = {}, [t_m]
+
+    def part(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[name] = now - mark[0]
+        mark[0] = now
+
+    problems = {name: m_problem(name) for name in M_CASES}
+    refs = {name: m_reference(p) for name, p in problems.items()}
+    part("data_and_cpu_reference")
+    reset_counts()
+    gps, out, checks = {}, {}, {}
+    for name, problem in problems.items():
+        t, y, yerr, gen = problem
+        gp = gps[name] = m_gp(problem)
+        logdet, ll_ref, ok_ref, g_ref = refs[name]
+        res = out[name] = {
+            "n": len(t), "general_rank": M_CASES[name][0],
+            "width": m_width(gp.kernel, gen),
+            "compute_route": gp.solver._route,
+            "rel_err_log_determinant": rel(gp.solver.log_determinant(),
+                                           logdet),
+            "ll_cpu": ll_ref, "routes": {}}
+        checks[name + "_compute"] = (
+            ok_ref and res["rel_err_log_determinant"] <= M_LL_RTOL)
+        theta = torch.as_tensor(gp.get_parameter_vector(), device=dev)
+        for route, kw in M_ROUTES.get(name, (("auto", {}),)):
+            fn = gp.build_loglik(t, y, yerr=yerr, **kw)
+            ll, ok, grad = autograd_value_and_grad(fn, theta)
+            r = res["routes"][route] = {
+                "route": fn.route, "ok": bool(ok),
+                "rel_err_ll": rel(ll, ll_ref),
+                "rel_err_grad": grad_rel(grad.cpu(), g_ref)}
+            checks["{0}_{1}".format(name, route)] = (
+                r["ok"] and r["rel_err_ll"] <= M_LL_RTOL
+                and r["rel_err_grad"] <= M_GRAD_RTOL)
+        if name == "M1":
+            for route, kw in M_ROUTES[name][:3]:
+                fn = gp.build_loglik(t, y, yerr=yerr, dtype=torch.float32,
+                                     **kw)
+                with torch.no_grad():
+                    ll32, ok32 = fn(theta.float())
+                res["routes"][route]["rel_err_ll_f32_vs_f64"] = rel(
+                    ll32, ll_ref)
+                checks["M1_{0}_f32".format(route)] = (
+                    bool(ok32) and rel(ll32, ll_ref) <= M_F32_RTOL)
+        if name == "M3":
+            try:
+                gp.build_loglik(t, y, yerr=yerr, solver="fused")
+                res["fused_raises"] = None
+            except NotImplementedError as e:
+                res["fused_raises"] = str(e)
+            checks["M3_fused_raises"] = "queue 2, item 10" in str(
+                res["fused_raises"])
+    part("routes")
+    gp4, sub, dense_errs, sample_ok, sample_shape = m_dense_check(
+        problems["M1"], dev)
+    out["dense_M1_prefix"] = {"n": M_DENSE_N, "rel_err": dense_errs,
+                              "sample_finite": sample_ok,
+                              "sample_shape": sample_shape}
+    checks["dense"] = (max(dense_errs.values()) <= M_DENSE_RTOL
+                       and sample_ok)
+    part("dense")
+    nuts = out["nuts"] = m_nuts(gp4, sub, dev)
+    checks["nuts"] = nuts["ok"]
+    part("nuts")
+    counts = m_counts()
+    emit("main_path_M", model="benchmarks/general_row.py's two SHO terms "
+         "as ComplexTerms (P=4) + general blocks", launches=counts,
+         **out, checks=checks, seconds_by_part=parts)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail("main path M failed: {0}".format(bad))
+    missed = [k for k, v in counts.items() if v < 1]
+    if missed:
+        fail("main path M did not launch rows {0}".format(missed))
+
+    m_rows_vs_plain({k: problems[k] for k in ("M1", "M2")}, dev, adj_errs,
+                    solver_errs, tangent_errs)
+    part("rows_vs_plain")
+    timing = {}
+    for name in ("M1", "M2"):
+        t, y, yerr, _ = problems[name]
+        theta = torch.as_tensor(gps[name].get_parameter_vector(),
+                                device=dev)
+        for route, kw in M_ROUTES[name]:
+            fn = gps[name].build_loglik(t, y, yerr=yerr, **kw)
+            # Without fast_grad, "fused" and "pallas" take M1 "auto"'s
+            # backward (autograd through plain blocked).
+            timing["{0}_{1}".format(name, route)] = m_value_and_grad_ms(
+                fn, theta, profile_grad=route in ("auto", "adjoint",
+                                                  "tangent"))
+    part("timing")
+    emit("main_path_M_times", timing=timing, seconds_by_part=parts,
+         seconds=time.perf_counter() - t_m)
+    return counts
+
+
 def redesigned_summary(smi, ptxas, primal_rows, grad_rows, tangent_rows,
                        adj_rows, onepass_rows, solver_rows):
     """The kernels redesigned for this card and those sharing their code,
@@ -4369,6 +4731,10 @@ def main():
     counts_l = main_path_l(dev, errs, grad_errs)
     torch.cuda.empty_cache()
 
+    # ---- main path M: general (A, U, V) blocks through rows 8-18 ----
+    counts_m = main_path_m(dev, adj_errs, solver_errs, tangent_errs)
+    torch.cuda.empty_cache()
+
     kernels = [{
         "name": "fused4_primal",
         "route": "cuda",
@@ -4426,7 +4792,7 @@ def main():
             "route": "cuda",
             "source": "celerite_torch/csrc/adjoint.cu",
             "replaces": ADJ_REPLACES[name],
-            "launches": counts_e[name] + grew_e[name],
+            "launches": counts_e[name] + grew_e[name] + counts_m[name],
             "max_abs_err": max(adj_errs[name]),
             "ms": row["ms_float64"],
             "plain_ms": row["plain_ms_float64"],
@@ -4443,7 +4809,8 @@ def main():
             "route": "cuda",
             "source": "celerite_torch/csrc/pallas_solver.cu",
             "replaces": SOLVER_REPLACES[name],
-            "launches": counts_f[name] + counts_i[name] + counts_k[name],
+            "launches": (counts_f[name] + counts_i[name] + counts_k[name]
+                         + counts_m[name]),
             "max_abs_err": max(solver_errs[name]),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -4460,7 +4827,8 @@ def main():
             "route": "cuda",
             "source": TANGENT_SOURCES[name],
             "replaces": TANGENT_REPLACES[name],
-            "launches": counts_g[name] + grew_g.get(name, 0),
+            "launches": (counts_g[name] + grew_g.get(name, 0)
+                         + counts_m[name]),
             "max_abs_err": max(tangent_errs[name]),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

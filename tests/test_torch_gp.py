@@ -188,9 +188,18 @@ def test_no_cuda_raises_instead_of_cpu():
 def test_out_of_slice_options_raise():
     gp = GP(bench_kernel(tterms), device="cpu")
     t, y, yerr = make_data(50)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gp.compute(t, yerr, A=np.ones(50), U=np.ones((1, 50)),
-                   V=np.ones((1, 50)))
+    # General (A, U, V) blocks are ported: the rank-1 block of ones adds
+    # the all-ones matrix, and the ll is the dense K's.
+    gp.compute(t, yerr, A=np.ones(50), U=np.ones((1, 50)),
+               V=np.ones((1, 50)))
+    K = gp.get_matrix()
+    np.testing.assert_allclose(K - gp.get_matrix(include_general=False),
+                               np.ones((50, 50)), atol=1e-14)
+    _, logdet = np.linalg.slogdet(K)
+    np.testing.assert_allclose(
+        gp.log_likelihood(y), -0.5 * (y @ np.linalg.solve(K, y) + logdet
+                                      + 50 * np.log(2 * np.pi)),
+        rtol=1e-10)
     wide = GP(sum([tterms.SHOTerm(log_S0=0.0, log_Q=1.0, log_omega0=w)
                    for w in (0.1, 0.5, 0.9, 1.3)], tterms.JitterTerm(-1.0)),
               device="cpu")

@@ -1464,3 +1464,111 @@ def test_fleet_loglik_on_the_card(cuda_device):
     np.testing.assert_allclose(vk.cpu().numpy(), vc.numpy(), rtol=1e-10)
     np.testing.assert_allclose(gk.cpu().numpy(), gc.numpy(), rtol=1e-8,
                                atol=1e-8 * float(gc.abs().max()))
+
+
+# General (A, U, V) blocks: phi = 1 columns after the kernel's, lowered from
+# general_problem's data (benchmarks/general_row.py) on general_kernel's
+# padded width 4; general rank 4 gives P = 8, rank 9 P = 13.
+GENERAL_RANKS = {8: 4, 13: 9}
+
+
+def _general(width, n=4099):
+    from celerite_torch import terms
+    from celerite_torch.testing import general_kernel, general_problem
+
+    t, y, yerr, A, U, V = general_problem(n, GENERAL_RANKS[width])
+    return general_kernel(terms), t, y, yerr, (A, U, V)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 13])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_general_rows_match_plain(width, dtype, cuda_device):
+    """Rows 8-18 on phi = 1 streams with general columns against their
+    plain versions, every output: 1e-10 in float64, the kernels' float32
+    bars in float32.  N = 4099: the three-pass kernels in blocks of 96
+    steps (43 lanes, a padded tail); the adjoint kernels, the single-sweep
+    kernel (P = 8) and the tangent kernels (the jac call at P = 8) on 64
+    lanes with the kernel parameters' tangents, zero on the general
+    columns."""
+    from celerite_torch.testing import general_lane_streams
+
+    f64 = dtype == torch.float64
+    kern, t, y, yerr, gen = _general(width)
+    streams = blocked_streams(kern, t, y, yerr, 96, dtype=dtype,
+                              device=cuda_device, general=gen)
+    assert streams[0].shape[1] == width
+    assert bool((streams[2][:, 4:] == 1).all())
+    errs = compare_solver_kernels(*streams)
+    rtol = 1e-10 if f64 else SOLVER_F32_RTOL
+    bad = {k: e["outputs"] for k, e in errs.items() if e["max_rel_err"] > rtol}
+    s, d = general_lane_streams(kern, t, y, yerr, gen, 64, dtype=dtype,
+                                device=cuda_device)
+    assert float(d[0][:, :, 4:].abs().max()) == 0.0
+    errs = compare_adjoint_kernels(*s)
+    rtol = 1e-10 if f64 else ADJ_F32_RTOL
+    bad.update({k: e["outputs"] for k, e in errs.items()
+                if e["max_rel_err"] > rtol})
+    kernels = ("elements_jvp", "factor_jvp") + (("jac",) if width <= 8
+                                                else ())
+    errs = compare_tangent_kernels(s, d, kernels=kernels)
+    if width <= 8:
+        errs.update(compare_fused_kernel(*s))
+    limits = {"fused": FUSED_F32_RTOL, **TANGENT_F32_RTOL}
+    bad.update({k: e["outputs"] for k, e in errs.items()
+                if e["max_rel_err"] > (1e-10 if f64 else limits[k])})
+    assert not bad, bad
+
+
+GENERAL_ROUTES = [("auto", None), ("fused", None), ("pallas", None),
+                  ("blocked", True), ("fused", True), ("fused", "tangent"),
+                  ("pallas", "tangent")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 13])
+@pytest.mark.parametrize("solver,fast_grad", GENERAL_ROUTES)
+def test_general_build_loglik_on_the_card(width, solver, fast_grad,
+                                          cuda_device):
+    """``build_loglik`` with general blocks on the card against the CPU
+    float64 ``blocked`` route, ll (1e-10) and gradient (1e-8 of its norm),
+    at N = 4099, by every kernel route: "fused" (row 15 at P = 8, rows
+    12-14 at 13), "pallas" (rows 12-14), ``fast_grad=True`` (the adjoint
+    rows 8-11) and "tangent" (row 18 at P = 8, rows 16-17 at 13); the
+    route's kernels launch."""
+    from celerite_torch import GP
+    from celerite_torch.ops import adjoint, fused, pallas_solver, tangent
+
+    kern, t, y, yerr, gen = _general(width)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        gp = GP(kern, device=dev)
+        gp.compute(t, yerr, A=gen[0], U=gen[1], V=gen[2])
+        fn = gp.build_loglik(t, y, yerr=yerr, solver=(
+            "blocked" if dev == "cpu" else solver), fast_grad=(
+            None if dev == "cpu" else fast_grad))
+        theta = torch.tensor(gp.get_parameter_vector(), device=dev,
+                             requires_grad=True)
+        counters = [fused.kernel_cuda, tangent.jac_cuda,
+                    tangent.factor_jvp_cuda, adjoint.factor_bwd_cuda,
+                    pallas_solver.subst_cuda]
+        before = [c.launches for c in counters]
+        ll, ok = fn(theta)
+        (grad,) = torch.autograd.grad(ll, theta)
+        launched = [c.launches - b for c, b in zip(counters, before)]
+        assert bool(ok)
+        out[dev] = (float(ll.detach()), grad.cpu(), launched)
+    want = {("fused", None): 0 if width <= 8 else 4,
+            ("pallas", None): 4, ("fused", True): 3,
+            ("pallas", "tangent"): 4,
+            ("fused", "tangent"): 0 if width <= 8 else 4}
+    launched = out["cuda"][2]
+    if (solver, fast_grad) in want:
+        assert launched[want[solver, fast_grad]] >= 1, launched
+    if fast_grad == "tangent":
+        assert launched[1 if width <= 8 else 2] >= 1, launched
+    if fast_grad is True:
+        assert launched[3] >= 1, launched
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-10)
+    g, gw = out["cuda"][1], out["cpu"][1]
+    assert float((g - gw).norm() / gw.norm()) < 1e-8

@@ -121,14 +121,25 @@ def test_free_functions_and_grad_match_jax():
 
 
 def test_general_blocks_and_no_cuda_raise():
-    """General (A, U, V) blocks name ROADMAP queue 1 item 10; without
-    ``device="cpu"`` the solver raises when CUDA is missing."""
+    """A 50-point factor with general (A, U, V) blocks matches the dense K
+    (``tril(U^T V, -1) + triu(V^T U, 1) + diag(A)`` on the kernel's);
+    without ``device="cpu"`` the solver raises when CUDA is missing."""
     jitter, cs = _args(width_kernel(jterms, 5))
     t, y, yerr = make_data(50)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        solver.CholeskySolver(device="cpu").compute(
-            jitter, *cs, A=np.ones(50), U=np.ones((1, 50)),
-            V=np.ones((1, 50)), t=t, diag=yerr**2)
+    rng = np.random.default_rng(6)
+    U = 0.1 * np.vander(t / t.max(), 2).T
+    V = 0.5 * U + 0.01 * rng.standard_normal(U.shape)
+    A = np.sum(U * V, axis=0) + 0.3
+    tau = np.abs(t[:, None] - t[None, :])
+    K = np.asarray(jsolver.get_kernel_value(*cs, tau)) + np.diag(
+        yerr**2 + jitter)
+    low = U.T @ V
+    K = K + np.tril(low, -1) + np.triu(low.T, 1) + np.diag(A)
+    s = solver.CholeskySolver(device="cpu")
+    s.compute(jitter, *cs, A=A, U=U, V=V, t=t, diag=yerr**2)
+    _close(s.log_determinant(), np.linalg.slogdet(K)[1])
+    _close(s.solve(y).reshape(-1), np.linalg.solve(K, y))
+    _close(s.dot_L(y).reshape(-1), np.linalg.cholesky(K) @ y)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
